@@ -1,0 +1,39 @@
+from .config import DUP_POLICIES, EngineConfig
+from .wire import RecordBatch, normalize_records
+from .stream import SgrStream, dedupe_stream, stream_chunks
+from .generators import (
+    ba_bipartite_stream,
+    bipartite_pa_stream,
+    dynamic_sgr_stream,
+    synthetic_rating_stream,
+    assign_timestamps,
+)
+from .engine import StreamingSGrapp
+from .state import (
+    OP_DELETE,
+    OP_INSERT,
+    StreamState,
+    resolve_window,
+    stream_state_init,
+)
+
+__all__ = [
+    "DUP_POLICIES",
+    "EngineConfig",
+    "RecordBatch",
+    "normalize_records",
+    "SgrStream",
+    "dedupe_stream",
+    "stream_chunks",
+    "ba_bipartite_stream",
+    "bipartite_pa_stream",
+    "dynamic_sgr_stream",
+    "synthetic_rating_stream",
+    "assign_timestamps",
+    "StreamingSGrapp",
+    "OP_INSERT",
+    "OP_DELETE",
+    "StreamState",
+    "resolve_window",
+    "stream_state_init",
+]

@@ -1,0 +1,99 @@
+"""K1 on the card against its plain torch version (marked ``gpu``).
+
+Run on a machine with a CUDA device:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu_kernels.py -q
+
+Elsewhere every test skips; whether a card is present is decided inside the
+``cuda`` fixture, never while the module is imported.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.butterfly import count_butterflies_np  # noqa: E402
+from repro_torch.core.executor import WindowExecutor  # noqa: E402
+from repro_torch.core.windows import windowize  # noqa: E402
+from repro_torch.kernels.butterfly import butterfly_kernel as k1  # noqa: E402
+from repro_torch.kernels.butterfly.ops import (  # noqa: E402
+    butterfly_count_pallas_windows,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no CPU mode")
+    return torch.device("cuda")
+
+
+def stack(b, n, k, density, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.random((b, n, k)) < density).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,n,k,block_i,density", [
+    (1, 8, 8, 8, 0.5),
+    (3, 37, 41, 8, 0.3),        # ragged rows and columns
+    (2, 130, 300, 64, 0.1),     # several tiles, ragged last tile
+    (4, 256, 512, 256, 0.05),   # exactly one tile
+    (2, 300, 129, 256, 0.2),    # ragged second tile, short contraction
+    (1, 513, 700, 128, 0.02),   # tile pairs across 128-row sub-tiles
+    (5, 40, 0, 8, 0.0),         # empty contraction
+])
+def test_kernel_partials_equal_plain(cuda, b, n, k, block_i, density):
+    a = stack(b, n, k, density, seed=n + k).to(cuda)
+    got = k1.butterfly_pairs_windows_kernel_call(a, block_i=block_i)
+    torch.cuda.synchronize()
+    want = k1.butterfly_pairs_windows_plain(a, block_i=block_i)
+    assert got.shape == want.shape == (b, k1.n_tile_pairs(n, block_i))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_kernel_above_2_24_within_rtol(cuda):
+    """Partials past 2**24 round in float32 in any summation order: the
+    kernel is held to the float64 plain version within rtol 1e-5."""
+    a = stack(2, 512, 2048, 0.3, seed=7).to(cuda)
+    got = k1.butterfly_pairs_windows_kernel_call(a, block_i=256).double()
+    want = k1.butterfly_pairs_windows_plain(a, block_i=256,
+                                            dtype=torch.float64)
+    assert float(want.max()) > 2**24
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+
+
+def test_launch_counter_counts_launches_only(cuda):
+    k1.reset_launch_count()
+    a = stack(2, 20, 30, 0.3, seed=1)
+    k1.butterfly_pairs_windows_kernel_call(a, block_i=8)        # CPU: plain
+    assert k1.launch_count() == 0
+    k1.butterfly_pairs_windows_kernel_call(a.to(cuda), block_i=8)
+    k1.butterfly_pairs_windows_kernel_call(a[:0].to(cuda), block_i=8)
+    assert k1.launch_count() == 1
+
+
+def test_kernel_rejects_non_contiguous(cuda):
+    a = stack(2, 20, 30, 0.3, seed=1).to(cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.butterfly_pairs_windows_kernel_call(a, block_i=8)
+
+
+def test_ops_counts_equal_oracle(cuda):
+    a = stack(3, 70, 45, 0.2, seed=3)
+    got = butterfly_count_pallas_windows(a.to(cuda), block_i=16).cpu()
+    for w in range(3):
+        ii, jj = np.nonzero(a[w].numpy())
+        assert float(got[w]) == count_butterflies_np(np.stack([ii, jj], 1))
+
+
+@pytest.mark.parametrize("tier", ["dense", "pallas"])
+def test_executor_tiers_equal_oracle_on_cuda(cuda, tier):
+    from repro_torch.streams import bipartite_pa_stream
+
+    s = bipartite_pa_stream(20000, n_unique=4000, seed=5)
+    wb = windowize(s.tau, s.edge_i, s.edge_j, 200)
+    got = WindowExecutor(tier, device=cuda, chunk=3).window_counts(wb)
+    want = WindowExecutor("numpy", device="cpu").window_counts(wb)
+    np.testing.assert_array_equal(got, want)

@@ -1,0 +1,90 @@
+"""Rules the port keeps: no JAX and no reference package at run time, and no
+silent CPU run when the caller did not ask for the CPU."""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import WindowExecutor, run_sgrapp, run_sgrapp_x  # noqa: E402
+from repro_torch.core.sgrapp import sgrapp_estimate  # noqa: E402
+from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.streams import (  # noqa: E402
+    EngineConfig,
+    StreamingSGrapp,
+    bipartite_pa_stream,
+)
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_never_imports_jax_or_the_reference(path):
+    bad = imported_roots(path) & FORBIDDEN
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_scan_sees_every_module():
+    names = {p.name for p in PORT_FILES}
+    assert {"executor.py", "sgrapp.py", "engine.py", "butterfly_kernel.py",
+            "ops.py", "build.py", "chip_smoke.py"} <= names
+    assert imported_roots(ROOT / "tests" / "test_torch_engine.py") >= {
+        "repro", "repro_torch"}
+
+
+def test_cuda_sources_ship_with_the_package():
+    assert list((ROOT / "src" / "repro_torch" / "kernels" / "butterfly"
+                 / "csrc").glob("*.cu"))
+    text = (ROOT / "pyproject.toml").read_text()
+    assert "csrc/*.cu" in text and "gpu:" in text
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def small_batch():
+    s = bipartite_pa_stream(600, n_unique=200, seed=1)
+    return s.windowize(20)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: run_sgrapp(small_batch(), 1.02, tier="pallas"),
+    lambda: run_sgrapp(small_batch(), 1.02),
+    lambda: run_sgrapp_x(small_batch(), 1.02, np.ones(2), tier="dense"),
+    lambda: WindowExecutor("pallas"),
+    lambda: WindowExecutor("numpy"),
+    lambda: StreamingSGrapp(20, 1.02, config=EngineConfig(tier="pallas")),
+    lambda: sgrapp_estimate(np.ones(3), np.arange(3), 1.0),
+    lambda: resolve_device("cuda"),
+], ids=["run_sgrapp_pallas", "run_sgrapp_default", "run_sgrapp_x",
+        "executor_pallas", "executor_numpy", "engine", "estimator",
+        "resolve_cuda"])
+def test_without_a_card_entry_points_raise(no_card, entry):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def test_explicit_cpu_runs(no_card):
+    res = run_sgrapp(small_batch(), 1.02, tier="pallas", device="cpu")
+    assert np.isfinite(res.estimates).all()
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        resolve_device("meta")
