@@ -127,10 +127,11 @@ def sync(device) -> None:
 
 def adjacency_stacks(batch, ex, device):
     """The ``[c, n_g, n_k]`` stacks K1 sees on the replay: every bucket of
-    ``ex``'s plan, chunked and oriented exactly as the executor does."""
+    ``ex``'s plan, chunked as the executor chunks and oriented as the
+    pallas tier orients."""
     import torch
 
-    from repro_torch.core.butterfly import build_biadjacency
+    from repro_torch.kernels.butterfly.ops import oriented_biadjacency
 
     for b in ex.plan(batch):
         for s in range(0, b.n_windows, ex.chunk):
@@ -138,10 +139,7 @@ def adjacency_stacks(batch, ex, device):
             ei = torch.as_tensor(batch.edge_i[win, :b.cap_e], device=device)
             ej = torch.as_tensor(batch.edge_j[win, :b.cap_e], device=device)
             v = torch.as_tensor(batch.valid[win, :b.cap_e], device=device)
-            if b.cap_i > b.cap_j:
-                yield b, build_biadjacency(ej, ei, v, b.cap_j, b.cap_i)
-            else:
-                yield b, build_biadjacency(ei, ej, v, b.cap_i, b.cap_j)
+            yield b, oriented_biadjacency(ei, ej, v, b.cap_i, b.cap_j)
 
 
 def edge_stack(edge_lists, device):

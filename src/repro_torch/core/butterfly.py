@@ -167,16 +167,19 @@ def count_butterflies_dense(adj: torch.Tensor) -> torch.Tensor:
 
     The Gram side is whichever side is smaller (the paper iterates the
     lower-degree side; with the Gram trick that is a transpose decision).
-    The matmul runs in full float32: TF32 is switched off explicitly.  0/1
-    operands are exact in TF32 too, but the reference states float32
-    arithmetic, so the port runs the same.
+    The matmul runs in full float32: TF32 is switched off around it and the
+    caller's setting restored after.  0/1 operands are exact in TF32 too,
+    but the reference states float32 arithmetic, so the port runs the same.
     """
     a = adj.to(torch.float32)
     if a.shape[-2] > a.shape[-1]:
         a = a.transpose(-2, -1)
-    if a.is_cuda:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    w = torch.matmul(a, a.transpose(-2, -1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        w = torch.matmul(a, a.transpose(-2, -1))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
     pairs = w * (w - 1.0) * 0.5
     off = pairs.sum(dim=(-2, -1)) - torch.diagonal(
         pairs, dim1=-2, dim2=-1).sum(dim=-1)

@@ -271,16 +271,14 @@ class WindowExecutor:
                       v: torch.Tensor) -> torch.Tensor:
         """``[c, cap_e]`` lanes of one chunk -> ``[c]`` float32 counts."""
         if self.tier == "dense":
-            adjs = build_biadjacency(ei, ej, v, b.cap_i, b.cap_j)
-            return count_butterflies_dense(adjs)
-        from ..kernels.butterfly.ops import butterfly_count_pallas_windows
+            return count_butterflies_dense(
+                build_biadjacency(ei, ej, v, b.cap_i, b.cap_j))
+        from ..kernels.butterfly.ops import (
+            butterfly_count_pallas_windows,
+            oriented_biadjacency,
+        )
 
-        # orient in the scatter: the Gram side (the smaller one) becomes the
-        # rows, so K1 reads a contiguous stack with no transpose copy
-        if b.cap_i > b.cap_j:
-            adjs = build_biadjacency(ej, ei, v, b.cap_j, b.cap_i)
-        else:
-            adjs = build_biadjacency(ei, ej, v, b.cap_i, b.cap_j)
+        adjs = oriented_biadjacency(ei, ej, v, b.cap_i, b.cap_j)
         return butterfly_count_pallas_windows(adjs, block_i=self.block_i)
 
     def _counter(self, b: Bucket):

@@ -230,9 +230,9 @@ def run_sgrapp(
     """Algorithm 4 end-to-end: exact window counts through the executor's
     tier (numpy | dense | pallas), then the estimator on the same device."""
     ex = _executor_for(tier, executor, device)
-    wc = window_exact_counts(batch, executor=ex)
+    wc = ex.window_counts(batch).astype(np.float32)
     est = sgrapp_estimate(wc, batch.cum_sgrs, alpha, device=ex.device)
-    return SGrappResult(_host(est), _host(wc),
+    return SGrappResult(_host(est), wc,
                         np.asarray(batch.cum_sgrs, dtype=np.float64),
                         float(alpha), truths)
 
@@ -252,7 +252,7 @@ def run_sgrapp_x(
     """Algorithm 5 end-to-end; ``x_percent`` is the share of windows with
     ground truth available (the paper's x)."""
     ex = _executor_for(tier, executor, device)
-    wc = window_exact_counts(batch, executor=ex)
+    wc = ex.window_counts(batch).astype(np.float32)
     n = wc.shape[0]
     n_sup = int(round(n * x_percent / 100.0))
     full_truth = np.zeros(n, dtype=np.float64)
@@ -263,7 +263,7 @@ def run_sgrapp_x(
     est, alpha_f = sgrapp_x_estimate(wc, batch.cum_sgrs, alpha0, full_truth,
                                      mask, tol=tol, step=step,
                                      device=ex.device)
-    return SGrappResult(_host(est), _host(wc),
+    return SGrappResult(_host(est), wc,
                         np.asarray(batch.cum_sgrs, dtype=np.float64),
                         float(alpha_f), np.asarray(truths, dtype=np.float64))
 

@@ -3,9 +3,10 @@
 Every ``.cu`` source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a``
 into one shared library with a plain C interface, which is loaded with
 ``ctypes``.  The build happens at first use, into ``build/repro_torch_kernels/``
-at the root of the checkout (listed in ``.gitignore``); the library's file
-name carries a hash of the sources and flags, so an edited source never
-loads a stale library.  Nothing here runs at import: the CPU tests import
+at the root of the checkout (listed in ``.gitignore``), or, for an installed
+package, into ``~/.cache/repro_torch_kernels/``; the library's file name
+carries a hash of the sources and flags, so an edited source never loads a
+stale library.  Nothing here runs at import: the CPU tests import
 this module on hosts without ``nvcc``.
 """
 from __future__ import annotations
@@ -22,8 +23,17 @@ from pathlib import Path
 __all__ = ["BuildInfo", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-# src/repro_torch/kernels/butterfly/build.py -> the checkout root
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
+
+
+def _build_dir() -> Path:
+    # <root>/src/repro_torch/kernels/butterfly/build.py in a checkout
+    src = Path(__file__).resolve().parents[3]
+    if src.name == "src" and (src.parent / "pyproject.toml").is_file():
+        return src.parent / "build" / "repro_torch_kernels"
+    return Path.home() / ".cache" / "repro_torch_kernels"
+
+
+BUILD_DIR = _build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import torch
 
+from ...core.butterfly import build_biadjacency
 from .butterfly_kernel import butterfly_pairs_windows_kernel_call
 
-__all__ = ["butterfly_count_pallas_windows", "clamp_block_i"]
+__all__ = ["butterfly_count_pallas_windows", "clamp_block_i", "oriented",
+           "oriented_biadjacency"]
 
 
 def clamp_block_i(block_i: int, n: int) -> int:
@@ -21,21 +23,35 @@ def clamp_block_i(block_i: int, n: int) -> int:
     return min(block_i, max(8, -(-n // 8) * 8))
 
 
-def butterfly_count_pallas_windows(adjs: torch.Tensor, *, block_i: int = 256,
-                                   orient: bool = True) -> torch.Tensor:
-    """Count a ``[B, n_i, n_j]`` stack of 0/1 biadjacencies -> ``[B]``
-    float32 counts with ONE launch of K1.
+def oriented(adjs: torch.Tensor) -> torch.Tensor:
+    """The stack K1 reads: ``adjs`` as contiguous float32 with the smaller
+    side (the Gram side) as rows.  Every window of a bucket shares its
+    capacity, so the transpose decision the per-window reference makes
+    applies stack-wide; a transposed stack is copied."""
+    a = adjs.transpose(1, 2) if adjs.shape[1] > adjs.shape[2] else adjs
+    return a.to(torch.float32).contiguous()
 
-    Orientation and the tile clamp are per stack: every window of a bucket
-    shares its capacity, so the transpose decision the per-window reference
-    makes applies stack-wide.  Any dtype is cast to float32 (as the
-    reference kernel casts); a transposed stack is copied contiguous.  No
-    padding: K1 masks the ragged edge.
+
+def oriented_biadjacency(edge_i: torch.Tensor, edge_j: torch.Tensor,
+                         valid: torch.Tensor, n_i: int,
+                         n_j: int) -> torch.Tensor:
+    """Lanes ``[c, cap_e]`` -> the stack :func:`oriented` would make of
+    their ``[c, n_i, n_j]`` biadjacencies, built oriented by the scatter
+    itself: a strided transpose copy of a large stack costs a sizeable
+    share of K1's own time."""
+    if n_i > n_j:
+        return build_biadjacency(edge_j, edge_i, valid, n_j, n_i)
+    return build_biadjacency(edge_i, edge_j, valid, n_i, n_j)
+
+
+def butterfly_count_pallas_windows(adjs: torch.Tensor, *,
+                                   block_i: int = 256) -> torch.Tensor:
+    """Count a ``[B, n_i, n_j]`` stack of 0/1 biadjacencies -> ``[B]``
+    float32 counts with ONE launch of K1 on the :func:`oriented` stack, at
+    the tile clamped to its Gram side.  Any dtype is cast to float32 (as the
+    reference kernel casts).  No padding: K1 masks the ragged edge.
     """
-    a = adjs
-    if orient and a.shape[1] > a.shape[2]:
-        a = a.transpose(1, 2)
-    a = a.to(torch.float32).contiguous()
+    a = oriented(adjs)
     partials = butterfly_pairs_windows_kernel_call(
         a, block_i=clamp_block_i(block_i, a.shape[1]))
     return partials.sum(dim=1)

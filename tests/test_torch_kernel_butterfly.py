@@ -32,6 +32,8 @@ from repro_torch.kernels.butterfly import butterfly_kernel as k1  # noqa: E402
 from repro_torch.kernels.butterfly.ops import (  # noqa: E402
     butterfly_count_pallas_windows,
     clamp_block_i,
+    oriented,
+    oriented_biadjacency,
 )
 from repro_torch.kernels.butterfly.ref import butterfly_count_ref  # noqa: E402
 
@@ -93,6 +95,35 @@ def test_count_windows_casts_other_dtypes():
         got = butterfly_count_pallas_windows(torch.from_numpy(a).to(dt),
                                              block_i=8)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_i,n_j", [(40, 24), (24, 40), (16, 16)])
+def test_oriented_puts_the_smaller_side_first(n_i, n_j):
+    a = torch.from_numpy(stack(2, n_i, n_j, 0.3, seed=5)).to(torch.int8)
+    got = oriented(a)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert got.shape == (2, min(n_i, n_j), max(n_i, n_j))
+    want = a.transpose(1, 2) if n_i > n_j else a
+    assert torch.equal(got, want.float())
+    # the scatter builds the same stack without the transpose copy
+    rng = np.random.default_rng(n_i)
+    ei = torch.from_numpy(rng.integers(0, n_i, (2, 60)).astype(np.int32))
+    ej = torch.from_numpy(rng.integers(0, n_j, (2, 60)).astype(np.int32))
+    v = torch.from_numpy(rng.random((2, 60)) < 0.8)
+    built = oriented_biadjacency(ei, ej, v, n_i, n_j)
+    assert built.is_contiguous()
+    assert torch.equal(built, oriented(build_biadjacency(ei, ej, v, n_i, n_j)))
+
+
+@pytest.mark.parametrize("tf32", [True, False])
+def test_dense_tier_restores_the_tf32_setting(tf32):
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        count_butterflies_dense(torch.from_numpy(stack(1, 9, 7, 0.4, 3)[0]))
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def test_clamp_block_i_matches_reference_rule():
