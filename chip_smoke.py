@@ -3,31 +3,55 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the port's CUDA kernel K1
-(``src/repro_torch/kernels/butterfly/csrc/``) with ``nvcc`` for ``sm_90a``,
-holds it against its plain torch version, replays a 2M-sgr stream through
-``run_sgrapp`` / ``run_sgrapp_x`` on the ``pallas`` tier (K1) and the
-``dense`` tier, and pushes the same stream through the online engine
-``StreamingSGrapp`` across a ``state_dict`` / ``restore``.  Every check
-raises on failure, so the exit code is non-zero unless all phases pass.
+Run from the root of a checkout.  It builds the port's CUDA kernels K1 and
+K2 (``src/repro_torch/kernels/butterfly/csrc/``, one ``nvcc`` per source,
+all started together) for ``sm_90a``, holds each kernel against its plain
+torch version, replays a 2M-sgr stream through ``run_sgrapp`` /
+``run_sgrapp_x`` on the ``pallas`` tier (K1) and the ``dense`` tier, pushes
+the same stream through the online engine ``StreamingSGrapp`` under the
+``distinct`` and ``multiset`` duplicate policies (K1 and K2) across a
+``state_dict`` / ``restore``, runs a dynamic stream with deletes, sweeps the
+``tiled`` / ``sparse`` / ``auto`` tiers and counts single matrices through
+K3.  Every check raises on failure, so the exit code is non-zero unless all
+phases pass.
 
-Phases:
+Phases (each path's launch counts are set to 0 just before it runs and read
+just after):
 
-0. setup: the card's name and power limit, torch and CUDA versions, K1's
-   build (time and ``-Xptxas -v``), and the smoke stream;
+0. setup: the card's name and power limit, torch and CUDA versions, the
+   kernels' build (time and ``-Xptxas -v``), and the smoke stream;
 1. kernel: K1 against its plain version on adversarial shapes (exact), a
    dense random stack whose sums pass 2**24 (rtol 1e-5 against float64) and
-   the replay's own bucket stacks (exact); then K1's time at the replay's
-   largest bucket beside the plain version, a ``torch.bmm`` Gram (a
-   yardstick the port never calls) and the least time the card could take;
+   the replay's own bucket stacks (exact); K2 against its float64 plain
+   version on adversarial shapes with multiplicities <= 8 (exact) and on
+   the largest stack the multiset engine handed K2 in phase 4 (rtol
+   ``RTOL_K2``; this check runs after phase 4); each kernel's time beside
+   its plain version, a ``torch.bmm`` yardstick (never called by the port)
+   and the least time the card could take;
 2. replay: ``pallas`` equals ``dense`` on every window and the numpy oracle
    on every 10th, K1 ran once per bucket chunk, and sGrapp-x runs with
    truths on the first windows;
 3. stream: micro-batches of 256 through the engine equal the replay bit for
    bit, across a ``state_dict`` / ``restore`` at the midpoint;
-4. profile: ``torch.profiler`` over the replay (pallas and dense tiers) and
-   the stream: the device's busy and idle share of the wall time and the
-   kernels that take the most device time.
+4. multiset: the smoke stream through ``StreamingSGrapp(dup_policy=
+   "multiset")`` on ``pallas`` (K2) at mb=256 across a restore equals
+   ``pallas`` at mb = the whole stream bit for bit; ``dense`` and ``pallas``
+   agree within ``RTOL_MULTISET``, and so does each with the int64 oracle
+   on every 10th window of ``replay_dynamic``'s replay of the stream;
+   windows whose ``W^2``, ``S`` and pair sums all stay below 2**24 are
+   exact;
+5. dynamic: a stream with deletes and duplicates through the engine under
+   both policies on ``pallas``: its windows equal ``replay_dynamic``'s and
+   its counts ``oracle_window_counts``';
+6. tiers: one distinct replay on ``tiled``, ``sparse`` and ``auto`` equals
+   ``dense`` on every window; their wall and device times, the buckets
+   ``auto`` sent to ``sparse``, and the card's ``route_tier`` crossover;
+7. K3: every 25th replay window through ``butterfly_count_pallas`` and
+   ``butterfly_count_tiles`` equals the replay, K3 against its plain version
+   and its time;
+8. profile: ``torch.profiler`` over the replay (pallas and dense tiers) and
+   the distinct and multiset streams: the device's busy and idle share of
+   the wall time and the kernels that take the most device time.
 
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit as ``nvidia-smi`` gives them, and
@@ -38,7 +62,9 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -51,10 +77,24 @@ SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the int8 tensor-core rate is
 # the bound K1's 0/1 operands could reach exactly; fp32 SIMT is the rate
-# this first kernel runs at
+# the first kernels run at
 PEAK_INT8_OPS = 1979e12
+PEAK_FP16_OPS = 989e12
 PEAK_FP32_SIMT = 67e12
 PEAK_BYTES = 3.35e12
+
+# K2 against its float64 plain version on the largest stack the multiset
+# engine hands it, per window count: the W^2 - S cancellation leaves the
+# float32 rounding of both terms in the count.  Measured 1.07653e-06 at
+# [11, 3776, 5056] on an H100 (PERF.md, PR 12); the bound leaves a factor
+# of about 9.
+RTOL_K2 = 1e-5
+# multiset counts of one window from two float32 tiers, or from a float32
+# tier and the int64 oracle, on the smoke stream.  Measured on an H100: K2
+# 2.1631e-06 and the dense tier 2.5888e-05 off the oracle, 4.0362e-05
+# apart (PERF.md, PR 12).  The bound leaves a factor of about 12 for a
+# float32 tier that sums in another order, as the reference's does.
+RTOL_MULTISET = 5e-4
 
 # the adversarial window corpus of tests/test_tier_differential.py
 
@@ -142,17 +182,51 @@ def adjacency_stacks(batch, ex, device):
             yield b, oriented_biadjacency(ei, ej, v, b.cap_i, b.cap_j)
 
 
-def edge_stack(edge_lists, device):
-    """One zero-padded 0/1 biadjacency per edge list, as one stack."""
+def corpus_edges() -> list[np.ndarray]:
+    """The adversarial corpus as unique ``[m, 2]`` edge arrays."""
+    return [np.unique(np.asarray(e, np.int64), axis=0)
+            for e in ADVERSARIAL.values()]
+
+
+def weighted_stack(edge_lists, mults, device):
+    """One zero-padded weighted biadjacency per (edges, mult) pair."""
     import torch
 
-    n_i = max(max(i for i, _ in e) for e in edge_lists) + 1
-    n_j = max(max(j for _, j in e) for e in edge_lists) + 1
+    n_i = max(int(e[:, 0].max()) for e in edge_lists) + 1
+    n_j = max(int(e[:, 1].max()) for e in edge_lists) + 1
     a = torch.zeros((len(edge_lists), n_i, n_j), dtype=torch.float32)
-    for w, e in enumerate(edge_lists):
-        ii, jj = zip(*e)
-        a[w, list(ii), list(jj)] = 1.0
+    for w, (e, m) in enumerate(zip(edge_lists, mults)):
+        a[w, torch.from_numpy(e[:, 0]), torch.from_numpy(e[:, 1])] = (
+            torch.from_numpy(m.astype(np.float32)))
     return a.to(device)
+
+
+def push_engine(cfg, nt_w, alpha0, tau, ei, ej, op=None, mb=256,
+                restore_at=None):
+    """Push a stream through a fresh ``StreamingSGrapp`` in micro-batches
+    of ``mb`` (with a ``state_dict`` / ``restore`` into a new engine after
+    ``restore_at`` records) and finalize.  Returns (engine, result, the
+    records before the restore, windows in the state dict)."""
+    from repro_torch.streams import StreamingSGrapp
+
+    n = len(tau)
+    half = n if restore_at is None else (restore_at // mb) * mb
+    eng = StreamingSGrapp(nt_w, alpha0, config=cfg)
+
+    def feed(a0, a1):
+        for a in range(a0, a1, mb):
+            b = min(a + mb, a1)
+            eng.push(tau[a:b], ei[a:b], ej[a:b],
+                     op=None if op is None else op[a:b])
+
+    feed(0, half)
+    n_sd = 0
+    if restore_at is not None:
+        sd = eng.state_dict()
+        n_sd = sd["counts"].shape[0]
+        eng = StreamingSGrapp(nt_w, alpha0, config=cfg).restore(sd)
+    feed(half, n)
+    return eng, eng.finalize(), half, n_sd
 
 
 def phase_kernel(wb, device, ex) -> dict:
@@ -176,7 +250,8 @@ def phase_kernel(wb, device, ex) -> dict:
 
     # (a) adversarial shapes: the corpus, all-zero windows, n_i > n_j,
     # non-tile-multiples and a hub whose row sits on a tile boundary
-    corpus = edge_stack(list(ADVERSARIAL.values()), device)
+    corpus = weighted_stack(corpus_edges(),
+                            [np.ones(len(e)) for e in corpus_edges()], device)
     hub = torch.zeros((2, 600, 700), dtype=torch.float32)
     hub[0, 256, :] = 1.0                      # hub on the first row of tile 1
     hub[0, 255, ::2] = 1.0                    # and its neighbour across the edge
@@ -350,23 +425,15 @@ def phase_stream(stream, nt_w, alpha0, device, replay, mb: int = 256) -> int:
     """Phase 3: the online engine equals the replay bit for bit across a
     state_dict / restore at the midpoint."""
     from repro_torch.kernels.butterfly import butterfly_kernel as k1
-    from repro_torch.streams import EngineConfig, StreamingSGrapp
+    from repro_torch.streams import EngineConfig
 
     cfg = EngineConfig(tier="pallas", flush_every=32, device=device)
     n = len(stream)
-    half = (n // 2 // mb) * mb
     k1.reset_launch_count()
     t0 = time.perf_counter()
-    eng = StreamingSGrapp(nt_w, alpha0, config=cfg)
-    for a in range(0, half, mb):
-        eng.push(stream.tau[a:a + mb], stream.edge_i[a:a + mb],
-                 stream.edge_j[a:a + mb])
-    sd = eng.state_dict()
-    eng = StreamingSGrapp(nt_w, alpha0, config=cfg).restore(sd)
-    for a in range(half, n, mb):
-        eng.push(stream.tau[a:a + mb], stream.edge_i[a:a + mb],
-                 stream.edge_j[a:a + mb])
-    res = eng.finalize()
+    _, res, half, n_sd = push_engine(cfg, nt_w, alpha0, stream.tau,
+                                     stream.edge_i, stream.edge_j, mb=mb,
+                                     restore_at=n // 2)
     sync(device)
     sec = time.perf_counter() - t0
     launches = k1.launch_count()
@@ -376,38 +443,561 @@ def phase_stream(stream, nt_w, alpha0, device, replay, mb: int = 256) -> int:
     check(np.array_equal(res.estimates, replay.estimates),
           "streamed estimates differ from the replay (not bit-identical)")
     log(f"[stream] mb={mb}, flush_every=32, state_dict/restore after "
-        f"{half} sgrs ({sd['counts'].shape[0]} windows): {len(res.estimates)} "
+        f"{half} sgrs ({n_sd} windows): {len(res.estimates)} "
         f"windows bit-identical to the replay; {n} sgrs in {sec:.4f} s = "
         f"{n / sec:.4f} sgrs/s; K1 launches {launches}")
     return launches
 
 
+def exact_op_time(max_value: float, depth: int) -> tuple[float, str]:
+    """Seconds per operation at the fastest H100 rate that multiplies
+    integer operands up to ``max_value`` exactly over a contraction of
+    ``depth``: fp16 tensor cores (11-bit significand) up to 2,048, int8
+    tensor cores on 7-bit limbs (``L`` limbs cost ``L**2`` products, each
+    summed exactly in int32 while ``127**2 * depth < 2**31``), or the fp32
+    SIMT units, whichever is quickest."""
+    options = [(1 / PEAK_FP32_SIMT, "fp32 SIMT")]
+    if max_value <= 2048:
+        options.append((1 / PEAK_FP16_OPS, "fp16 tensor cores"))
+    if 127 ** 2 * depth < 2 ** 31:
+        limbs = max(1, math.ceil(math.log2(max_value + 1) / 7))
+        options.append((limbs ** 2 / PEAK_INT8_OPS, "int8 tensor cores" + (
+            f" on {limbs} 7-bit limbs ({limbs ** 2} limb products)"
+            if limbs > 1 else "")))
+    return min(options)
+
+
+@contextlib.contextmanager
+def largest_k2_stack(seen: dict):
+    """While open, keep a copy of the largest stack (by K2's work,
+    ``B * n_g**2 * n_k``) that the pallas tier hands its multiset entry,
+    with its ``block_i``, in ``seen``; ``seen["stacks"]`` counts them."""
+    from repro_torch.kernels.butterfly import ops
+
+    entry = ops.butterfly_count_pallas_windows_multiset
+
+    def recording(adjs, *, block_i=256):
+        n_g, n_k = sorted(adjs.shape[1:])
+        work = adjs.shape[0] * n_g * n_g * n_k
+        seen["stacks"] = seen.get("stacks", 0) + 1
+        if work > seen.get("work", -1):
+            seen.update(work=work, adjs=adjs.clone(), block_i=block_i)
+        return entry(adjs, block_i=block_i)
+
+    ops.butterfly_count_pallas_windows_multiset = recording
+    try:
+        yield seen
+    finally:
+        ops.butterfly_count_pallas_windows_multiset = entry
+
+
+def gram_envelope(adj) -> tuple[float, float, float]:
+    """For one weighted biadjacency: the largest ``W^2`` and ``S`` entry and
+    the sum of ``(W^2 - S)/2`` over the whole matrix (diagonal included, as
+    the dense tier sums it), all in float64.  When all three stay below
+    2**24 every float32 step of the dense tier and K2 is exact."""
+    import torch
+
+    a = adj.to(torch.float64)
+    if a.shape[0] > a.shape[1]:
+        a = a.T
+    w = a @ a.T
+    a2 = a * a
+    s = a2 @ a2.T
+    return (float((w * w).max()), float(s.max()),
+            float(((w * w - s) * 0.5).sum()))
+
+
+def phase_kernel_k2(seen, device) -> dict:
+    """Phase 1 for K2: exact on adversarial shapes with multiplicities <= 8,
+    within RTOL_K2 on the largest stack the multiset engine handed K2 in
+    phase 4 (``seen``, from :func:`largest_k2_stack`), then its time
+    there."""
+    import torch
+
+    from repro_torch.core.butterfly import full_fp32_matmul
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.kernels.butterfly.ops import (
+        clamp_block_i,
+        oriented,
+        window_sums,
+    )
+
+    max_err = 0.0
+    gen = torch.Generator().manual_seed(13)
+    rng = np.random.default_rng(13)
+
+    def sparse_weights(shape, density):
+        present = torch.rand(shape, generator=gen) < density
+        mult = torch.randint(1, 9, shape, generator=gen).float()
+        return (present * mult).to(device)
+
+    corpus = corpus_edges()
+    corpus_m = [rng.integers(1, 9, len(e)) for e in corpus]
+    hub = torch.zeros((2, 600, 700), dtype=torch.float32)
+    hub[0, 256, :] = 1.0                      # hub on the first row of tile 1
+    hub[0, 255, ::2] = 1.0                    # and its neighbour across the edge
+    hub[0, ::3, 5] = torch.randint(1, 9, (200,), generator=gen).float()
+    hub[1] = (torch.rand((600, 700), generator=gen) < 0.02).float() * (
+        torch.randint(1, 9, (600, 700), generator=gen).float())
+    cstack = weighted_stack(corpus, corpus_m, device)
+    cases = {
+        "adversarial corpus": cstack,
+        "corpus oriented": cstack.transpose(1, 2).contiguous(),
+        "all-zero windows": torch.zeros((3, 70, 90), device=device),
+        "n_i > n_j": sparse_weights((2, 300, 40), 0.05),
+        "non-tile-multiple": sparse_weights((3, 129, 515), 0.02),
+        "hub on a tile boundary": hub.to(device),
+    }
+    for what, a in cases.items():
+        for block_i in (8, 64, 256):
+            bi = clamp_block_i(block_i, a.shape[1])
+            want = kk.butterfly_pairs_windows_multiset_plain(
+                a, block_i=bi, dtype=torch.float64)
+            check(want.numel() == 0 or float(want.abs().max()) < 2**24,
+                  f"K2 case {what} passes 2**24: not an exactness case")
+            got = kk.butterfly_pairs_windows_multiset_kernel_call(a,
+                                                                  block_i=bi)
+            sync(device)
+            err = (float((got.double() - want).abs().max())
+                   if got.numel() else 0.0)
+            max_err = max(max_err, err)
+            check(torch.equal(got.double(), want),
+                  f"K2 != float64 plain on {what} (block_i={bi}, max abs "
+                  f"err {err})")
+    log(f"[kernel] K2 (a) adversarial shapes, multiplicities <= 8, every "
+        f"partial below 2**24: K2 == float64 plain exactly ({len(cases)} "
+        f"stacks x 3 tile sizes)")
+
+    # (b) the largest stack the engine handed K2 in phase 4's counted run,
+    # at the tile the pallas tier clamps it to
+    adjs = oriented(seen["adjs"])
+    bsz, n_g, n_k = adjs.shape
+    block_i = clamp_block_i(seen["block_i"], n_g)
+    got = kk.butterfly_pairs_windows_multiset_kernel_call(adjs,
+                                                          block_i=block_i)
+    want = kk.butterfly_pairs_windows_multiset_plain(adjs, block_i=block_i,
+                                                     dtype=torch.float64)
+    sync(device)
+    counts, want_counts = window_sums(got).double(), want.sum(dim=1)
+    rel = float(((counts - want_counts).abs()
+                 / want_counts.abs().clamp_min(1.0)).max())
+    prel = float(((got.double() - want).abs()
+                  / want.abs().clamp_min(1.0)).max())
+    max_err = max(max_err, float((got.double() - want).abs().max()))
+    max_mult = float(adjs.max())
+    log(f"[kernel] K2 (b) the largest of the {seen['stacks']} stacks the "
+        f"multiset engine handed K2 in phase 4 (stack [{bsz}, {n_g}, {n_k}], "
+        f"block_i={block_i}, "
+        f"multiplicities up to {max_mult:.0f}): window counts up to "
+        f"{float(want_counts.max()):.6g}, partials up to "
+        f"{float(want.max()):.6g}; K2 vs float64 plain: max rel err "
+        f"{rel:.6g} per window count (bound {RTOL_K2}), {prel:.6g} per "
+        f"partial")
+    check(rel <= RTOL_K2, f"K2 vs float64 plain: rel err {rel} > {RTOL_K2}")
+
+    ms = time_ms(lambda: kk.butterfly_pairs_windows_multiset_kernel_call(
+        adjs, block_i=block_i), device)
+    plain_ms = time_ms(lambda: kk.butterfly_pairs_windows_multiset_plain(
+        adjs, block_i=block_i), device)
+
+    def library():
+        with full_fp32_matmul():
+            w = torch.bmm(adjs, adjs.transpose(1, 2))
+            a2 = adjs * adjs
+            s2 = torch.bmm(a2, a2.transpose(1, 2))
+        pairs = (w * w - s2) * 0.5
+        return (pairs.sum(dim=(1, 2))
+                - torch.diagonal(pairs, dim1=1, dim2=2).sum(dim=1)) * 0.5
+
+    library_ms = time_ms(library, device)
+    lib_rel = float(((library().double() - want_counts).abs()
+                     / want_counts.abs().clamp_min(1.0)).max())
+    check(lib_rel <= RTOL_MULTISET,
+          f"the bmm yardstick is {lib_rel} off the float64 counts")
+    t = kk.n_tile_pairs(n_g, block_i)
+    macs = bsz * n_g * (n_g - 1) / 2 * n_k      # per Gram, strict upper
+    op_w, unit_w = exact_op_time(max_mult, n_k)
+    op_s, unit_s = exact_op_time(max_mult ** 2, n_k)
+    ops_ms = 2 * macs * (op_w + op_s) * 1e3
+    bytes_ms = (adjs.numel() * 4 + bsz * t * 4) / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    simt_ms = 4 * macs / PEAK_FP32_SIMT * 1e3
+    log(f"[kernel] K2 timing there: K2 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.bmm Grams + epilogue {library_ms:.4f} ms (max rel err "
+        f"{lib_rel:.6g} vs float64); bound {bound_ms:.4f} ms (operations: "
+        f"{4 * macs:.4g} in two Gram triangles, W on {unit_w} for "
+        f"multiplicities up to {max_mult:.0f}, S on {unit_s} for their "
+        f"squares up to {max_mult ** 2:.0f}; bytes {bytes_ms:.4f} ms; both "
+        f"Grams at the fp32 SIMT peak {simt_ms:.4f} ms); K2 at "
+        f"{bound_ms / ms:.4%} of the bound, {simt_ms / ms:.2%} of fp32 SIMT "
+        f"peak")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "rel": rel}
+
+
+def phase_multiset(stream, wins, nt_w, alpha0, device,
+                   seen: dict) -> int:
+    """Phase 4: the multiset engine on pallas (K2) and dense, held to
+    itself bit for bit across micro-batch sizes and a restore, and to the
+    int64 oracle on ``wins`` (``replay_dynamic``'s windows) within
+    RTOL_MULTISET.  The largest stack K2 receives in the counted run is
+    kept in ``seen`` for phase 1's K2 check."""
+    import torch
+
+    from repro_torch.core import count_butterflies_multiset_np
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.streams import EngineConfig
+
+    n = len(stream)
+    cols = (stream.tau, stream.edge_i, stream.edge_j)
+    pallas = EngineConfig(tier="pallas", dup_policy="multiset",
+                          flush_every=32, device=device)
+    kk.reset_launch_count()
+    t0 = time.perf_counter()
+    with largest_k2_stack(seen):
+        _, res, half, n_sd = push_engine(pallas, nt_w, alpha0, *cols,
+                                         restore_at=n // 2)
+        sync(device)
+    sec = time.perf_counter() - t0
+    launches = kk.launch_count("K2")
+    check(launches > 0 or device.type != "cuda",
+          "the multiset engine never launched K2")
+    check(kk.launch_count("K1") == 0, "the multiset engine launched K1")
+    check(len(res.window_counts) == len(wins), "multiset window count")
+    log(f"[multiset] pallas (K2), mb=256, flush_every=32, state_dict/"
+        f"restore after {half} sgrs ({n_sd} windows): {len(wins)} windows, "
+        f"{n} sgrs in {sec:.4f} s = {n / sec:.4f} sgrs/s; K2 launches "
+        f"{launches}")
+    t0 = time.perf_counter()
+    _, whole, _, _ = push_engine(pallas, nt_w, alpha0, *cols, mb=n)
+    sync(device)
+    wsec = time.perf_counter() - t0
+    check(np.array_equal(whole.window_counts, res.window_counts),
+          "multiset pallas counts differ between mb=256 + restore and "
+          "mb=the whole stream")
+    check(np.array_equal(whole.estimates, res.estimates),
+          "multiset pallas estimates differ between mb=256 + restore and "
+          "mb=the whole stream")
+    log(f"[multiset] pallas at mb={n} (one push, {wsec:.4f} s): counts and "
+        f"estimates bit-identical to mb=256 across the restore")
+    t0 = time.perf_counter()
+    _, dense, _, _ = push_engine(EngineConfig(
+        tier="dense", dup_policy="multiset", flush_every=32, device=device),
+        nt_w, alpha0, *cols, mb=n)
+    sync(device)
+    dsec = time.perf_counter() - t0
+    pc, dc = res.window_counts, dense.window_counts
+    rel_pd = float(np.max(np.abs(pc - dc) / np.maximum(np.abs(dc), 1.0)))
+    log(f"[multiset] dense at mb={n}: {dsec:.4f} s; pallas vs dense max rel "
+        f"diff {rel_pd:.6g} over {len(pc)} windows ({int(np.sum(pc != dc))} "
+        f"differ); counts {pc.min():.6g}..{pc.max():.6g} per window")
+    check(rel_pd <= RTOL_MULTISET,
+          f"multiset pallas vs dense: rel diff {rel_pd} > {RTOL_MULTISET}")
+
+    worst = {"pallas": 0.0, "dense": 0.0}
+    n_exact = 0
+    envelope = []
+    t0 = time.perf_counter()
+    for k in range(0, len(wins), 10):
+        e, m = wins[k].edges, wins[k].mult
+        want = count_butterflies_multiset_np(e, m)
+        # the window's weighted biadjacency on compact ids
+        ui, ci = np.unique(e[:, 0], return_inverse=True)
+        uj, cj = np.unique(e[:, 1], return_inverse=True)
+        adj = torch.zeros((len(ui), len(uj)), dtype=torch.float32,
+                          device=device)
+        adj[torch.as_tensor(ci, device=device),
+            torch.as_tensor(cj, device=device)] = torch.as_tensor(
+                m.astype(np.float32), device=device)
+        w2, smax, total = gram_envelope(adj)
+        envelope.append((k, w2, smax))
+        small = max(w2, smax, abs(total)) < 2**24
+        for tier, c in (("pallas", pc[k]), ("dense", dc[k])):
+            rel = abs(c - want) / max(abs(want), 1.0)
+            worst[tier] = max(worst[tier], rel)
+            check(rel <= RTOL_MULTISET,
+                  f"window {k}: multiset {tier} {c} vs oracle {want}: rel "
+                  f"err {rel} > {RTOL_MULTISET}")
+            check(not small or c == want,
+                  f"window {k}: W^2, S and the pair sum stay below 2**24 "
+                  f"but {tier} {c} != oracle {want}")
+        n_exact += small
+    osec = time.perf_counter() - t0
+    top = max(envelope, key=lambda x: x[1])
+    log(f"[multiset] int64 oracle on every 10th window ({len(envelope)} "
+        f"windows, {osec:.4f} s): largest rel err pallas "
+        f"{worst['pallas']:.6g}, dense {worst['dense']:.6g} (bound "
+        f"{RTOL_MULTISET}); {n_exact} of them keep W^2, S and the pair sum "
+        f"below 2**24 and are exact; largest W^2 {top[1]:.6g} and S "
+        f"{max(x[2] for x in envelope):.6g} (window {top[0]})")
+    return launches
+
+
+def phase_dynamic(device, *, n_records, nt_w, n_ids, seed, alpha0) -> dict:
+    """Phase 5: a dynamic stream with deletes and duplicates through the
+    engine's windowizer and the engine under both policies on pallas,
+    against ``replay_dynamic`` and ``oracle_window_counts``."""
+    import torch
+
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.streams import (
+        EngineConfig,
+        dynamic_sgr_stream,
+        oracle_window_counts,
+        replay_dynamic,
+    )
+    from repro_torch.streams.engine import resolve_pending_window
+    from repro_torch.streams.state import (
+        stream_state_init,
+        windowizer_close_tail,
+        windowizer_push,
+    )
+
+    t0 = time.perf_counter()
+    tau, ei, ej, op = dynamic_sgr_stream(n_records, nt_w, delete_frac=0.1,
+                                         dup_frac=0.2, n_i=n_ids, n_j=n_ids,
+                                         seed=seed)
+    gsec = time.perf_counter() - t0
+    oracle = replay_dynamic(tau, ei, ej, op, nt_w=nt_w)
+    n_del = int((op == 1).sum())
+    log(f"[dynamic] dynamic_sgr_stream({n_records}, {nt_w}, delete_frac=0.1,"
+        f" dup_frac=0.2, ids {n_ids} x {n_ids}, seed={seed}) in {gsec:.4f} s:"
+        f" {n_del} deletes, {len(oracle)} windows of up to "
+        f"{max(len(w.edges) for w in oracle)} surviving edges, "
+        f"multiplicities up to {max(int(w.mult.max()) for w in oracle)}")
+
+    # the engine's windowizer and resolution against the oracle's loop
+    st = stream_state_init(1, alpha0)
+    closed = []
+    for a in range(0, len(tau), 256):
+        closed += windowizer_push(st, 0, tau[a:a + 256], ei[a:a + 256],
+                                  ej[a:a + 256], nt_w, op=op[a:a + 256])
+    tail = windowizer_close_tail(st, 0, nt_w, drop_partial=True)
+    closed += [] if tail is None else [tail]
+    check(len(closed) == len(oracle), "windowizer and oracle window counts")
+    for k, ((_, wi, wj, ops, m, end), ow) in enumerate(zip(closed, oracle)):
+        e, mult = resolve_pending_window(wi, wj, ops, "multiset")
+        ed, _ = resolve_pending_window(wi, wj, ops, "distinct")
+        check(np.array_equal(e, ow.edges) and np.array_equal(mult, ow.mult),
+              f"window {k}: multiset edges or multiplicities differ")
+        check(np.array_equal(np.unique(ed, axis=0), ow.edges),
+              f"window {k}: distinct edge set differs")
+        check(m == ow.n_sgrs and end == ow.end_tau,
+              f"window {k}: n_sgrs or end_tau differ")
+    log(f"[dynamic] the engine's windows (edges, multiplicities, n_sgrs, "
+        f"end_tau) equal replay_dynamic's on all {len(oracle)} windows")
+
+    launches = {}
+    for policy, kernel in (("distinct", "K1"), ("multiset", "K2")):
+        want = oracle_window_counts(oracle, policy)
+        for k, w in enumerate(oracle):
+            if len(w.edges) == 0:
+                continue
+            adj = torch.zeros((n_ids, n_ids), dtype=torch.float32,
+                              device=device)
+            adj[torch.as_tensor(w.edges[:, 0], device=device),
+                torch.as_tensor(w.edges[:, 1], device=device)] = (
+                torch.as_tensor((w.mult if policy == "multiset"
+                                 else np.ones_like(w.mult)).astype(
+                                     np.float32), device=device))
+            check(max(gram_envelope(adj)) < 2**24,
+                  f"dynamic window {k} leaves the exact envelope")
+        kk.reset_launch_count()
+        t0 = time.perf_counter()
+        eng, res, _, _ = push_engine(
+            EngineConfig(tier="pallas", dup_policy=policy, flush_every=8,
+                         device=device), nt_w, alpha0, tau, ei, ej, op=op)
+        sync(device)
+        sec = time.perf_counter() - t0
+        launches[kernel] = kk.launch_count(kernel)
+        check(launches[kernel] > 0 or device.type != "cuda",
+              f"the {policy} dynamic engine never launched {kernel}")
+        check(np.array_equal(res.window_counts, want),
+              f"dynamic {policy}: engine counts differ from the oracle")
+        check(np.array_equal(res.cum_edges,
+                             np.cumsum([w.n_sgrs for w in oracle])),
+              f"dynamic {policy}: |E_k| differs from the oracle")
+        check(np.array_equal(eng.state_dict()["end_tau"],
+                             [w.end_tau for w in oracle]),
+              f"dynamic {policy}: end_tau differs from the oracle")
+        log(f"[dynamic] {policy} on pallas ({kernel} launches "
+            f"{launches[kernel]}), mb=256: counts equal oracle_window_counts "
+            f"on all {len(oracle)} windows (every W^2, S and pair sum below "
+            f"2**24, so exact); counts {want.min():.6g}..{want.max():.6g}; "
+            f"{n_records} records in {sec:.4f} s")
+    return launches
+
+
+def phase_tiers(wb, alpha0, device, dense_counts) -> None:
+    """Phase 6: one distinct replay on tiled, sparse and auto, exact against
+    dense; wall and device time; auto's sparse buckets; and the card's
+    crossover for route_tier."""
+    import torch
+
+    from repro_torch.core import (
+        WindowExecutor,
+        build_biadjacency,
+        count_butterflies_dense,
+        count_butterflies_sparse,
+        route_tier,
+        run_sgrapp,
+    )
+
+    for tier in ("tiled", "sparse", "auto"):
+        ex = WindowExecutor(tier, device=device)
+        t0 = time.perf_counter()
+        res = run_sgrapp(wb, alpha0, executor=ex)
+        sync(device)
+        wall = time.perf_counter() - t0
+        bad = np.flatnonzero(res.window_counts != dense_counts)
+        check(bad.size == 0, f"{tier} != dense on windows {bad[:10]}")
+        _, busy = profile(f"tiers, replay on {tier}", lambda: run_sgrapp(
+            wb, alpha0, executor=ex), device, top=3)
+        plan = ex.plan(wb)
+        extra = ""
+        if tier == "auto":
+            sp = [b for b in plan if ex.bucket_tier(b) == "sparse"]
+            extra = (f"; auto sent {len(sp)} of {len(plan)} buckets "
+                     f"({sum(b.n_windows for b in sp)} windows) to sparse, "
+                     f"the largest "
+                     + ", ".join(f"{b.cap_e}x{b.cap_i}x{b.cap_j} w{b.cap_w}"
+                                 for b in sp[-3:]))
+        log(f"[tiers] {tier}: {wb.n_windows} windows equal dense exactly; "
+            f"wall {wall:.4f} s, device busy {busy:.4f} ms under the "
+            f"profiler; {len(plan)} buckets{extra}")
+
+    # the crossover: per bucket of auto's plan, one chunk on dense and on
+    # sparse, against the cost model's two terms
+    ex = WindowExecutor("auto", device=device)
+    rows = []
+    for b in ex.plan(wb):
+        win = b.windows[:ex.chunk]
+        ei, ej, v = (torch.as_tensor(x[win, :b.cap_e], device=device)
+                     for x in (wb.edge_i, wb.edge_j, wb.valid))
+        t_d = time_ms(lambda: count_butterflies_dense(build_biadjacency(
+            ei, ej, v, b.cap_i, b.cap_j)), device, reps=2)
+        t_s = time_ms(lambda: count_butterflies_sparse(
+            ei, ej, v, b.cap_i, b.cap_j, max(b.cap_w, 1)), device, reps=2)
+        dense_flops = float(b.cap_i) * b.cap_j * min(b.cap_i, b.cap_j)
+        sort_ops = (b.cap_e * max(np.log2(max(b.cap_e, 2)), 1.0)
+                    + b.cap_w * max(np.log2(max(b.cap_w, 2)), 1.0))
+        rows.append((dense_flops / sort_ops, t_d, t_s,
+                     route_tier(b.cap_e, b.cap_i, b.cap_j, b.cap_w)))
+    ratio = np.array([r[0] for r in rows])
+    t_d = np.array([r[1] for r in rows])
+    t_s = np.array([r[2] for r in rows])
+    implied = (t_s / (t_d / ratio))       # sort_cost at which the model ties
+    sparse_wins = t_s < t_d
+    agree = np.mean([(r[3] == "sparse") == w for r, w in zip(rows,
+                                                            sparse_wins)])
+    cands = np.concatenate([[0.0], np.sort(ratio), [np.inf]])
+    misroutes = [int(np.sum((c < ratio) != sparse_wins)) for c in cands]
+    best = cands[int(np.argmin(misroutes))]
+    log(f"[tiers] route_tier crossover over {len(rows)} buckets (one chunk "
+        f"each, dense vs sparse on the card): sparse faster in "
+        f"{int(sparse_wins.sum())}; the sort cost at which the model ties "
+        f"each bucket's measured times is {np.median(implied):.6g} dense "
+        f"flops per sort element (median; range {implied.min():.6g}.."
+        f"{implied.max():.6g}); sort_cost=96 routes {agree:.2%} of buckets "
+        f"to the faster tier; the fewest misroutes ({min(misroutes)}) come "
+        f"at sort_cost = {best:.6g}; dense {t_d.sum():.4f} ms vs sparse "
+        f"{t_s.sum():.4f} ms summed over the chunks")
+
+
+def phase_k3(wb, replay_counts, device) -> dict:
+    """Phase 7: single matrices through K3 (K1's kernel at B = 1)."""
+    import torch
+
+    from repro_torch.core import build_biadjacency
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.kernels.butterfly.ops import (
+        butterfly_count_pallas,
+        butterfly_count_tiles,
+        clamp_block_i,
+        oriented,
+    )
+
+    def matrix(k):
+        n_i, n_j = int(wb.n_i_per_window[k]), int(wb.n_j_per_window[k])
+        ei, ej, v = (torch.as_tensor(x[k], device=device)
+                     for x in (wb.edge_i, wb.edge_j, wb.valid))
+        return build_biadjacency(ei, ej, v, n_i, n_j)
+
+    picks = list(range(0, wb.n_windows, 25))
+    kk.reset_launch_count()
+    for k in picks:
+        adj = matrix(k)
+        c1 = float(butterfly_count_pallas(adj))
+        c2 = butterfly_count_tiles(adj)
+        check(c1 == c2 == replay_counts[k],
+              f"window {k}: K3 {c1} / {c2} != replay {replay_counts[k]}")
+    launches = kk.launch_count("K3")
+    check(launches == 2 * len(picks) or device.type != "cuda",
+          f"K3 launches {launches} != {2 * len(picks)}")
+    log(f"[k3] butterfly_count_pallas and butterfly_count_tiles equal the "
+        f"replay on {len(picks)} windows; K3 launches {launches}")
+
+    k = int(np.argmax(wb.n_i_per_window * wb.n_j_per_window))
+    a = oriented(matrix(k))
+    n_g, n_k = a.shape
+    block_i = clamp_block_i(256, n_g)
+    got = kk.butterfly_pairs_kernel_call(a, block_i=block_i)
+    want = kk.butterfly_pairs_plain(a, block_i=block_i)
+    sync(device)
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"K3 != plain (max abs err {err})")
+    ms = time_ms(lambda: kk.butterfly_pairs_kernel_call(a, block_i=block_i),
+                 device)
+    plain_ms = time_ms(lambda: kk.butterfly_pairs_plain(a, block_i=block_i),
+                       device)
+
+    def library():
+        w = torch.mm(a, a.T)
+        pairs = w * (w - 1.0) * 0.5
+        return (pairs.sum() - torch.diagonal(pairs).sum()) * 0.5
+
+    library_ms = time_ms(library, device)
+    macs = n_g * (n_g - 1) / 2 * n_k
+    ops_ms = 2 * macs / PEAK_INT8_OPS * 1e3
+    bytes_ms = (a.numel() * 4 + got.numel() * 4) / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"[k3] K3 == plain exactly on the largest window ({k}: [{n_g}, "
+        f"{n_k}], block_i={block_i}): K3 {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, torch.mm Gram + epilogue {library_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms (operations at the int8 tensor-core peak; bytes "
+        f"{bytes_ms:.4f} ms); {bound_ms / ms:.4%} of the bound")
+    return {"launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
 def phase_profile(stream, wb, nt_w, alpha0, device, ex) -> None:
-    """Phase 4: where the time goes in the replay (both tiers) and in the
-    stream, after the checks above have passed."""
+    """Phase 8: where the time goes in the replay (both tiers) and in the
+    distinct and multiset streams, after the checks above have passed."""
     from repro_torch.core import run_sgrapp
-    from repro_torch.streams import EngineConfig, StreamingSGrapp
+    from repro_torch.streams import EngineConfig
 
     profile("replay, pallas tier",
             lambda: run_sgrapp(wb, alpha0, executor=ex), device)
     profile("replay, dense tier", lambda: run_sgrapp(
         wb, alpha0, tier="dense", device=device), device)
-
-    def push_all(mb=256):
-        eng = StreamingSGrapp(nt_w, alpha0, config=EngineConfig(
-            tier="pallas", flush_every=32, device=device))
-        for a in range(0, len(stream), mb):
-            eng.push(stream.tau[a:a + mb], stream.edge_i[a:a + mb],
-                     stream.edge_j[a:a + mb])
-        eng.finalize()
-
-    profile("stream, pallas tier, mb=256", push_all, device)
+    cols = (stream.tau, stream.edge_i, stream.edge_j)
+    for policy in ("distinct", "multiset"):
+        cfg = EngineConfig(tier="pallas", dup_policy=policy, flush_every=32,
+                           device=device)
+        profile(f"stream, pallas tier, {policy}, mb=256",
+                lambda: push_engine(cfg, nt_w, alpha0, *cols), device)
 
 
-def profile(label: str, fn, device) -> None:
+def profile(label: str, fn, device, top: int = 8) -> tuple[float, float]:
     """Where the device time of ``fn`` goes: ``torch.profiler`` over one
     call, the device's busy share of the host wall time (one stream, so
-    kernels never overlap) and the kernels that took the most of it."""
+    kernels never overlap) and the ``top`` kernels that took the most of
+    it.  Returns (wall ms, device busy ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -427,22 +1017,26 @@ def profile(label: str, fn, device) -> None:
         f"device busy {busy_ms:.4f} ms ({busy_ms / wall_ms:.4%}), idle "
         f"{1 - busy_ms / wall_ms:.4%}")
     for e in sorted(dev, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:8]:
+                    reverse=True)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:12.4f} ms "
             f"{e.count:6d} x  {e.key[:90]}")
+    return wall_ms, busy_ms
 
 
 def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
-        n_truth: int, alpha0: float = 1.02) -> dict:
-    """Phases 0-4 on ``device``; returns the kernels record."""
+        n_truth: int, dyn_records: int, dyn_nt_w: int, dyn_ids: int,
+        alpha0: float = 1.02) -> list[dict]:
+    """Phases 0-8 on ``device``; returns the kernels records."""
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.butterfly.build import load_library
-    from repro_torch.streams import bipartite_pa_stream
+    from repro_torch.streams import bipartite_pa_stream, replay_dynamic
 
     if device.type == "cuda":
         info = load_library()
-        log(f"[setup] K1 library {info.path.name}: nvcc "
-            + (f"{info.seconds:.4f} s" if info.seconds else
+        log(f"[setup] kernel library {info.path.name} (K1, K2; K3 runs K1's "
+            "kernel): nvcc "
+            + (f"{info.seconds:.4f} s, one process per source, all started "
+               "together" if info.seconds else
                "skipped (built earlier from the same sources)"))
         if info.log:
             log(info.log.rstrip())
@@ -457,21 +1051,47 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         f"{wb.n_windows} windows (windowized in {win:.4f} s): up to "
         f"{int(wb.n_edges.max())} edges, id spaces up to "
         f"{int(wb.n_i_per_window.max())} x {int(wb.n_j_per_window.max())}")
+    t0 = time.perf_counter()
+    wins = replay_dynamic(stream.tau, stream.edge_i, stream.edge_j, nt_w=nt_w)
+    mult = np.concatenate([w.mult for w in wins])
+    log(f"[setup] multiset windows by replay_dynamic "
+        f"({time.perf_counter() - t0:.4f} s): {len(wins)} windows of up to "
+        f"{max(len(w.mult) for w in wins)} distinct edges; multiplicities up "
+        f"to {int(mult.max())}, {np.mean(mult > 1):.4%} of the distinct edges "
+        f"repeat")
 
     ex = WindowExecutor("pallas", device=device)
-    kern = phase_kernel(wb, device, ex)
-    replay, launches, _ = phase_replay(stream, wb, nt_w, alpha0, device, ex,
-                                       n_truth)
+    kern1 = phase_kernel(wb, device, ex)
+    replay, k1_launches, _ = phase_replay(stream, wb, nt_w, alpha0, device,
+                                          ex, n_truth)
     phase_stream(stream, nt_w, alpha0, device, replay)
+    seen: dict = {}
+    k2_launches = phase_multiset(stream, wins, nt_w, alpha0, device, seen)
+    del wins
+    kern2 = phase_kernel_k2(seen, device)
+    del seen
+    phase_dynamic(device, n_records=dyn_records, nt_w=dyn_nt_w,
+                  n_ids=dyn_ids, seed=seed, alpha0=alpha0)
+    phase_tiers(wb, alpha0, device, replay.window_counts)
+    kern3 = phase_k3(wb, replay.window_counts, device)
     phase_profile(stream, wb, nt_w, alpha0, device, ex)
-    return {"name": "butterfly_windows (K1)", "route": "cuda",
-            "source": "src/repro_torch/kernels/butterfly/csrc/"
-                      "butterfly_windows.cu",
-            "replaces": "src/repro/kernels/butterfly/butterfly_kernel.py:112",
-            "launches": launches, "max_abs_err": kern["max_abs_err"],
-            "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-            "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-            "library_ms": kern["library_ms"]}
+    src = "src/repro_torch/kernels/butterfly/csrc/"
+    ref = "src/repro/kernels/butterfly/butterfly_kernel.py:"
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return [
+        {"name": "butterfly_windows (K1)", "route": "cuda",
+         "source": src + "butterfly_windows.cu", "replaces": ref + "112",
+         "launches": k1_launches, **{k: kern1[k] for k in keys}},
+        {"name": "butterfly_windows_multiset (K2)", "route": "cuda",
+         "source": src + "butterfly_windows_multiset.cu",
+         "replaces": ref + "191", "launches": k2_launches,
+         **{k: kern2[k] for k in keys}},
+        {"name": "butterfly_pairs (K3: K1's kernel at B = 1)",
+         "route": "cuda", "source": src + "butterfly_windows.cu",
+         "replaces": ref + "43", "launches": kern3["launches"],
+         **{k: kern3[k] for k in keys}},
+    ]
 
 
 def main(argv=None) -> int:
@@ -481,6 +1101,9 @@ def main(argv=None) -> int:
     p.add_argument("--nt-w", type=int, default=1600)
     p.add_argument("--seed", type=int, default=3)
     p.add_argument("--truth-windows", type=int, default=8)
+    p.add_argument("--dyn-records", type=int, default=60_000)
+    p.add_argument("--dyn-nt-w", type=int, default=1500)
+    p.add_argument("--dyn-ids", type=int, default=1024)
     args = p.parse_args(argv)
 
     import torch
@@ -497,11 +1120,12 @@ def main(argv=None) -> int:
     log(f"[setup] {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    kernel = run(torch.device("cuda"), n_sgrs=args.sgrs,
-                 n_unique=args.n_unique, nt_w=args.nt_w, seed=args.seed,
-                 n_truth=args.truth_windows)
+    kernels = run(torch.device("cuda"), n_sgrs=args.sgrs,
+                  n_unique=args.n_unique, nt_w=args.nt_w, seed=args.seed,
+                  n_truth=args.truth_windows, dyn_records=args.dyn_records,
+                  dyn_nt_w=args.dyn_nt_w, dyn_ids=args.dyn_ids)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.4f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

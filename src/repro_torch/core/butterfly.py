@@ -6,30 +6,62 @@ edges present.  With ``A`` the |V_i| x |V_j| 0/1 biadjacency and
 
     B(G) = sum_{u<v in V_i} C(W_uv, 2).
 
-Two tiers live here, held against ``repro.core.butterfly``:
+The tiers here are held against ``repro.core.butterfly``:
 
 1. :func:`count_butterflies_np` -- the numpy wedge-hash oracle, int64,
    always exact (a copy of the reference's host code, with its id-range
-   guard and pair emission).
+   guard and pair emission); :func:`count_butterflies_multiset_np` is its
+   multiplicity-weighted twin.
 2. :func:`count_butterflies_dense` / :func:`count_butterflies_from_edges`
    -- the Gram formulation in torch: a scatter into a dense biadjacency and
    one batched ``torch.matmul``.  It accumulates in float32 like the
    reference with x64 off, so counts are exact while every partial sum stays
    below 2**24.
+3. :func:`count_butterflies_tiled` -- the same Gram in row-block pairs (a
+   Python loop of batched matmuls where the reference scans), so only one
+   ``tile x tile`` block of ``W`` exists at a time.
+4. :func:`count_butterflies_sparse` -- wedge sort and rank aggregation over
+   the padded edge lists, batched over windows; O(cap_e + wedge_cap)
+   memory per window and no biadjacency.
 
-The hand-written kernel tier (``repro_torch.kernels.butterfly``) computes
-the same Gram triangle without materializing ``W``.
+**Multiset counting.**  The ``*_multiset`` twins count
+multiplicity-weighted butterflies: an edge of multiplicity ``m`` behaves
+like ``m`` parallel copies.  With ``W = A A^T`` and ``S = (A∘A)(A∘A)^T``
+over the weighted biadjacency ``A[u, j] = mult(u, j)``,
+
+    B_multi = sum_{u<v} (W_uv^2 - S_uv) / 2,
+
+which is ``sum C(W, 2)`` when every multiplicity is 1.  In float32 the
+``W^2 - S`` difference cancels: once ``W^2`` or ``S`` passes 2**24 the
+count carries the rounding of both terms, as the reference's does.
+
+Every device tier takes a single window (``[cap_e]`` lanes or one
+``[n_i, n_j]`` matrix) or a stack of them (a leading window axis) and
+returns a scalar or one count per window.  The hand-written kernel tier
+(``repro_torch.kernels.butterfly``) computes the Gram triangles without
+materializing ``W``.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 __all__ = [
     "count_butterflies_np",
+    "count_butterflies_multiset_np",
+    "window_wedge_counts_np",
     "build_biadjacency",
+    "build_biadjacency_multiset",
     "count_butterflies_dense",
+    "count_butterflies_dense_multiset",
     "count_butterflies_from_edges",
+    "count_butterflies_from_edges_multiset",
+    "count_butterflies_tiled",
+    "count_butterflies_tiled_multiset",
+    "count_butterflies_sparse",
+    "count_butterflies_sparse_multiset",
 ]
 
 
@@ -122,9 +154,118 @@ def count_butterflies_np(edges: np.ndarray) -> int:
     return int((mult * (mult - 1) // 2).sum())
 
 
+def count_butterflies_multiset_np(edges: np.ndarray,
+                                  mult: np.ndarray) -> int:
+    """Multiplicity-weighted butterfly count, numpy oracle (int64 exact).
+
+    ``edges`` is an (m, 2) int array of *unique* (i, j) pairs and ``mult``
+    their positive multiplicities (duplicate rows are aggregated by summing
+    their multiplicities, so pre-resolution edge lists are also accepted).
+    A wedge (i1, i2) through hub j weighs ``mult(i1, j) * mult(i2, j)``;
+    butterflies on a wedge endpoint pair are all unordered hub pairs, so
+
+        B = sum_pairs (S^2 - S2) / 2,   S = sum_j w_j,  S2 = sum_j w_j^2
+
+    which reduces to ``sum C(mult, 2)`` of :func:`count_butterflies_np`
+    when every multiplicity is 1.  Ids must lie in ``[0, 2**32)``.
+    """
+    e = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    m = np.asarray(mult, dtype=np.int64).reshape(-1)
+    if e.shape[0] != m.shape[0]:
+        raise ValueError(
+            f"edges/mult length mismatch: {e.shape[0]} != {m.shape[0]}")
+    if m.size and int(m.min()) < 1:
+        raise ValueError("multiplicities must be >= 1")
+    if e.shape[0] == 0:
+        return 0
+    _check_id_range_np(e)
+    # aggregate duplicate (i, j) rows (net multiplicity per unique edge)
+    key = e[:, 0] << 32 | e[:, 1]
+    uk, inv = np.unique(key, return_inverse=True)
+    um = np.zeros(uk.shape[0], dtype=np.int64)
+    np.add.at(um, inv, m)
+    if uk.shape[0] < 4:
+        return 0
+    ei = uk >> 32
+    ej = uk & np.int64(0xFFFFFFFF)
+    # group i-neighbors by j (sorted by (j, i)); emit weighted wedges
+    order = np.lexsort((ei, ej))
+    i_sorted, j_sorted, m_sorted = ei[order], ej[order], um[order]
+    _, starts = np.unique(j_sorted, return_index=True)
+    counts = np.diff(np.append(starts, j_sorted.shape[0]))
+    p, t = _group_pairs_np(starts, counts)
+    if p.size == 0:
+        return 0
+    w = m_sorted[p] * m_sorted[t]
+    keys = i_sorted[p] << 32 | i_sorted[t]
+    _, winv = np.unique(keys, return_inverse=True)
+    s1 = np.zeros(int(winv.max()) + 1, dtype=np.int64)
+    s2 = np.zeros_like(s1)
+    np.add.at(s1, winv, w)
+    np.add.at(s2, winv, w * w)
+    return int(((s1 * s1 - s2) // 2).sum())
+
+
+def window_wedge_counts_np(edge_i: np.ndarray, edge_j: np.ndarray,
+                           valid: np.ndarray) -> np.ndarray:
+    """Deduped wedge count per window, host-side: ``sum_j C(d_j, 2)`` over
+    each window's valid lanes -- what the sparse tier needs a static
+    capacity for, and the sparse term of the ``auto`` router's cost model.
+    ``edge_i``/``edge_j``/``valid`` are the padded ``[n_windows, capacity]``
+    window lanes (compact non-negative ids)."""
+    ei = np.asarray(edge_i, dtype=np.int64)
+    ej = np.asarray(edge_j, dtype=np.int64)
+    v = np.asarray(valid, dtype=bool)
+    out = np.zeros(ei.shape[0], dtype=np.int64)
+    if ei.size == 0:
+        return out
+    span = max(int(ej.max()), 0) + 1
+    for k in range(ei.shape[0]):
+        i, j = ei[k][v[k]], ej[k][v[k]]
+        if i.size < 2:
+            continue
+        keys = np.unique(i * span + j)          # dedupe (i, j) pairs
+        d = np.bincount(keys % span)
+        out[k] = int((d * (d - 1) // 2).sum())
+    return out
+
+
 # ---------------------------------------------------------------------------
-# torch dense tier
+# torch dense and tiled tiers
 # ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """Run CUDA float32 matmuls in full float32: TF32 is cleared for the
+    block and the caller's setting restored after.  The reference states
+    float32 arithmetic; TF32 would round multiplicities past 2**11."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _flat_slots(edge_i, edge_j, valid, n_i: int, n_j: int):
+    """Lanes ``[cap_e]`` or ``[B, cap_e]`` -> ``(flat, ok, n_win, single)``:
+    each lane's slot in a flat ``[B * n_i * n_j + 1]`` buffer.  Invalid
+    (padding) lanes and ids outside ``[0, n_i) x [0, n_j)`` go to the one
+    sacrificial slot past the end, which the caller slices off: the
+    reference's ``mode="drop"`` scatter, without the out-of-range index a
+    torch scatter would reject (and a CUDA device assert that would kill
+    the context).  No host synchronization."""
+    single = edge_i.dim() == 1
+    ei = edge_i.reshape(-1, edge_i.shape[-1]).long()
+    ej = edge_j.reshape(-1, edge_j.shape[-1]).long()
+    ok = valid.reshape(-1, valid.shape[-1]).bool()
+    ok = ok & (ei >= 0) & (ei < n_i) & (ej >= 0) & (ej < n_j)
+    n_win = ei.shape[0]
+    plane = n_i * n_j
+    base = torch.arange(n_win, device=ei.device).unsqueeze(1) * plane
+    flat = torch.where(ok, base + ei * n_j + ej, n_win * plane)
+    return flat, ok, n_win, single
+
 
 def build_biadjacency(
     edge_i: torch.Tensor,
@@ -140,50 +281,88 @@ def build_biadjacency(
     ``[B, cap_e]`` (a stack); the result is ``[n_i, n_j]`` or
     ``[B, n_i, n_j]``, contiguous.  Duplicate edges collapse (every write
     stores 1), reproducing the paper's duplicate-ignoring semantics.
-    Invalid (padding) lanes and ids outside ``[0, n_i) x [0, n_j)`` are
-    routed to one sacrificial slot past the end of the buffer, which is
-    sliced off: the reference's ``mode="drop"`` scatter, without the
-    out-of-range index a torch scatter would reject (and a CUDA device
-    assert that would kill the context).  No host synchronization.
+    Invalid lanes are dropped through the sacrificial slot of
+    :func:`_flat_slots`.
     """
-    single = edge_i.dim() == 1
-    ei = edge_i.reshape(-1, edge_i.shape[-1]).long()
-    ej = edge_j.reshape(-1, edge_j.shape[-1]).long()
-    ok = valid.reshape(-1, valid.shape[-1]).bool()
-    ok = ok & (ei >= 0) & (ei < n_i) & (ej >= 0) & (ej < n_j)
-    n_win = ei.shape[0]
-    plane = n_i * n_j
-    base = torch.arange(n_win, device=ei.device).unsqueeze(1) * plane
-    flat = torch.where(ok, base + ei * n_j + ej, n_win * plane)
-    buf = torch.zeros(n_win * plane + 1, dtype=dtype, device=ei.device)
+    flat, _, n_win, single = _flat_slots(edge_i, edge_j, valid, n_i, n_j)
+    buf = torch.zeros(n_win * n_i * n_j + 1, dtype=dtype, device=flat.device)
     buf[flat.reshape(-1)] = 1
     adj = buf[:-1].view(n_win, n_i, n_j)
     return adj[0] if single else adj
 
 
-def count_butterflies_dense(adj: torch.Tensor) -> torch.Tensor:
-    """B = sum_{u<v} C((A A^T)_uv, 2) on dense biadjacencies ``[..., n_i,
-    n_j]`` -> ``[...]`` float32.
+def build_biadjacency_multiset(
+    edge_i: torch.Tensor,
+    edge_j: torch.Tensor,
+    mult: torch.Tensor,
+    valid: torch.Tensor,
+    n_i: int,
+    n_j: int,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Scatter padded (edge, multiplicity) lanes into *weighted*
+    biadjacencies ``A[u, j] = mult(u, j)`` (``[n_i, n_j]`` or
+    ``[B, n_i, n_j]``).
 
-    The Gram side is whichever side is smaller (the paper iterates the
-    lower-degree side; with the Gram trick that is a transpose decision).
-    The matmul runs in full float32: TF32 is switched off around it and the
-    caller's setting restored after.  0/1 operands are exact in TF32 too,
-    but the reference states float32 arithmetic, so the port runs the same.
+    Edges are expected unique per window (the engine resolves duplicates to
+    net multiplicities at window close); a repeated (i, j) lane adds, which
+    keeps the sum-of-multiplicities semantics either way.  The add is
+    float32 on integer weights below 2**24, so it is exact in any order
+    (CUDA's atomics included).  Invalid lanes go to the sacrificial slot.
     """
+    flat, ok, n_win, single = _flat_slots(edge_i, edge_j, valid, n_i, n_j)
+    w = torch.where(ok, mult.reshape(ok.shape).to(dtype),
+                    torch.zeros((), dtype=dtype, device=flat.device))
+    buf = torch.zeros(n_win * n_i * n_j + 1, dtype=dtype, device=flat.device)
+    buf.index_add_(0, flat.reshape(-1), w.reshape(-1))
+    adj = buf[:-1].view(n_win, n_i, n_j)
+    return adj[0] if single else adj
+
+
+def _gram_side(adj: torch.Tensor) -> torch.Tensor:
+    """``adj`` as float32 with the smaller side as rows (the Gram side; the
+    paper iterates the lower-degree side, with the Gram trick that is a
+    transpose decision).  Both identities are symmetric in the sides."""
     a = adj.to(torch.float32)
-    if a.shape[-2] > a.shape[-1]:
-        a = a.transpose(-2, -1)
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        w = torch.matmul(a, a.transpose(-2, -1))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-    pairs = w * (w - 1.0) * 0.5
+    return a.transpose(-2, -1) if a.shape[-2] > a.shape[-1] else a
+
+
+def _off_diagonal_half(pairs: torch.Tensor) -> torch.Tensor:
+    """``sum_{u<v} pairs_uv`` of a symmetric ``[..., n, n]`` matrix, as the
+    reference takes it: the whole sum less the diagonal, halved."""
     off = pairs.sum(dim=(-2, -1)) - torch.diagonal(
         pairs, dim1=-2, dim2=-1).sum(dim=-1)
     return off * 0.5
+
+
+def _pairs_multiset(w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Per wedge-endpoint pair: unordered hub pairs weighted by
+    multiplicity, ``(W^2 - S) / 2`` (``C(W, 2)`` when every multiplicity
+    is 1, since then ``S == W``)."""
+    return (w * w - s) * 0.5
+
+
+def count_butterflies_dense(adj: torch.Tensor) -> torch.Tensor:
+    """B = sum_{u<v} C((A A^T)_uv, 2) on dense biadjacencies ``[..., n_i,
+    n_j]`` -> ``[...]`` float32, the Gram in full float32
+    (:func:`full_fp32_matmul`).  0/1 operands are exact in TF32 too, but
+    the reference states float32 arithmetic, so the port runs the same."""
+    a = _gram_side(adj)
+    with full_fp32_matmul():
+        w = torch.matmul(a, a.transpose(-2, -1))
+    return _off_diagonal_half(w * (w - 1.0) * 0.5)
+
+
+def count_butterflies_dense_multiset(adj: torch.Tensor) -> torch.Tensor:
+    """Multiplicity-weighted count on weighted biadjacencies ``[..., n_i,
+    n_j]`` -> ``[...]`` float32: ``sum_{u<v} (W_uv^2 - S_uv) / 2`` with
+    ``W = A A^T`` and ``S = (A∘A)(A∘A)^T``, both Grams in full float32."""
+    a = _gram_side(adj)
+    a2 = a * a
+    with full_fp32_matmul():
+        w = torch.matmul(a, a.transpose(-2, -1))
+        s = torch.matmul(a2, a2.transpose(-2, -1))
+    return _off_diagonal_half(_pairs_multiset(w, s))
 
 
 def count_butterflies_from_edges(
@@ -197,3 +376,233 @@ def count_butterflies_from_edges(
     ``[cap_e]`` -> scalar, or a stack ``[B, cap_e]`` -> ``[B]``)."""
     adj = build_biadjacency(edge_i, edge_j, valid, n_i, n_j)
     return count_butterflies_dense(adj)
+
+
+def count_butterflies_from_edges_multiset(
+    edge_i: torch.Tensor,
+    edge_j: torch.Tensor,
+    mult: torch.Tensor,
+    valid: torch.Tensor,
+    n_i: int,
+    n_j: int,
+) -> torch.Tensor:
+    """Multiset count directly from padded (edge, multiplicity) lanes."""
+    adj = build_biadjacency_multiset(edge_i, edge_j, mult, valid, n_i, n_j)
+    return count_butterflies_dense_multiset(adj)
+
+
+def _tiled(adj: torch.Tensor, tile: int, multiset: bool) -> torch.Tensor:
+    """Shared body of the tiled tiers: the Gram side split into row blocks
+    of ``tile`` and a loop over block pairs ``u <= v`` (the reference scans
+    all pairs, but a ``u > v`` pair lies wholly under the diagonal and adds
+    exactly 0).  Each pair's ``[..., tile, tile]`` Gram block is reduced
+    with the global ``row < col`` mask and added to a float32 total in
+    (u, v) order, as the reference's scan carry adds."""
+    if tile < 1:
+        raise ValueError(f"tile must be >= 1, got {tile}")
+    a = _gram_side(adj)
+    a2 = a * a if multiset else None
+    n = a.shape[-2]
+    rows = torch.arange(n, device=a.device)
+    zero = torch.zeros((), dtype=torch.float32, device=a.device)
+    total = torch.zeros(a.shape[:-2], dtype=torch.float32, device=a.device)
+    with full_fp32_matmul():
+        for u0 in range(0, n, tile):
+            bu = a[..., u0:u0 + tile, :]
+            iu = rows[u0:u0 + tile]
+            for v0 in range(u0, n, tile):
+                bv = a[..., v0:v0 + tile, :]
+                w = torch.matmul(bu, bv.transpose(-2, -1))
+                if multiset:
+                    s = torch.matmul(a2[..., u0:u0 + tile, :],
+                                     a2[..., v0:v0 + tile, :].transpose(-2, -1))
+                    pairs = _pairs_multiset(w, s)
+                else:
+                    pairs = w * (w - 1.0) * 0.5
+                keep = iu[:, None] < rows[v0:v0 + tile][None, :]
+                total = total + torch.where(keep, pairs, zero).sum(
+                    dim=(-2, -1))
+    return total
+
+
+def count_butterflies_tiled(adj: torch.Tensor,
+                            tile: int = 512) -> torch.Tensor:
+    """Tiled Gram counting on ``[..., n_i, n_j]`` -> ``[...]`` float32:
+    only one ``tile x tile`` block of ``W`` per window exists at a time,
+    O(tile * n_j + tile^2) memory per window instead of O(n_i^2)."""
+    return _tiled(adj, tile, multiset=False)
+
+
+def count_butterflies_tiled_multiset(adj: torch.Tensor,
+                                     tile: int = 512) -> torch.Tensor:
+    """Tiled twin of :func:`count_butterflies_dense_multiset`: the same
+    block-pair loop as :func:`count_butterflies_tiled`, with the weighted
+    Gram ``W`` and its square-weighted twin ``S`` per block pair and the
+    ``(W^2 - S)/2`` epilogue."""
+    return _tiled(adj, tile, multiset=True)
+
+
+# ---------------------------------------------------------------------------
+# sparse tier (wedge sort + rank aggregation; never builds the biadjacency)
+# ---------------------------------------------------------------------------
+
+def _check_sparse_keys(n_i: int, n_j: int, wedge_cap: int) -> None:
+    if wedge_cap < 1:
+        raise ValueError("wedge_cap must be >= 1")
+    # the reference packs both sort phases' id pairs into ONE int32 key; the
+    # port sorts int64 keys but refuses the same id spaces, so the two
+    # packages route and fail alike
+    if (n_i + 2) * (n_j + 2) >= 2**31 or (n_i + 2) * (n_i + 2) >= 2**31:
+        raise ValueError(
+            "sparse tier requires (n_i + 2) * (max(n_i, n_j) + 2) < 2**31 "
+            "to pack sort keys into int32; use the dense/tiled tiers for "
+            "id spaces this large")
+
+
+def _lanes2d(*lanes: torch.Tensor):
+    """Lift ``[cap_e]`` lanes to ``[1, cap_e]``; returns (lanes, single)."""
+    single = lanes[0].dim() == 1
+    return [x.reshape(-1, x.shape[-1]) for x in lanes], single
+
+
+def _group_ranks(jj: torch.Tensor, live: torch.Tensor, pos: torch.Tensor):
+    """In-group rank ``r`` of each sorted lane (distance to its j-group's
+    first position, by a cummax of group-start markers; dead lanes rank 0,
+    they owe no wedges), the group start of each lane, and the inclusive
+    cumsum of ``r`` (the wedge-slot boundaries)."""
+    first = pos == 0
+    is_start = first | (jj != torch.roll(jj, 1, dims=-1))
+    start = torch.cummax(torch.where(is_start, pos, -1), dim=-1).values
+    r = torch.where(live, pos - start, 0)
+    return r, start, torch.cumsum(r, dim=-1)
+
+
+def _wedge_slots(r, start, cum_r, wedge_cap: int):
+    """Scatter the wedge slots ``[0, wedge_cap)`` of every window to their
+    ``(earlier, later)`` edge pair: slot ``w`` belongs to the sorted lane
+    ``t`` whose rank cumsum first passes ``w`` (``searchsorted``, right
+    side), and pairs it with the earlier group member ``p``.  Returns
+    ``(p, t, alive)``, ``p`` and ``t`` clamped into the lanes."""
+    cap_e = r.shape[-1]
+    w = torch.arange(wedge_cap, device=r.device).expand(
+        r.shape[0], wedge_cap).contiguous()
+    t = torch.searchsorted(cum_r, w, right=True).clamp(0, cap_e - 1)
+    p = (torch.gather(start, 1, t)
+         + (w - (torch.gather(cum_r, 1, t) - torch.gather(r, 1, t))))
+    alive = w < cum_r[:, -1:]
+    return p.clamp(0, cap_e - 1), t, alive
+
+
+def _run_heads(wkey: torch.Tensor, wpos: torch.Tensor) -> torch.Tensor:
+    return (wpos == 0) | (wkey != torch.roll(wkey, 1, dims=-1))
+
+
+def count_butterflies_sparse(
+    edge_i: torch.Tensor,
+    edge_j: torch.Tensor,
+    valid: torch.Tensor,
+    n_i: int,
+    n_j: int,
+    wedge_cap: int,
+) -> torch.Tensor:
+    """Butterfly count from padded edge lists by wedge aggregation, the
+    reference's schedule batched over a leading window axis (``[cap_e]``
+    -> scalar, ``[B, cap_e]`` -> ``[B]`` float32):
+
+    1. sort edges by ``(j, i)`` (invalid lanes carry sentinel ids ``(n_j,
+       n_i)`` so they group last) and invalidate exact duplicates;
+    2. a second sort compacts the surviving edges into contiguous
+       j-groups;
+    3. every edge of in-group rank ``r`` owes ``r`` wedges, one per earlier
+       group member (:func:`_wedge_slots`); in-group ``i`` is ascending
+       and deduped, so the wedge endpoints satisfy ``i1 < i2``;
+    4. sort wedges by ``(i1, i2)`` and sum every live wedge's rank within
+       its run of equal keys: a run of multiplicity ``m`` adds
+       ``0 + 1 + ... + (m-1) = C(m, 2)``.
+
+    ``wedge_cap`` must bound each window's wedge count (the executor counts
+    it on the host per bucket, :func:`window_wedge_counts_np`).
+    """
+    _check_sparse_keys(n_i, n_j, wedge_cap)
+    (ei, ej, v), single = _lanes2d(edge_i, edge_j, valid)
+    cap_e = ei.shape[-1]
+    dev = ei.device
+    pos = torch.arange(cap_e, device=dev)
+    v = v.bool()
+    ii = torch.where(v, ei.long(), n_i)
+    jj = torch.where(v, ej.long(), n_j)
+    span_i = n_i + 2
+    ekey = torch.sort(jj * span_i + ii, dim=-1).values
+    dup = (pos != 0) & (ekey == torch.roll(ekey, 1, dims=-1))
+    sent = n_j * span_i                        # every live key sorts below
+    ekey = torch.sort(torch.where(dup, sent + ii, ekey), dim=-1).values
+    jj = ekey // span_i
+    ii = ekey - jj * span_i
+    r, start, cum_r = _group_ranks(jj, jj < n_j, pos)
+    p, t, alive = _wedge_slots(r, start, cum_r, wedge_cap)
+    i1 = torch.where(alive, torch.gather(ii, 1, p), n_i)
+    i2 = torch.where(alive, torch.gather(ii, 1, t), n_i)
+    wkey = torch.sort(i1 * span_i + i2, dim=-1).values  # dead wedges last
+    wpos = torch.arange(wedge_cap, device=dev)
+    wstart = torch.cummax(torch.where(_run_heads(wkey, wpos), wpos, -1),
+                          dim=-1).values
+    wrank = torch.where(wkey < n_i * span_i, wpos - wstart, 0)
+    out = wrank.to(torch.float32).sum(dim=-1)
+    return out[0] if single else out
+
+
+def count_butterflies_sparse_multiset(
+    edge_i: torch.Tensor,
+    edge_j: torch.Tensor,
+    mult: torch.Tensor,
+    valid: torch.Tensor,
+    n_i: int,
+    n_j: int,
+    wedge_cap: int,
+) -> torch.Tensor:
+    """Multiset twin of :func:`count_butterflies_sparse` over lanes of
+    *unique* (i, j) pairs with multiplicities (no dedupe sort): each wedge
+    weighs ``mult(i1, j) * mult(i2, j)`` and each run of equal wedge keys
+    adds ``(S^2 - S2) / 2``, ``S`` and ``S2`` its weight and squared-weight
+    sums, taken at run tails from float32 cumsums less their run bases
+    (the exclusive cumsums at run heads, carried forward by a cummax: both
+    cumsums are non-decreasing since weights are >= 0)."""
+    _check_sparse_keys(n_i, n_j, wedge_cap)
+    (ei, ej, mm, v), single = _lanes2d(edge_i, edge_j, mult, valid)
+    cap_e = ei.shape[-1]
+    dev = ei.device
+    pos = torch.arange(cap_e, device=dev)
+    v = v.bool()
+    ii = torch.where(v, ei.long(), n_i)
+    jj = torch.where(v, ej.long(), n_j)
+    mm = torch.where(v, mm.long(), 0)
+    span_i = n_i + 2
+    # sort by packed (j, i) with the multiplicity lane as payload
+    ekey, order = torch.sort(jj * span_i + ii, dim=-1, stable=True)
+    mm = torch.gather(mm, 1, order)
+    jj = ekey // span_i
+    ii = ekey - jj * span_i
+    r, start, cum_r = _group_ranks(jj, jj < n_j, pos)
+    p, t, alive = _wedge_slots(r, start, cum_r, wedge_cap)
+    i1 = torch.where(alive, torch.gather(ii, 1, p), n_i)
+    i2 = torch.where(alive, torch.gather(ii, 1, t), n_i)
+    macc = mm.to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    ww = torch.where(alive, torch.gather(macc, 1, p) * torch.gather(macc, 1, t),
+                     zero)
+    # dead wedges share the sentinel key and weigh 0: their run adds 0
+    wkey, order = torch.sort(i1 * span_i + i2, dim=-1, stable=True)
+    ww = torch.gather(ww, 1, order)
+    wpos = torch.arange(wedge_cap, device=dev)
+    head = _run_heads(wkey, wpos)
+    ww2 = ww * ww
+    c1 = torch.cumsum(ww, dim=-1)
+    c2 = torch.cumsum(ww2, dim=-1)
+    neg = torch.full((), -1.0, dtype=torch.float32, device=dev)
+    base1 = torch.cummax(torch.where(head, c1 - ww, neg), dim=-1).values
+    base2 = torch.cummax(torch.where(head, c2 - ww2, neg), dim=-1).values
+    tail = torch.roll(head, -1, dims=-1) | (wpos == wedge_cap - 1)
+    s1 = c1 - base1
+    s2 = c2 - base2
+    out = torch.where(tail, (s1 * s1 - s2) * 0.5, zero).sum(dim=-1)
+    return out[0] if single else out

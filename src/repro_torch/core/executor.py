@@ -11,8 +11,10 @@ butterfly count.  As in ``repro.core.executor``, the executor
    maximum sizes rounded to a multiple of ``snap``;
 2. **batches** each bucket through a Python loop over chunks of ``chunk``
    windows: within a chunk every window counts in one batched scatter and
-   one batched Gram (``dense``) or one launch of K1 (``pallas``), so peak
-   device memory stays near ``chunk * cap_i * cap_j`` floats;
+   one batched Gram (``dense``), one launch of K1 (``pallas``), or one
+   batched wedge sort (``sparse``), so peak device memory stays near
+   ``chunk * cap_i * cap_j`` floats (``chunk * (cap_e + cap_w)`` for
+   ``sparse``);
 3. **routes** through a tier:
 
    ========  ==========================================================
@@ -20,15 +22,24 @@ butterfly count.  As in ``repro.core.executor``, the executor
    ========  ==========================================================
    numpy     host wedge-hash oracle (``count_butterflies_np``), int64
    dense     torch scatter + batched ``torch.matmul`` Gram, float32
-   pallas    the hand-written CUDA kernel K1 (``repro_torch.kernels.
-             butterfly``): one launch per bucket chunk; the name is the
-             reference's, so configs and checkpoints map one to one
+   tiled     the Gram in row-block pairs (``count_butterflies_tiled``)
+   pallas    the hand-written CUDA kernels (``repro_torch.kernels.
+             butterfly``): K1, or K2 for multiset batches, one launch per
+             bucket chunk; the name is the reference's, so configs and
+             checkpoints map one to one
+   sparse    wedge sort + rank aggregation (``count_butterflies_sparse``);
+             O(cap_e + cap_w) memory per window, no biadjacency
+   auto      per-bucket cost model (:func:`route_tier`): ``sparse`` when
+             the wedge-sort work beats the dense Gram flops, ``dense``
+             otherwise
    ========  ==========================================================
 
-   Every exact tier returns identical integer-valued counts while partial
-   sums stay below 2**24.  The reference's other tier names (``tiled``,
-   ``sparse``, ``auto``, ``sampled``) are accepted by the config but raise
-   ``NotImplementedError`` here until their ROADMAP item is ported.
+   A batch that carries the multiplicity lane (``edge_mult``, the
+   ``multiset`` duplicate policy) runs every tier's multiplicity-weighted
+   twin.  Every exact tier returns identical integer-valued counts while
+   partial sums stay below 2**24.  The ``sampled`` tier name is accepted by
+   the config but raises ``NotImplementedError`` until its ROADMAP item is
+   ported.
 
 **Submit / reap.**  :meth:`WindowExecutor.window_counts_submit` stages each
 bucket's lanes through pinned host buffers (a ring of two per bucket shape),
@@ -39,6 +50,7 @@ host can windowize the next flush while the card counts this one.
 """
 from __future__ import annotations
 
+import math
 import weakref
 from dataclasses import dataclass, field
 
@@ -46,21 +58,60 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .butterfly import build_biadjacency, count_butterflies_dense, count_butterflies_np
+from .butterfly import (
+    build_biadjacency,
+    build_biadjacency_multiset,
+    count_butterflies_dense,
+    count_butterflies_dense_multiset,
+    count_butterflies_multiset_np,
+    count_butterflies_np,
+    count_butterflies_sparse,
+    count_butterflies_sparse_multiset,
+    count_butterflies_tiled,
+    count_butterflies_tiled_multiset,
+    window_wedge_counts_np,
+)
 from .fleet import check_sampling_knobs
 from .windows import WindowBatch
 
 __all__ = ["TIERS", "PORTED_TIERS", "WindowExecutor", "ExecutorResult",
-           "Bucket", "PendingCounts", "bucket_capacity", "id_capacity"]
+           "Bucket", "PendingCounts", "bucket_capacity", "id_capacity",
+           "route_tier"]
 
 TIERS = ("numpy", "dense", "tiled", "pallas", "sparse", "auto", "sampled")
-PORTED_TIERS = ("numpy", "dense", "pallas")
-_NOT_PORTED = {
-    "tiled": "ROADMAP Queue 1 item 6 (remaining exact tiers)",
-    "sparse": "ROADMAP Queue 1 item 6 (remaining exact tiers)",
-    "auto": "ROADMAP Queue 1 item 6 (remaining exact tiers)",
-    "sampled": "ROADMAP Queue 1 item 7 (sampling)",
-}
+PORTED_TIERS = ("numpy", "dense", "tiled", "pallas", "sparse", "auto")
+_NOT_PORTED = {"sampled": "ROADMAP Queue 1 item 7 (sampling)"}
+
+# tiers that need a per-bucket wedge capacity (host-side wedge counting)
+_WEDGE_TIERS = ("sparse", "auto")
+# the ``tiled`` tier's row-block edge (clamped to the bucket)
+_TILE = 512
+# the ``auto`` router's modelled cost of one sort element in dense-Gram
+# flops: the reference's calibration (see :func:`route_tier`)
+_SORT_COST = 96.0
+
+
+def route_tier(cap_e: int, cap_i: int, cap_j: int, cap_w: int,
+               *, sort_cost: float = _SORT_COST) -> str:
+    """The ``auto`` tier's per-bucket density cost model, the reference's.
+
+    Dense counting pays the Gram matmul, ``cap_i * cap_j * min(cap_i,
+    cap_j)`` flops per window; sparse counting pays the edge sort
+    ``cap_e log cap_e`` and the wedge sort ``cap_w log cap_w``, each element
+    costing ``sort_cost`` dense flops.  Routes to ``sparse`` exactly when
+    its modelled work is cheaper.  The default 96 is the reference's
+    calibration, kept so that ``auto`` routes as the reference does;
+    ``chip_smoke.py`` measures the card's own crossover.
+    """
+    hi = max(cap_i, cap_j)
+    if (cap_i + 2) * (hi + 2) >= 2**31:
+        # beyond the sparse tier's key-packing bound it would refuse: never
+        # route into a raise
+        return "dense"
+    dense_flops = float(cap_i) * float(cap_j) * float(min(cap_i, cap_j))
+    sort_ops = (cap_e * max(math.log2(max(cap_e, 2)), 1.0)
+                + cap_w * max(math.log2(max(cap_w, 2)), 1.0))
+    return "sparse" if sort_cost * sort_ops < dense_flops else "dense"
 
 
 def bucket_capacity(n: int, *, align: int = 128, growth: int = 2) -> int:
@@ -83,12 +134,17 @@ def id_capacity(n: int, *, align: int = 64) -> int:
 
 @dataclass(frozen=True)
 class Bucket:
-    """One static-shape unit: same-capacity windows."""
+    """One static-shape unit: same-capacity windows.  ``cap_w`` is the
+    wedge capacity, the ladder rung over the bucket's largest deduped
+    per-window wedge count; it is computed (non-zero) only for the
+    ``sparse`` and ``auto`` tiers, where it sizes the wedge sort and feeds
+    the router's cost model."""
 
     cap_e: int                      # edge-lane capacity
     cap_i: int                      # i-side id-space capacity
     cap_j: int                      # j-side id-space capacity
     windows: np.ndarray = field(compare=False)  # window indices in the batch
+    cap_w: int = 0                  # wedge capacity (sparse/auto tiers only)
 
     @property
     def n_windows(self) -> int:
@@ -158,8 +214,8 @@ class WindowExecutor:
 
     Parameters
     ----------
-    tier : "numpy" | "dense" | "pallas" (the reference's other tier names
-        raise ``NotImplementedError``).
+    tier : "numpy" | "dense" | "tiled" | "pallas" | "sparse" | "auto"
+        (``"sampled"`` raises ``NotImplementedError``).
     align, growth : capacity-ladder geometry (edge lanes geometric, id
         spaces linear), as the reference.
     chunk : windows of a bucket counted together in one batched dispatch;
@@ -167,7 +223,8 @@ class WindowExecutor:
     snap : run each bucket at its windows' actual max id-space sizes rounded
         to a multiple of ``snap`` (0 = at the rung itself, which the engine
         uses).
-    block_i : K1's tile edge (clamped per bucket, as the reference clamps).
+    block_i : the kernels' tile edge (clamped per bucket, as the reference
+        clamps).
     capacity, gamma, seed, memory_budget, target_mape : the sampled tier's
         knobs, validated as the reference validates them (the tier itself is
         not ported yet).
@@ -221,8 +278,8 @@ class WindowExecutor:
                               else int(memory_budget))
         self.target_mape = (None if target_mape is None
                             else float(target_mape))
-        # chunks dispatched to a device tier so far (one K1 launch each on
-        # the pallas tier)
+        # chunks dispatched to a device tier so far (one K1 or K2 launch
+        # each on the pallas tier)
         self.chunks_dispatched = 0
         self._plan_cache: tuple[weakref.ref, list[Bucket]] | None = None
         # pinned staging per (bucket shape, n windows): [slot_a, slot_b,
@@ -233,11 +290,16 @@ class WindowExecutor:
 
     def plan(self, batch: WindowBatch) -> list[Bucket]:
         """Group windows into static-capacity buckets (stable window order
-        within a bucket), exactly as the reference plans an exact tier.  The
-        last batch's plan is memoized by identity."""
+        within a bucket), exactly as the reference plans: the ``sparse``
+        and ``auto`` tiers add each window's wedge rung to the key, and
+        ``auto`` fuses dense-routed groups that differ only in that rung.
+        The last batch's plan is memoized by identity."""
         if self._plan_cache is not None and self._plan_cache[0]() is batch:
             return self._plan_cache[1]
-        groups: dict[tuple[int, int, int], list[int]] = {}
+        wedges = (window_wedge_counts_np(batch.edge_i, batch.edge_j,
+                                         batch.valid)
+                  if self.tier in _WEDGE_TIERS else None)
+        groups: dict[tuple[int, int, int, int], list[int]] = {}
         for k in range(batch.n_windows):
             # every rung clamps to the batch's own padded capacity
             key = (
@@ -247,10 +309,31 @@ class WindowExecutor:
                                 align=self.align), max(batch.n_i, 1)),
                 min(id_capacity(int(batch.n_j_per_window[k]),
                                 align=self.align), max(batch.n_j, 1)),
+                (bucket_capacity(int(wedges[k]), align=self.align,
+                                 growth=self.growth)
+                 if wedges is not None else 0),
             )
             groups.setdefault(key, []).append(k)
+        if self.tier == "auto":
+            # a dense-routed bucket never reads cap_w, so dense-routed groups
+            # that differ only in it fuse (carrying the largest rung);
+            # sparse-routed groups keep their own tight wedge capacity
+            fused: dict[tuple[int, int, int], int] = {}
+            wins: dict[tuple[int, int, int], list[int]] = {}
+            kept: dict[tuple[int, int, int, int], list[int]] = {}
+            for (cap_e, cap_i, cap_j, cap_w), idx in sorted(groups.items()):
+                if route_tier(cap_e, cap_i, cap_j, cap_w,
+                              sort_cost=_SORT_COST) == "dense":
+                    k3 = (cap_e, cap_i, cap_j)
+                    fused[k3] = max(fused.get(k3, 0), cap_w)
+                    wins.setdefault(k3, []).extend(idx)
+                else:
+                    kept[(cap_e, cap_i, cap_j, cap_w)] = idx
+            for k3, cap_w in fused.items():
+                kept[k3 + (cap_w,)] = sorted(wins[k3])
+            groups = kept
         buckets = []
-        for (cap_e, cap_i, cap_j), idx in sorted(groups.items()):
+        for (cap_e, cap_i, cap_j, cap_w), idx in sorted(groups.items()):
             win = np.asarray(idx, dtype=np.int64)
             if self.snap:
                 cap_e = min(id_capacity(
@@ -261,58 +344,97 @@ class WindowExecutor:
                 cap_j = min(id_capacity(
                     int(batch.n_j_per_window[win].max()), align=self.snap),
                     cap_j)
-            buckets.append(Bucket(cap_e, cap_i, cap_j, win))
+            buckets.append(Bucket(cap_e, cap_i, cap_j, win, cap_w=cap_w))
         self._plan_cache = (weakref.ref(batch), buckets)
         return buckets
+
+    def bucket_tier(self, b: Bucket) -> str:
+        """The device tier a bucket runs: the configured tier, or under
+        ``auto`` the cost model's pick (:func:`route_tier`), which depends
+        only on the bucket's static capacities."""
+        if self.tier == "auto":
+            return route_tier(b.cap_e, b.cap_i, b.cap_j, b.cap_w,
+                              sort_cost=_SORT_COST)
+        return self.tier
 
     # -- counting -----------------------------------------------------------
 
     def _chunk_counts(self, b: Bucket, ei: torch.Tensor, ej: torch.Tensor,
+                      mm: torch.Tensor | None,
                       v: torch.Tensor) -> torch.Tensor:
-        """``[c, cap_e]`` lanes of one chunk -> ``[c]`` float32 counts."""
-        if self.tier == "dense":
-            return count_butterflies_dense(
-                build_biadjacency(ei, ej, v, b.cap_i, b.cap_j))
-        from ..kernels.butterfly.ops import (
-            butterfly_count_pallas_windows,
-            oriented_biadjacency,
-        )
+        """``[c, cap_e]`` lanes of one chunk -> ``[c]`` float32 counts;
+        ``mm`` is the multiplicity lane of a multiset batch, else None."""
+        tier = self.bucket_tier(b)
+        ci, cj = b.cap_i, b.cap_j
+        if tier == "sparse":
+            cap_w = max(b.cap_w, 1)
+            if mm is not None:
+                return count_butterflies_sparse_multiset(ei, ej, mm, v, ci, cj,
+                                                         cap_w)
+            return count_butterflies_sparse(ei, ej, v, ci, cj, cap_w)
+        if tier == "pallas":
+            from ..kernels.butterfly import ops
 
-        adjs = oriented_biadjacency(ei, ej, v, b.cap_i, b.cap_j)
-        return butterfly_count_pallas_windows(adjs, block_i=self.block_i)
+            if mm is not None:
+                return ops.butterfly_count_pallas_windows_multiset(
+                    ops.oriented_biadjacency_multiset(ei, ej, mm, v, ci, cj),
+                    block_i=self.block_i)
+            return ops.butterfly_count_pallas_windows(
+                ops.oriented_biadjacency(ei, ej, v, ci, cj),
+                block_i=self.block_i)
+        adj = (build_biadjacency_multiset(ei, ej, mm, v, ci, cj)
+               if mm is not None else build_biadjacency(ei, ej, v, ci, cj))
+        if tier == "tiled":
+            tile = min(_TILE, ci, cj)
+            return (count_butterflies_tiled_multiset(adj, tile=tile)
+                    if mm is not None else
+                    count_butterflies_tiled(adj, tile=tile))
+        return (count_butterflies_dense_multiset(adj) if mm is not None
+                else count_butterflies_dense(adj))
 
     def _counter(self, b: Bucket):
-        """The counter for one bucket: ``(edge_i, edge_j, valid)`` device
-        lanes ``[n, cap_e]`` -> ``[n]`` float32 counts, counted ``chunk``
-        windows at a time in stream order.  A short last chunk simply runs
-        short: nothing is padded, so nothing is sliced off."""
-        def run(ei, ej, v):
+        """The counter for one bucket: device lanes ``(edge_i, edge_j,
+        [edge_mult,] valid)`` ``[n, cap_e]`` -> ``[n]`` float32 counts,
+        counted ``chunk`` windows at a time in stream order.  A short last
+        chunk simply runs short: nothing is padded, so nothing is sliced
+        off."""
+        def run(*lanes):
+            ei, ej = lanes[0], lanes[1]
+            mm = lanes[2] if len(lanes) == 4 else None
+            v = lanes[-1]
             n = ei.shape[0]
             c = max(1, min(self.chunk, n))
             outs = []
             for s in range(0, n, c):
-                outs.append(self._chunk_counts(b, ei[s:s + c], ej[s:s + c],
-                                               v[s:s + c]))
+                outs.append(self._chunk_counts(
+                    b, ei[s:s + c], ej[s:s + c],
+                    None if mm is None else mm[s:s + c], v[s:s + c]))
                 self.chunks_dispatched += 1
             return torch.cat(outs)
         return run
 
-    def _staged_lanes(self, batch: WindowBatch, b: Bucket) -> tuple:
-        """Stage one bucket's ``(edge_i, edge_j, valid)`` lanes on the
-        device.  On CUDA the lanes are gathered into pinned host buffers and
-        copied without blocking; an event recorded after the copy guards the
-        buffer, which is rewritten (by the submit after next that shares the
-        bucket shape) only once its event has completed."""
+    def _staged_lanes(self, batch: WindowBatch, b: Bucket,
+                      multiset: bool) -> tuple:
+        """Stage one bucket's ``(edge_i, edge_j, [edge_mult,] valid)``
+        lanes on the device.  On CUDA the lanes are gathered into pinned
+        host buffers and copied without blocking; an event recorded after
+        the copy guards the buffer, which is rewritten (by the submit after
+        next that shares the bucket shape) only once its event has
+        completed."""
         cap, win = b.cap_e, b.windows
-        key = (b.cap_e, b.cap_i, b.cap_j, len(win))
+        key = (b.cap_e, b.cap_i, b.cap_j, b.cap_w, len(win), multiset)
         cuda = self.device.type == "cuda"
+        srcs = [batch.edge_i, batch.edge_j]
+        if multiset:
+            srcs.append(batch.edge_mult)
+        srcs.append(batch.valid)
         ring = self._staging.get(key)
         if ring is None:
             def make():
                 shape = (len(win), cap)
-                lanes = (torch.empty(shape, dtype=torch.int32, pin_memory=cuda),
-                         torch.empty(shape, dtype=torch.int32, pin_memory=cuda),
-                         torch.empty(shape, dtype=torch.bool, pin_memory=cuda))
+                lanes = tuple(torch.empty(shape, dtype=(
+                    torch.bool if src is batch.valid else torch.int32),
+                    pin_memory=cuda) for src in srcs)
                 return [lanes, None]
             ring = [make(), make(), 0]
             self._staging[key] = ring
@@ -321,9 +443,8 @@ class WindowExecutor:
         lanes, event = slot
         if event is not None:
             event.synchronize()
-        np.take(batch.edge_i[:, :cap], win, axis=0, out=lanes[0].numpy())
-        np.take(batch.edge_j[:, :cap], win, axis=0, out=lanes[1].numpy())
-        np.take(batch.valid[:, :cap], win, axis=0, out=lanes[2].numpy())
+        for src, dst in zip(srcs, lanes):
+            np.take(src[:, :cap], win, axis=0, out=dst.numpy())
         if not cuda:
             return lanes
         dev = tuple(h.to(self.device, non_blocking=True) for h in lanes)
@@ -333,28 +454,26 @@ class WindowExecutor:
 
     def window_counts_submit(self, batch: WindowBatch) -> PendingCounts:
         """Stage and dispatch every bucket of ``batch`` and return a
-        :class:`PendingCounts` handle without waiting for the device.  The
-        ``numpy`` tier counts on the host at submit."""
-        if batch.edge_mult is not None:
-            raise NotImplementedError(
-                "multiset counting (dup_policy='multiset') needs kernel K2, "
-                "which is not ported yet (ROADMAP Queue 2)")
+        :class:`PendingCounts` handle without waiting for the device.  A
+        batch carrying the multiplicity lane (``batch.edge_mult``) routes
+        every tier through its multiplicity-weighted twin.  The ``numpy``
+        tier counts on the host at submit."""
         if batch.n_windows == 0:
             return PendingCounts(0, np.zeros(0, np.int64),
                                  np.zeros(0, np.float64))
+        multiset = batch.edge_mult is not None
         buckets = self.plan(batch)
         index = np.concatenate([b.windows for b in buckets])
         if self.tier == "numpy":
             counts = np.empty(len(index), dtype=np.float64)
-            pos = 0
-            for b in buckets:
-                for k in b.windows:
-                    v = batch.valid[k]
-                    counts[pos] = count_butterflies_np(np.stack(
-                        [batch.edge_i[k][v], batch.edge_j[k][v]], axis=1))
-                    pos += 1
+            for pos, k in enumerate(index):
+                v = batch.valid[k]
+                e = np.stack([batch.edge_i[k][v], batch.edge_j[k][v]], axis=1)
+                counts[pos] = (count_butterflies_multiset_np(
+                    e, batch.edge_mult[k][v]) if multiset
+                    else count_butterflies_np(e))
             return PendingCounts(batch.n_windows, index, counts)
-        parts = [self._counter(b)(*self._staged_lanes(batch, b))
+        parts = [self._counter(b)(*self._staged_lanes(batch, b, multiset))
                  for b in buckets]
         dev = torch.cat(parts)
         if self.device.type != "cuda":
@@ -370,11 +489,15 @@ class WindowExecutor:
         ``window_counts_submit(batch).reap()``."""
         return self.window_counts_submit(batch).reap()
 
-    def warmup(self, rungs) -> int:
+    def warmup(self, rungs, *, multiset: bool = False) -> int:
         """Run one all-invalid window through each ``(cap_e, cap_i, cap_j)``
         rung before the first push, so the first real flush pays no one-time
-        cost (on the pallas tier: building and loading K1).  Blocks until
-        done; returns the number of rungs run (0 for the ``numpy`` tier)."""
+        cost (on the pallas tier: building and loading the kernels).
+        ``multiset`` runs the multiplicity-weighted counters.  Blocks until
+        done; returns the number of rungs run (0 for the ``numpy`` tier).
+        Wedge-capacity buckets (``sparse``, and ``auto``'s sparse-routed
+        groups) key additionally on ``cap_w`` and are not covered by
+        3-tuple rungs."""
         if self.tier == "numpy":
             return 0
         done = 0
@@ -383,6 +506,7 @@ class WindowExecutor:
             b = Bucket(cap_e, cap_i, cap_j, np.arange(1, dtype=np.int64))
             z = torch.zeros((1, cap_e), dtype=torch.int32, device=self.device)
             v = torch.zeros((1, cap_e), dtype=torch.bool, device=self.device)
-            self._counter(b)(z, z, v).cpu()
+            lanes = (z, z, z, v) if multiset else (z, z, v)
+            self._counter(b)(*lanes).cpu()
             done += 1
         return done

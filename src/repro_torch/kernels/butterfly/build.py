@@ -1,9 +1,10 @@
 """Build and load the butterfly CUDA kernels (``csrc/*.cu``).
 
-Every ``.cu`` source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, which is loaded with
-``ctypes``.  The build happens at first use, into ``build/repro_torch_kernels/``
-at the root of the checkout (listed in ``.gitignore``), or, for an installed
+Every ``.cu`` source under ``csrc/`` compiles with its own ``nvcc`` for
+``sm_90a`` (all started together), and the objects link into one shared
+library with a plain C interface, which is loaded with ``ctypes``.  The
+build happens at first use, into ``build/repro_torch_kernels/`` at the
+root of the checkout (listed in ``.gitignore``), or, for an installed
 package, into ``~/.cache/repro_torch_kernels/``; the library's file name
 carries a hash of the sources and flags, so an edited source never loads a
 stale library.  Nothing here runs at import: the CPU tests import
@@ -20,7 +21,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
-__all__ = ["BuildInfo", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "load_library"]
+__all__ = ["BuildInfo", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "ENTRY_POINTS",
+           "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
@@ -35,7 +37,11 @@ def _build_dir() -> Path:
 
 BUILD_DIR = _build_dir()
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the C entry points: (device stack, partials, n_windows, n_rows, n_cols,
+# block_i, stream) -> cudaError_t as int
+ENTRY_POINTS = ("butterfly_windows_launch", "butterfly_windows_multiset_launch")
 
 
 @dataclass(frozen=True)
@@ -66,6 +72,22 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds: list[list[str]]) -> tuple[str, list[str]]:
+    """Run every command at once; wait for all.  Returns the joined output
+    and the failures, each with its command line and output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{out}")
+    return "".join(logs), failed
+
+
 def _build() -> BuildInfo:
     sources = sorted(CSRC.glob("*.cu"))
     if not sources:
@@ -78,24 +100,37 @@ def _build() -> BuildInfo:
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a private name, then rename: concurrent builds (test
+        # build under private names, then rename: concurrent builds (test
         # workers) never load a half-written library
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{os.getpid()}.tmp"
+        nvcc = _nvcc()
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        tmp = path.with_suffix(f".{tag}")
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        try:
+            log, failed = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                     str(src)]
+                                    for src, o in zip(sources, objs)])
+            if not failed:
+                link_log, failed = _run_all([[
+                    nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-shared", "-o", str(tmp), *map(str, objs)]])
+                log += link_log
+            if failed:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError("\n".join(failed))
+            os.replace(tmp, path)
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, path)
     lib = ctypes.CDLL(str(path))
-    fn = lib.butterfly_windows_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name in ENTRY_POINTS:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return BuildInfo(lib=lib, path=path, seconds=seconds, log=log)
 
 

@@ -1,34 +1,49 @@
-"""Wrappers around K1 that the executor's ``pallas`` tier calls.
+"""Wrappers around K1, K2 and K3 that the executor's ``pallas`` tier and
+the single-matrix entries call.
 
-``butterfly_count_pallas_windows`` keeps the reference's name, so the tier
-maps one to one: a ``[B, n_i, n_j]`` stack of same-capacity biadjacencies
-(one chunk of an executor bucket) is counted with a single launch of K1.
-The wrapper orients every window so the smaller side is the Gram side,
-clamps the tile to the matrix and sums each window's partials.
+``butterfly_count_pallas_windows`` and its multiset twin keep the
+reference's names, so the tier maps one to one: a ``[B, n_i, n_j]`` stack
+of same-capacity biadjacencies (one chunk of an executor bucket) is counted
+with a single launch of K1 (K2 for net multiplicities).  The wrappers orient
+every window so the smaller side is the Gram side, clamp the tile to the
+matrix and reduce each window's partials with :func:`window_sums`.
+``butterfly_count_pallas`` and ``butterfly_count_tiles`` count one matrix
+through K3.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ...core.butterfly import build_biadjacency
-from .butterfly_kernel import butterfly_pairs_windows_kernel_call
+from ...core.butterfly import build_biadjacency, build_biadjacency_multiset
+from ...device import resolve_device
+from .butterfly_kernel import (
+    butterfly_pairs_kernel_call,
+    butterfly_pairs_windows_kernel_call,
+    butterfly_pairs_windows_multiset_kernel_call,
+)
 
-__all__ = ["butterfly_count_pallas_windows", "clamp_block_i", "oriented",
-           "oriented_biadjacency"]
+__all__ = ["butterfly_count_pallas", "butterfly_count_pallas_batched",
+           "butterfly_count_pallas_windows",
+           "butterfly_count_pallas_windows_multiset", "butterfly_count_tiles",
+           "clamp_block_i", "oriented", "oriented_biadjacency",
+           "oriented_biadjacency_multiset", "window_sums"]
 
 
 def clamp_block_i(block_i: int, n: int) -> int:
-    """The tile edge K1 runs at for an ``n``-row Gram side: ``block_i``
-    clamped toward ``n`` rounded up to 8, as the reference clamps."""
+    """The tile edge the kernels run at for an ``n``-row Gram side:
+    ``block_i`` clamped toward ``n`` rounded up to 8, as the reference
+    clamps."""
     return min(block_i, max(8, -(-n // 8) * 8))
 
 
 def oriented(adjs: torch.Tensor) -> torch.Tensor:
-    """The stack K1 reads: ``adjs`` as contiguous float32 with the smaller
-    side (the Gram side) as rows.  Every window of a bucket shares its
-    capacity, so the transpose decision the per-window reference makes
-    applies stack-wide; a transposed stack is copied."""
-    a = adjs.transpose(1, 2) if adjs.shape[1] > adjs.shape[2] else adjs
+    """The stack the kernels read: ``adjs`` (``[B, n_i, n_j]``, or one
+    ``[n_i, n_j]`` matrix) as contiguous float32 with the smaller side (the
+    Gram side) as rows.  Every window of a bucket shares its capacity, so
+    the transpose decision the per-window reference makes applies
+    stack-wide; a transposed stack is copied."""
+    a = adjs.transpose(-2, -1) if adjs.shape[-2] > adjs.shape[-1] else adjs
     return a.to(torch.float32).contiguous()
 
 
@@ -44,6 +59,31 @@ def oriented_biadjacency(edge_i: torch.Tensor, edge_j: torch.Tensor,
     return build_biadjacency(edge_i, edge_j, valid, n_i, n_j)
 
 
+def oriented_biadjacency_multiset(edge_i: torch.Tensor, edge_j: torch.Tensor,
+                                  mult: torch.Tensor, valid: torch.Tensor,
+                                  n_i: int, n_j: int) -> torch.Tensor:
+    """Multiset twin of :func:`oriented_biadjacency`: the weighted stack
+    K2 reads, oriented by the scatter (the multiset identity is symmetric
+    in the sides)."""
+    if n_i > n_j:
+        return build_biadjacency_multiset(edge_j, edge_i, mult, valid, n_j, n_i)
+    return build_biadjacency_multiset(edge_i, edge_j, mult, valid, n_i, n_j)
+
+
+def window_sums(partials: torch.Tensor) -> torch.Tensor:
+    """``[B, T]`` float32 partials -> ``[B]`` float32 window counts: the
+    float32 rounding of each row's exact sum.
+
+    A window's count must not depend on how many windows share its launch
+    (streaming at any micro-batch equals replay bit for bit), but the order
+    of a float32 reduction over a ``[B, T]`` tensor depends on ``B`` on
+    the card.  The partials are float32 multiples of 0.5 (``w^2 - s`` and
+    ``w(w-1)`` are integers in any rounding), so their float64 sum is exact
+    in any order while it stays below 2**51 in magnitude; rounding it once
+    gives the same bits for every ``B``, on the card and on the CPU."""
+    return partials.to(torch.float64).sum(dim=-1).to(torch.float32)
+
+
 def butterfly_count_pallas_windows(adjs: torch.Tensor, *,
                                    block_i: int = 256) -> torch.Tensor:
     """Count a ``[B, n_i, n_j]`` stack of 0/1 biadjacencies -> ``[B]``
@@ -54,4 +94,46 @@ def butterfly_count_pallas_windows(adjs: torch.Tensor, *,
     a = oriented(adjs)
     partials = butterfly_pairs_windows_kernel_call(
         a, block_i=clamp_block_i(block_i, a.shape[1]))
-    return partials.sum(dim=1)
+    return window_sums(partials)
+
+
+def butterfly_count_pallas_windows_multiset(adjs: torch.Tensor, *,
+                                            block_i: int = 256
+                                            ) -> torch.Tensor:
+    """Multiset twin of :func:`butterfly_count_pallas_windows`: a
+    ``[B, n_i, n_j]`` stack of weighted biadjacencies (entries = net edge
+    multiplicities) -> ``[B]`` float32 counts with ONE launch of K2."""
+    a = oriented(adjs)
+    partials = butterfly_pairs_windows_multiset_kernel_call(
+        a, block_i=clamp_block_i(block_i, a.shape[1]))
+    return window_sums(partials)
+
+
+def butterfly_count_pallas_batched(adjs: torch.Tensor, *,
+                                   block_i: int = 256) -> torch.Tensor:
+    """The reference's historical stacked entry: an alias of
+    :func:`butterfly_count_pallas_windows`."""
+    return butterfly_count_pallas_windows(adjs, block_i=block_i)
+
+
+def butterfly_count_pallas(adj: torch.Tensor, *,
+                           block_i: int = 256) -> torch.Tensor:
+    """Butterfly count of one dense 0/1 biadjacency ``[n_i, n_j]`` -> a
+    0-d float32 tensor, through K3 (K1's kernel at ``B = 1``) at the tile
+    clamped to the oriented matrix."""
+    a = oriented(adj)
+    partials = butterfly_pairs_kernel_call(
+        a, block_i=clamp_block_i(block_i, a.shape[0]))
+    return window_sums(partials)
+
+
+def butterfly_count_tiles(adj, *, block_i: int = 256, device=None) -> float:
+    """Host entry: K3's partials at the unclamped ``block_i``, reduced in
+    float64 on the host (each partial is exact below 2**24; the float64 sum
+    adds no error).  ``adj`` is a tensor, counted on its own device, or an
+    array, counted on ``device`` (``cuda`` unless the caller names
+    another)."""
+    if not isinstance(adj, torch.Tensor):
+        adj = torch.as_tensor(np.asarray(adj), device=resolve_device(device))
+    partials = butterfly_pairs_kernel_call(oriented(adj), block_i=block_i)
+    return float(partials.cpu().to(torch.float64).sum())

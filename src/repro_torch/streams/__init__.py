@@ -9,6 +9,7 @@ from .generators import (
     assign_timestamps,
 )
 from .engine import StreamingSGrapp
+from .oracle import OracleWindow, oracle_window_counts, replay_dynamic
 from .state import (
     OP_DELETE,
     OP_INSERT,
@@ -31,6 +32,9 @@ __all__ = [
     "synthetic_rating_stream",
     "assign_timestamps",
     "StreamingSGrapp",
+    "OracleWindow",
+    "oracle_window_counts",
+    "replay_dynamic",
     "OP_INSERT",
     "OP_DELETE",
     "StreamState",

@@ -4,11 +4,9 @@ The port's copy of ``repro.streams.config.EngineConfig``: the same knobs,
 validation, defaults and JSON form, so a checkpoint's embedded config reads
 the same in both packages.  Where the reference takes ``devices`` / ``mesh``
 the port takes ``device`` (default ``cuda``); like them it is a deployment
-property and never serialized.  Tier names the port has not ported yet
-(``tiled``, ``sparse``, ``auto``, ``sampled``) are accepted here, so such a
-checkpoint still parses, and raise ``NotImplementedError`` when an engine
-builds its executor; so does ``dup_policy="multiset"``, which needs kernel
-K2.
+property and never serialized.  The one tier name the port has not ported
+yet, ``sampled``, is accepted here, so such a checkpoint still parses, and
+raises ``NotImplementedError`` when an engine builds its executor.
 """
 from __future__ import annotations
 
@@ -47,14 +45,14 @@ class EngineConfig:
     Parameters
     ----------
     tier : counting tier the engine builds its executor with (``numpy |
-        dense | pallas`` run; the reference's other names parse and raise
-        at engine construction).
+        dense | tiled | pallas | sparse | auto`` run; ``sampled`` parses
+        and raises at engine construction).
     tol, step : Algorithm 5 error band and alpha adaptation step.
     flush_every : closed windows to accumulate before one bucketed count.
     drop_partial : whether ``finalize()`` drops a trailing unfilled window.
     align : edge-lane alignment of packed flush batches.
-    dup_policy : ``"distinct"`` (keep-first dedupe); ``"multiset"`` parses
-        and raises at engine construction.
+    dup_policy : ``"distinct"`` (keep-first dedupe) or ``"multiset"``
+        (multiplicity-weighted counts; not with the ``sampled`` tier).
     on_missing_delete : ``"raise"`` or ``"ignore"`` for deletes of absent
         edges.
     seed, capacity, gamma, memory_budget, target_mape : the sampled tier's
@@ -154,15 +152,16 @@ class EngineConfig:
         piecewise, so buckets run at ladder rungs."""
         from ..core.executor import WindowExecutor
 
-        if self.dup_policy == "multiset":
-            raise NotImplementedError(
-                "dup_policy='multiset' needs kernel K2, which is not ported "
-                "to torch yet (ROADMAP Queue 2)")
         if executor is not None:
             if self.device is not None:
                 raise ValueError(
                     "device= conflicts with executor=; the executor already "
                     "owns its device")
+            if self.dup_policy == "multiset" and executor.tier == "sampled":
+                raise NotImplementedError(
+                    "sampled tier does not support dup_policy='multiset': "
+                    "the subsample-and-scale identity assumes distinct "
+                    "edges; use an exact tier for multiset streams")
             return executor
         return WindowExecutor(
             self.tier, align=self.align, snap=0,

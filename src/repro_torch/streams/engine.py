@@ -1,6 +1,7 @@
 """Online streaming ingestion engine: push sgrs, get estimates (paper Alg. 3+5).
 
-The port's ``StreamingSGrapp`` (single stream, distinct duplicate policy)::
+The port's ``StreamingSGrapp`` (single stream; ``distinct`` or ``multiset``
+duplicate policy, inserts and deletes)::
 
     push(tau, i, j) ──> online windowizer ──> pending closed windows
                                                │  (flush_every batching)
@@ -92,14 +93,24 @@ def check_state_dict_keys(state: dict) -> None:
 
 
 def resolve_pending_window(ei: np.ndarray, ej: np.ndarray,
-                           ops: np.ndarray | None) -> np.ndarray:
-    """One closed window's record list as ``pack_windows`` input under the
-    distinct policy: the raw records (keep-first dedupe happens in the
-    packer) or, when the window held deletes, its net surviving edges."""
-    if ops is None:
-        return np.stack([ei, ej], axis=1)
-    ri, rj, _ = resolve_window(ei, ej, ops)
-    return np.stack([ri, rj], axis=1)
+                           ops: np.ndarray | None, dup_policy: str
+                           ) -> tuple[np.ndarray, np.ndarray | None]:
+    """One closed window's record list as the ``pack_windows`` inputs its
+    duplicate policy calls for: ``(edges, mult)``.
+
+    ``distinct`` with all inserts (``ops is None``): the raw records, for
+    the packer's keep-first dedupe, and no multiplicities.  ``distinct``
+    with deletes: the net surviving edges (present iff their net
+    multiplicity is > 0), multiplicities dropped.  ``multiset``: the net
+    surviving edges *with* their multiplicities -- every window resolves,
+    because even an insert-only window's duplicates carry weight."""
+    if dup_policy == "distinct":
+        if ops is None:
+            return np.stack([ei, ej], axis=1), None
+        ri, rj, _ = resolve_window(ei, ej, ops)
+        return np.stack([ri, rj], axis=1), None
+    ri, rj, mult = resolve_window(ei, ej, ops)
+    return np.stack([ri, rj], axis=1), mult
 
 
 class StreamingSGrapp:
@@ -139,12 +150,14 @@ class StreamingSGrapp:
         self.drop_partial = cfg.drop_partial
         self.align = cfg.align
         self.on_missing_delete = cfg.on_missing_delete
+        self.dup_policy = cfg.dup_policy
         self.executor = cfg.make_executor(executor)
         self.device = self.executor.device
         self._step_fn = estimator_step(cfg.tol, cfg.step, self.device)
         self.sync_dispatch = resolve_sync_dispatch(cfg)
         if cfg.warmup:
-            self.executor.warmup(cfg.warmup)
+            self.executor.warmup(cfg.warmup,
+                                 multiset=(cfg.dup_policy == "multiset"))
         self._state: StreamState = stream_state_init(1, alpha0, seed=cfg.seed)
         # closed-but-uncounted windows: (edge_i, edge_j, ops, n_sgrs, end_tau)
         self._pending: list[tuple[np.ndarray, np.ndarray,
@@ -218,8 +231,9 @@ class StreamingSGrapp:
         if self._inflight is not None:
             raise RuntimeError("reap the in-flight flush first")
         pending = self._pending
-        per_edges = [resolve_pending_window(ei, ej, ops)
-                     for ei, ej, ops, _, _ in pending]
+        resolved = [resolve_pending_window(ei, ej, ops, self.dup_policy)
+                    for ei, ej, ops, _, _ in pending]
+        per_edges = [e for e, _ in resolved]
         n_sgrs = np.array([m for _, _, _, m, _ in pending], dtype=np.int64)
         end_tau = np.array([t for _, _, _, _, t in pending], dtype=np.float64)
         cum = int(self._state.total_sgrs[0]) + np.cumsum(n_sgrs)
@@ -229,8 +243,14 @@ class StreamingSGrapp:
         uid = ((hi << np.uint64(32))
                + (cum.astype(np.uint64) & np.uint64(0xFFFFFFFF))
                ).astype(np.int64)
+        # multiset: resolved edges are unique already, and the multiplicity
+        # lane routes every tier through its weighted twin
+        multiset = self.dup_policy == "multiset"
         batch = pack_windows(per_edges, n_sgrs=n_sgrs, cum_sgrs=cum,
                              window_end_tau=end_tau, align=self.align,
+                             dedupe=not multiset,
+                             per_window_mult=([m for _, m in resolved]
+                                              if multiset else None),
                              sample_uid=uid)
         handle = self.executor.window_counts_submit(batch)
         self._pending = []

@@ -1,8 +1,10 @@
 """The port's WindowExecutor against the reference executor.
 
 Same planning (buckets, capacities, window membership), the same exact
-counts on every ported tier (``numpy``, ``dense``, ``pallas``; on the CPU
-the pallas tier runs K1's plain version), and the submit / reap handle.
+counts on every ported tier (``numpy``, ``dense``, ``tiled``, ``pallas``,
+``sparse``, ``auto``; on the CPU the pallas tier runs K1's plain version),
+and the submit / reap handle.  Multiset batches, wedge rungs and routing
+are in ``test_torch_multiset.py``.
 """
 import numpy as np
 import pytest
@@ -10,7 +12,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro.core.executor as jex  # noqa: E402
-import repro.core.windows as jwin  # noqa: E402
 import repro_torch.core.executor as tex  # noqa: E402
 from repro_torch.core.windows import WindowBatch, windowize  # noqa: E402
 from repro_torch.kernels.butterfly import butterfly_kernel as k1  # noqa: E402
@@ -139,19 +140,10 @@ def test_staging_ring_reuses_buffers_without_changing_counts():
         np.testing.assert_array_equal(ex.window_counts(b), want_b)
 
 
-@pytest.mark.parametrize("tier", ("tiled", "sparse", "auto", "sampled"))
+@pytest.mark.parametrize("tier", ("sampled",))
 def test_unported_tiers_name_their_roadmap_item(tier):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tex.WindowExecutor(tier, device=CPU)
-
-
-def test_multiset_batch_needs_k2():
-    per = [np.asarray(ADVERSARIAL["complete_k9_7"])]
-    batch = jwin.pack_windows(per, n_sgrs=[63], cum_sgrs=[63],
-                              window_end_tau=[0.0], dedupe=False,
-                              per_window_mult=[np.ones(63)])
-    with pytest.raises(NotImplementedError, match="K2"):
-        tex.WindowExecutor("dense", device=CPU).window_counts(batch)
 
 
 @pytest.mark.parametrize("kw,match", [

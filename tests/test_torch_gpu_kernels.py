@@ -1,4 +1,5 @@
-"""K1 on the card against its plain torch version (marked ``gpu``).
+"""K1, K2 and K3 on the card against their plain torch versions (marked
+``gpu``).
 
 Run on a machine with a CUDA device:
 
@@ -16,6 +17,7 @@ from repro_torch.core.butterfly import count_butterflies_np  # noqa: E402
 from repro_torch.core.executor import WindowExecutor  # noqa: E402
 from repro_torch.core.windows import windowize  # noqa: E402
 from repro_torch.kernels.butterfly import butterfly_kernel as k1  # noqa: E402
+from repro_torch.kernels.butterfly import ops  # noqa: E402
 from repro_torch.kernels.butterfly.ops import (  # noqa: E402
     butterfly_count_pallas_windows,
 )
@@ -26,7 +28,8 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no CPU mode")
+        pytest.skip("needs a CUDA device: K1, K2 and K3 are CUDA kernels "
+                    "with no CPU mode")
     return torch.device("cuda")
 
 
@@ -88,7 +91,8 @@ def test_ops_counts_equal_oracle(cuda):
         assert float(got[w]) == count_butterflies_np(np.stack([ii, jj], 1))
 
 
-@pytest.mark.parametrize("tier", ["dense", "pallas"])
+@pytest.mark.parametrize("tier", ["dense", "tiled", "pallas", "sparse",
+                                  "auto"])
 def test_executor_tiers_equal_oracle_on_cuda(cuda, tier):
     from repro_torch.streams import bipartite_pa_stream
 
@@ -96,4 +100,93 @@ def test_executor_tiers_equal_oracle_on_cuda(cuda, tier):
     wb = windowize(s.tau, s.edge_i, s.edge_j, 200)
     got = WindowExecutor(tier, device=cuda, chunk=3).window_counts(wb)
     want = WindowExecutor("numpy", device="cpu").window_counts(wb)
+    np.testing.assert_array_equal(got, want)
+
+
+def weighted(b, n, k, density, max_mult, seed):
+    rng = np.random.default_rng(seed)
+    present = rng.random((b, n, k)) < density
+    return torch.from_numpy((present * rng.integers(1, max_mult + 1, (b, n, k))
+                             ).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,n,k,block_i,density", [
+    (1, 8, 8, 8, 0.5),
+    (3, 37, 41, 8, 0.3),        # ragged rows and columns
+    (2, 130, 90, 64, 0.1),      # several tiles, ragged last tile
+    (1, 200, 64, 136, 0.1),     # tile pairs across 64-column sub-tiles
+    (5, 40, 0, 8, 0.0),         # empty contraction
+])
+def test_k2_partials_equal_plain_at_small_multiplicities(cuda, b, n, k,
+                                                         block_i, density):
+    a = weighted(b, n, k, density, 8, seed=n + k).to(cuda)
+    want = k1.butterfly_pairs_windows_multiset_plain(a, block_i=block_i,
+                                                     dtype=torch.float64)
+    if want.numel():
+        assert float(want.max()) < 2**24
+    got = k1.butterfly_pairs_windows_multiset_kernel_call(a, block_i=block_i)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=0)
+
+
+def test_k2_past_2_24_within_rtol(cuda):
+    """Multiplicities up to 1000 put W^2 and S far past 2**24: K2 is held
+    to the float64 plain version within rtol 1e-5 per partial."""
+    a = weighted(2, 512, 2048, 0.05, 1000, seed=7).to(cuda)
+    got = k1.butterfly_pairs_windows_multiset_kernel_call(a, block_i=256)
+    want = k1.butterfly_pairs_windows_multiset_plain(a, block_i=256,
+                                                     dtype=torch.float64)
+    assert float(want.max()) > 2**24
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=0)
+
+
+def test_k2_window_counts_do_not_depend_on_the_stack(cuda):
+    a = weighted(6, 300, 700, 0.1, 500, seed=3).to(cuda)
+    whole = ops.butterfly_count_pallas_windows_multiset(a, block_i=256)
+    assert float(whole.max()) > 2**24
+    for w in range(6):
+        one = ops.butterfly_count_pallas_windows_multiset(a[w:w + 1],
+                                                          block_i=256)
+        assert torch.equal(one[0], whole[w])
+
+
+def test_k2_and_k3_count_their_own_launches(cuda):
+    k1.reset_launch_count()
+    a = weighted(2, 20, 30, 0.3, 4, seed=1)
+    k1.butterfly_pairs_windows_multiset_kernel_call(a, block_i=8)  # CPU
+    k1.butterfly_pairs_kernel_call(a[0], block_i=8)                # CPU
+    assert k1.launch_count("K2") == k1.launch_count("K3") == 0
+    k1.butterfly_pairs_windows_multiset_kernel_call(a.to(cuda), block_i=8)
+    ops.butterfly_count_pallas((a[0] > 0).float().to(cuda), block_i=8)
+    assert (k1.launch_count("K1"), k1.launch_count("K2"),
+            k1.launch_count("K3")) == (0, 1, 1)
+
+
+def test_k3_entries_equal_plain(cuda):
+    a = (stack(1, 90, 130, 0.2, seed=5)[0]).to(cuda)
+    want = float(k1.butterfly_pairs_plain(a.cpu(), block_i=64).double().sum())
+    assert float(ops.butterfly_count_pallas(a, block_i=64)) == want
+    assert ops.butterfly_count_tiles(a, block_i=64) == want
+    assert ops.butterfly_count_tiles(a.cpu().numpy(), block_i=64) == want
+
+
+@pytest.mark.parametrize("tier", ["dense", "pallas", "sparse"])
+def test_multiset_executor_equals_oracle_on_cuda(cuda, tier):
+    from repro_torch.core.windows import pack_windows
+
+    rng = np.random.default_rng(9)
+    edges, mults = [], []
+    for _ in range(7):
+        e = np.unique(np.stack([rng.integers(0, 50, 400),
+                                rng.integers(0, 40, 400)], 1), axis=0)
+        edges.append(e)
+        mults.append(rng.integers(1, 9, len(e)))
+    n = len(edges)
+    batch = pack_windows(edges, n_sgrs=np.full(n, 400),
+                         cum_sgrs=400 * np.arange(1, n + 1),
+                         window_end_tau=np.arange(n, dtype=np.float64),
+                         dedupe=False, per_window_mult=mults)
+    got = WindowExecutor(tier, device=cuda, chunk=3).window_counts(batch)
+    want = WindowExecutor("numpy", device="cpu").window_counts(batch)
+    assert want.max() < 2**24
     np.testing.assert_array_equal(got, want)
