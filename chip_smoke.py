@@ -3,17 +3,19 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the port's CUDA kernels K1 and
-K2 (``src/repro_torch/kernels/butterfly/csrc/``, one ``nvcc`` per source,
-all started together) for ``sm_90a``, holds each kernel against its plain
-torch version, replays a 2M-sgr stream through ``run_sgrapp`` /
+Run from the root of a checkout.  It builds the port's CUDA kernels K1, K2
+(``src/repro_torch/kernels/butterfly/csrc/``) and K4
+(``src/repro_torch/kernels/flash_attention/csrc/``) for ``sm_90a``, one
+``nvcc`` per source, all started together, holds each kernel against its
+plain torch version, replays a 2M-sgr stream through ``run_sgrapp`` /
 ``run_sgrapp_x`` on the ``pallas`` tier (K1) and the ``dense`` tier, pushes
 the same stream through the online engine ``StreamingSGrapp`` under the
 ``distinct`` and ``multiset`` duplicate policies (K1 and K2) across a
 ``state_dict`` / ``restore``, runs a dynamic stream with deletes, sweeps the
-``tiled`` / ``sparse`` / ``auto`` tiers and counts single matrices through
-K3.  Every check raises on failure, so the exit code is non-zero unless all
-phases pass.
+``tiled`` / ``sparse`` / ``auto`` tiers, counts single matrices through
+K3, and serves phi4-mini-3.8b at full width (prefill attention through
+K4).  Every check raises on failure, so the exit code is non-zero unless
+all phases pass.
 
 Phases (each path's launch counts are set to 0 just before it runs and read
 just after):
@@ -51,7 +53,21 @@ just after):
    and its time;
 8. profile: ``torch.profiler`` over the replay (pallas and dense tiers) and
    the distinct and multiset streams: the device's busy and idle share of
-   the wall time and the kernels that take the most device time.
+   the wall time and the kernels that take the most device time;
+9. K4: at the serve path's shapes (q [4, 4096, 24, 128], k and v
+   [4, 4096, 8, 128], bf16, causal) against its plain version, again in
+   float32 and at a ragged later prompt chunk with ``q_offset > 0``
+   (``K4_TOL``); K4's, the plain version's and
+   ``scaled_dot_product_attention``'s times (the last never called by the
+   port) and the least time the card could take;
+10. serve: phi4-mini-3.8b at full width with seeded random weights, 4
+   prompts x 4,096 tokens and 64 greedy tokens through
+   ``repro_torch.launch.serve``: K4 held against its plain version on every
+   layer's q, k, v in one prefill; a counted, timed run (K4 once per layer,
+   finite logits, prefill ms, decode tok/s, peak memory); the profile of a
+   prefill (K4's share) and of decode steps; the smoke config in float32 on
+   the card against the CPU path; the sGrapp monitor's butterfly count of
+   the (request, token) graph against the numpy oracle.
 
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit as ``nvidia-smi`` gives them, and
@@ -80,6 +96,7 @@ SRC = ROOT / "src"
 # the first kernels run at
 PEAK_INT8_OPS = 1979e12
 PEAK_FP16_OPS = 989e12
+PEAK_BF16_OPS = 989e12
 PEAK_FP32_SIMT = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -95,6 +112,26 @@ RTOL_K2 = 1e-5
 # apart (PERF.md, PR 12).  The bound leaves a factor of about 12 for a
 # float32 tier that sums in another order, as the reference's does.
 RTOL_MULTISET = 5e-4
+
+# K4 against its plain version, both computing in float32 in another order
+# of summation: float32 outputs within rtol = atol = 2e-5 (the reference's own
+# kernel test); bf16 outputs within one bf16 rounding step (rtol 8e-3 covers
+# the largest relative ulp, 2**-7; atol 1e-3 the values near 0).  Measured on
+# an H100 at q [4, 4096, 24, 128]: 4.8e-07 (float32), 0.0039 = one ulp at
+# 0.5-1 (bf16) (PERF.md).
+K4_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+          "bfloat16": dict(rtol=8e-3, atol=1e-3)}
+# K4's bf16 output against the plain version's float32 output on the same
+# inputs (widened exactly): the rounding to bf16 (at most half an ulp, 2**-8
+# of the value) on top of the float32 tolerance.  K4_TOL["bfloat16"] cannot
+# tell K4's fp32 P from a bf16 P, whose rounding errs by about 2**-9 of each
+# term: where the output cancels, that is past half an ulp of the output.
+# Phase 9 holds scaled_dot_product_attention, which keeps P in bf16, to this
+# tolerance as a control that must fail.
+K4_ROUNDED = dict(rtol=2.0**-8 + 2e-5, atol=2e-5)
+
+# the LM that phase 10 serves at full width
+LM_ARCH = "phi4-mini-3.8b"
 
 # the adversarial window corpus of tests/test_tier_differential.py
 
@@ -854,7 +891,7 @@ def phase_tiers(wb, alpha0, device, dense_counts) -> None:
         wall = time.perf_counter() - t0
         bad = np.flatnonzero(res.window_counts != dense_counts)
         check(bad.size == 0, f"{tier} != dense on windows {bad[:10]}")
-        _, busy = profile(f"tiers, replay on {tier}", lambda: run_sgrapp(
+        _, busy, _ = profile(f"tiers, replay on {tier}", lambda: run_sgrapp(
             wb, alpha0, executor=ex), device, top=3)
         plan = ex.plan(wb)
         extra = ""
@@ -993,11 +1030,12 @@ def phase_profile(stream, wb, nt_w, alpha0, device, ex) -> None:
                 lambda: push_engine(cfg, nt_w, alpha0, *cols), device)
 
 
-def profile(label: str, fn, device, top: int = 8) -> tuple[float, float]:
+def profile(label: str, fn, device, top: int = 8
+            ) -> tuple[float, float, dict[str, float]]:
     """Where the device time of ``fn`` goes: ``torch.profiler`` over one
     call, the device's busy share of the host wall time (one stream, so
     kernels never overlap) and the ``top`` kernels that took the most of
-    it.  Returns (wall ms, device busy ms)."""
+    it.  Returns (wall ms, device busy ms, device ms by kernel name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -1020,26 +1058,354 @@ def profile(label: str, fn, device, top: int = 8) -> tuple[float, float]:
                     reverse=True)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:12.4f} ms "
             f"{e.count:6d} x  {e.key[:90]}")
-    return wall_ms, busy_ms
+    by_kernel: dict[str, float] = {}
+    for e in dev:
+        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    return wall_ms, busy_ms, by_kernel
+
+
+def within(got, want, tol: dict) -> tuple[bool, float]:
+    """Whether ``|got - want| <= atol + rtol * |want|`` everywhere (in
+    float32), and the largest absolute difference."""
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
+    return ok, float(diff.max()) if diff.numel() else 0.0
+
+
+def k4_bound_ms(q, k, *, causal: bool) -> tuple[float, str, float, str]:
+    """The least time an H100 could take for K4's work on these bf16
+    inputs: (bound ms, "bytes" or "operations", the operations' GFLOP, the
+    rates).  The work counts the (query, key) pairs the causal mask keeps.
+    QK^T on bf16 inputs is exact on bf16 tensor cores with fp32
+    accumulation; PV takes the reference's fp32 P, which three bf16 limbs
+    hold exactly, so three bf16 products.  Bytes: q, k, v read once and the
+    output written once."""
+    import torch
+
+    check(q.dtype == torch.bfloat16, "K4's bound is reckoned for bf16 inputs")
+    b, sq, h, hd = q.shape
+    skv = k.shape[1]
+    keys = np.minimum(skv, np.arange(sq) + 1) if causal else np.full(sq, skv)
+    flops = 2.0 * float(keys.sum()) * b * h * hd        # per product
+    ops_ms = flops * (1 + 3) / PEAK_BF16_OPS * 1e3
+    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    bytes_ms = moved / PEAK_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", 2 * flops / 1e9,
+            "QK^T on bf16 tensor cores, PV on bf16 tensor cores over 3 bf16 "
+            "limbs of P")
+
+
+def hold_k4(got, q, k, v, *, causal: bool, q_offset: int, chunk: int,
+            what: str) -> tuple[float, float]:
+    """Hold K4's output ``got`` to the plain version on the same inputs:
+    within ``K4_TOL`` of its output in ``q.dtype`` and, for bf16, within
+    ``K4_ROUNDED`` of its float32 output.  Returns both max abs errors."""
+    from repro_torch.kernels.flash_attention.flash_kernel import (
+        flash_attention_plain,
+    )
+
+    want32 = flash_attention_plain(q.float(), k.float(), v.float(),
+                                   causal=causal, q_offset=q_offset,
+                                   block_q=chunk, block_k=chunk)
+    tol = K4_TOL[str(q.dtype).split(".")[-1]]
+    ok, err = within(got, want32.to(q.dtype), tol)
+    check(ok, f"K4 != plain on {what} beyond rtol {tol['rtol']}, atol "
+          f"{tol['atol']} (max abs err {err})")
+    ok, err32 = within(got, want32, K4_ROUNDED)
+    check(ok or q.dtype == want32.dtype,
+          f"K4 in bf16 on {what} is not the rounding of the plain version's "
+          f"float32 output (rtol {K4_ROUNDED['rtol']:.6g}, atol "
+          f"{K4_ROUNDED['atol']}; max abs err {err32}): is P kept in fp32?")
+    return err, err32
+
+
+def phase_k4(device, seed: int, *, batch: int, seq: int, heads: int,
+             kv_heads: int, head_dim: int, chunk: int) -> dict:
+    """Phase 9: K4 at the serve path's shapes (q [batch, seq, heads,
+    head_dim], k and v with ``kv_heads``, bf16, causal) against its plain
+    version at the model's attention chunk; again in float32 and at a
+    ragged later prompt chunk (``q_offset > 0``); then K4's, the plain
+    version's and ``scaled_dot_product_attention``'s times and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(sq, skv, dtype):
+        return [torch.randn(shape, generator=gen, device=device).to(dtype)
+                for shape in ((batch, sq, heads, head_dim),
+                              (batch, skv, kv_heads, head_dim),
+                              (batch, skv, kv_heads, head_dim))]
+
+    def hold(q, k, v, q_offset, what):
+        got = k4.flash_attention_bshd(q, k, v, causal=True, q_offset=q_offset)
+        sync(device)
+        err, err32 = hold_k4(got, q, k, v, causal=True, q_offset=q_offset,
+                             chunk=chunk, what=what)
+        tol = K4_TOL[str(q.dtype).split(".")[-1]]
+        log(f"[k4] {what}: K4 vs plain max abs err {err:.6g} (rtol "
+            f"{tol['rtol']}, atol {tol['atol']})"
+            + ("" if q.dtype == torch.float32 else
+               f"; vs the plain version's float32 output {err32:.6g} (rtol "
+               f"{K4_ROUNDED['rtol']:.6g}, atol {K4_ROUNDED['atol']})"))
+        return err
+
+    q, k, v = draw(seq, seq, torch.float32)
+    hold(q, k, v, 0, f"float32 q {list(q.shape)}, k/v {list(k.shape)}, causal")
+    fq, fk, fv = q, k, v
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    err = hold(q, k, v, 0, f"bf16 q {list(q.shape)}, k/v {list(k.shape)}, "
+               "causal")
+    sq, skv = seq // 4 - 24, seq - 96
+    rq, rk, rv = draw(sq, skv, torch.bfloat16)
+    hold(rq, rk, rv, skv - sq, f"bf16 ragged later chunk: q {list(rq.shape)} "
+         f"at q_offset {skv - sq}, k/v {list(rk.shape)}")
+    del rq, rk, rv
+
+    ms = time_ms(lambda: k4.flash_attention_bshd(q, k, v, causal=True), device)
+    f32_ms = time_ms(lambda: k4.flash_attention_bshd(fq, fk, fv, causal=True),
+                     device, reps=3)
+    plain_ms = time_ms(lambda: k4.flash_attention_plain(
+        q, k, v, causal=True, block_q=chunk, block_k=chunk), device, reps=3)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    library_ms = time_ms(library, device)
+    # the control: SDPA keeps P in bf16, so K4_ROUNDED must reject it
+    lib = library()
+    want32 = k4.flash_attention_plain(q.float(), k.float(), v.float(),
+                                      causal=True, block_q=chunk,
+                                      block_k=chunk)
+    lib_ok, lib_err = within(lib, want32.to(q.dtype), K4_TOL["bfloat16"])
+    lib_rounded, lib_err32 = within(lib, want32, K4_ROUNDED)
+    lim = K4_ROUNDED["atol"] + K4_ROUNDED["rtol"] * want32.abs()
+    lib_out = float(((lib.float() - want32).abs() > lim).float().mean())
+    del lib, want32, lim
+    check(lib_err < 0.05, f"scaled_dot_product_attention is {lib_err} off "
+          "the plain version: not the same function")
+    check(not lib_rounded, "scaled_dot_product_attention (bf16 P) passes "
+          "K4_ROUNDED: the check no longer tells a bf16 P from K4's fp32 P")
+    log(f"[k4] control, scaled_dot_product_attention (bf16 P) on the same bf16 "
+        f"inputs: vs plain in bf16 max abs err {lib_err:.6g}, "
+        f"{'within' if lib_ok else 'beyond'} K4_TOL['bfloat16']; vs the plain "
+        f"version's float32 output {lib_err32:.6g}, beyond K4_ROUNDED at "
+        f"{lib_out:.4%} of the elements (K4 at none)")
+    bound_ms, bound_by, gflop, rate = k4_bound_ms(q, k, causal=True)
+    simt_ms = gflop * 1e9 / PEAK_FP32_SIMT * 1e3
+    log(f"[k4] timing, bf16, causal: K4 {ms:.4f} ms (float32 inputs "
+        f"{f32_ms:.4f} ms), plain {plain_ms:.4f} ms (blocks {chunk}), "
+        f"scaled_dot_product_attention(enable_gqa=True) {library_ms:.4f} ms "
+        f"(max abs err {lib_err:.4g} vs plain: it keeps P in bf16); bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {gflop:.6g} GFLOP, {rate}; at the "
+        f"fp32 SIMT peak {simt_ms:.4f} ms); K4 at {bound_ms / ms:.4%} of the "
+        f"bound, {simt_ms / ms:.2%} of fp32 SIMT peak")
+    del fq, fk, fv
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+@contextlib.contextmanager
+def held_attention(errs: list):
+    """While open, the model's prefill attention also runs K4's plain
+    version on each layer's own q, k, v and holds K4's output to it
+    (``hold_k4``); each layer's max abs errors, against the plain version in
+    the layer's dtype and against its float32 output, are appended to
+    ``errs``."""
+    from repro_torch.models.transformer import model as lm
+
+    entry = lm.gqa_attention_chunked
+
+    def holding(q, k, v, **kw):
+        check(kw["chunk_q"] == kw["chunk_k"], "one attention chunk")
+        got = entry(q, k, v, **kw)
+        errs.append(hold_k4(got, q, k, v, causal=kw["causal"],
+                            q_offset=kw.get("q_offset", 0),
+                            chunk=kw["chunk_q"],
+                            what=f"layer {len(errs)}'s q, k, v"))
+        return got
+
+    lm.gqa_attention_chunked = holding
+    try:
+        yield errs
+    finally:
+        lm.gqa_attention_chunked = entry
+
+
+def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
+                gen: int, smoke: bool = False) -> dict:
+    """Phase 10: LM serving through ``repro_torch.launch.serve`` at full
+    width: seeded random weights, ``batch`` prompts of ``prompt`` tokens,
+    greedy decoding to ``gen`` tokens.  K4 is held against its plain version
+    on every layer's q, k, v in one prefill; then a counted, timed serving
+    run; the profile of a prefill and of decode steps; the smoke config on
+    the card against the CPU path; and the sGrapp monitor's count of the
+    (request, token) graph against the numpy oracle."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import count_butterflies_np
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.launch.serve import (
+        load_model,
+        make_prompts,
+        monitor_butterflies,
+        serve,
+    )
+    from repro_torch.models.transformer import (
+        decode_step,
+        init_lm_params,
+        prefill,
+    )
+
+    t0 = time.perf_counter()
+    cfg, model = load_model(arch, smoke=smoke, seed=seed, device=device)
+    sync(device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve] {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv), head dim {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}); "
+        f"{n_params:.6g} parameters ({n_params * 2 / 1e9:.4f} GB bf16) drawn "
+        f"on {device} in {time.perf_counter() - t0:.4f} s")
+    prompts = make_prompts(cfg, batch, prompt, seed)
+    toks = torch.as_tensor(prompts, device=device)
+
+    errs: list = []
+    with held_attention(errs):
+        last, _ = prefill(model, toks, cfg, prompt + gen)
+        sync(device)
+    check(len(errs) == cfg.n_layers, f"{len(errs)} attention calls held")
+    err = max(e for e, _ in errs)
+    log(f"[serve] prefill with K4 held against its plain version on every "
+        f"layer's q, k, v: {len(errs)} layers, max abs err {err:.6g} (bf16 "
+        f"within one ulp: rtol {K4_TOL['bfloat16']['rtol']}, atol "
+        f"{K4_TOL['bfloat16']['atol']}); against its float32 output "
+        f"{max(e for _, e in errs):.6g} (rtol {K4_ROUNDED['rtol']:.6g}, atol "
+        f"{K4_ROUNDED['atol']})")
+    del last
+
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kk.reset_launch_count()
+    k4.reset_launch_count()
+    res = serve(model, cfg, prompts, gen)
+    launches = k4.launch_count()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    # K4 launches only for CUDA tensors (a CPU rehearsal runs its plain twin)
+    check(launches == cfg.n_layers or not cuda,
+          f"K4 launches {launches} != {cfg.n_layers} (one per layer)")
+    check(all(kk.launch_count(n) == 0 for n in kk.KERNELS),
+          "LM serving launched a butterfly kernel")
+    for name, lg in (("prefill", res.prefill_logits),
+                     ("last decode step", res.last_logits)):
+        check(lg.shape == (batch, cfg.padded_vocab), f"{name} logits shape")
+        check(bool(torch.isfinite(lg).all()), f"{name} logits not finite")
+    check(res.tokens.shape == (batch, gen)
+          and ((0 <= res.tokens) & (res.tokens < cfg.vocab_size)).all(),
+          "generated tokens out of the vocabulary")
+    tokens = res.tokens
+    log(f"[serve] prefill {batch}x{prompt}: {res.prefill_s * 1e3:.4f} ms; "
+        f"decode {gen - 1} steps ({batch * (gen - 1)} tokens; the prefill "
+        f"gives the first): {res.decode_s * 1e3:.4f} ms = "
+        f"{res.decode_tok_s():.4f} tok/s; K4 launches {launches} (one per "
+        f"layer; decode attention is plain torch); logits finite; peak device "
+        f"memory {peak / 2**30:.4f} GiB; sample {res.tokens[0][:8].tolist()}")
+
+    _, busy, by_kernel = profile("serve, one prefill", lambda: prefill(
+        model, toks, cfg, prompt + gen), device)
+    k4_ms = sum(t for name, t in by_kernel.items()
+                if "flash_attention_kernel" in name)
+    log(f"[serve] K4 takes {k4_ms:.4f} ms of the prefill's {busy:.4f} ms of "
+        f"device time ({k4_ms / max(busy, 1e-9):.4%})")
+    _, cache = prefill(model, toks, cfg, prompt + gen)
+    nxt = torch.as_tensor(res.tokens[:, 0], device=device)
+
+    n_steps = min(8, gen - 1)
+
+    def steps():
+        c = cache
+        for _ in range(n_steps):
+            _, c = decode_step(model, c, nxt, cfg)
+
+    profile(f"serve, {n_steps} decode steps", steps, device)
+    del cache, res
+
+    # the whole path on a small input: the smoke config in float32 on the
+    # card (K4) against the CPU path (K4's plain version)
+    small = dataclasses.replace(get_arch(arch).smoke_config(), dtype="float32")
+    cpu_model = init_lm_params(small, seed=seed, device="cpu")
+    small_prompts = make_prompts(small, 2, 150, seed)
+    on_cpu = serve(cpu_model, small, small_prompts, 6)
+    on_card = serve(cpu_model.to(device), small, small_prompts, 6)
+    ok, err = within(on_card.prefill_logits.cpu(), on_cpu.prefill_logits,
+                     dict(rtol=1e-4, atol=1e-4))
+    check(ok and np.array_equal(on_card.tokens, on_cpu.tokens),
+          f"smoke {arch} in float32: the card's prefill logits are {err} off "
+          f"the CPU path's, or the greedy tokens differ")
+    log(f"[serve] smoke config in float32, 2 prompts x 150 tokens, 6 tokens: "
+        f"{device} (K4 on a card) and the CPU path (plain) agree (prefill logits max "
+        f"abs err {err:.6g} <= 1e-4, greedy tokens equal)")
+
+    # the sGrapp monitor over prompts plus generations.  snapshot_count is
+    # the dense tier: it sums C(W, 2) over the whole request x request Gram
+    # in float32, the diagonal's C(degree, 2) included, and subtracts the
+    # diagonal, as the reference does.  Below 2**24 every step is exact;
+    # past it, float32 summation of these n**2 + n nonnegative terms in any
+    # order is off by at most (n**2 + n) * 2**-24 times their sum.
+    t0 = time.perf_counter()
+    bf = monitor_butterflies(prompts, tokens, device)
+    msec = time.perf_counter() - t0
+    full = np.concatenate([prompts, tokens], axis=1)
+    edges = np.unique(np.stack([np.repeat(np.arange(batch), full.shape[1]),
+                                full.reshape(-1)], 1), axis=0)
+    want = count_butterflies_np(edges)
+    deg = np.bincount(edges[:, 0], minlength=batch).astype(np.float64)
+    total = float(np.sum(deg * (deg - 1) / 2) + 2 * want)
+    slack = 0.0 if total < 2**24 else (batch**2 + batch) * 2.0**-24 * total
+    check(abs(bf - want) <= slack,
+          f"monitor {bf} vs oracle {want}: off by more than {slack}")
+    log(f"[serve] sGrapp monitor: {bf:.0f} butterflies in the (request, "
+        f"token) graph of {full.size} emissions ({msec * 1e3:.4f} ms through "
+        f"snapshot_count on {device}); numpy oracle {want}: off by "
+        f"{abs(bf - want):.0f}, within the float32 envelope {slack:.4f} (the "
+        f"dense tier's whole-Gram sum reaches {total:.6g}"
+        + (", past 2**24)" if total >= 2**24 else ", below 2**24: exact)"))
+    return {"launches": launches, "max_abs_err": err}
 
 
 def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         n_truth: int, dyn_records: int, dyn_nt_w: int, dyn_ids: int,
+        lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
         alpha0: float = 1.02) -> list[dict]:
-    """Phases 0-8 on ``device``; returns the kernels records."""
+    """Phases 0-10 on ``device``; returns the kernels records."""
+    from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
-    from repro_torch.kernels.butterfly.build import load_library
+    from repro_torch.kernels.build import load
+    from repro_torch.kernels.butterfly.build import LIBRARY as BUTTERFLY
+    from repro_torch.kernels.flash_attention.build import LIBRARY as FLASH
     from repro_torch.streams import bipartite_pa_stream, replay_dynamic
 
     if device.type == "cuda":
-        info = load_library()
-        log(f"[setup] kernel library {info.path.name} (K1, K2; K3 runs K1's "
-            "kernel): nvcc "
-            + (f"{info.seconds:.4f} s, one process per source, all started "
-               "together" if info.seconds else
-               "skipped (built earlier from the same sources)"))
-        if info.log:
-            log(info.log.rstrip())
+        # every source of both libraries compiles at once
+        for what, info in zip(("K1, K2; K3 runs K1's kernel", "K4"),
+                              load(BUTTERFLY, FLASH)):
+            log(f"[setup] kernel library {info.path.name} ({what}): nvcc "
+                + (f"{info.seconds:.4f} s, one process per source, all "
+                   "started together" if info.seconds else
+                   "skipped (built earlier from the same sources)"))
+            if info.log:
+                log(info.log.rstrip())
     t0 = time.perf_counter()
     stream = bipartite_pa_stream(n_sgrs, temporal="uniform",
                                  n_unique=n_unique, seed=seed)
@@ -1075,6 +1441,14 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     phase_tiers(wb, alpha0, device, replay.window_counts)
     kern3 = phase_k3(wb, replay.window_counts, device)
     phase_profile(stream, wb, nt_w, alpha0, device, ex)
+    del stream, wb, ex
+    arch = get_arch(LM_ARCH)
+    cfg = arch.smoke_config() if lm_smoke else arch.full_config()
+    kern4 = phase_k4(device, seed, batch=lm_batch, seq=lm_prompt,
+                     heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+                     head_dim=cfg.head_dim, chunk=cfg.attn_chunk_q)
+    served = phase_serve(device, seed, arch=LM_ARCH, smoke=lm_smoke,
+                         batch=lm_batch, prompt=lm_prompt, gen=lm_gen)
     src = "src/repro_torch/kernels/butterfly/csrc/"
     ref = "src/repro/kernels/butterfly/butterfly_kernel.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1091,6 +1465,13 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
          "route": "cuda", "source": src + "butterfly_windows.cu",
          "replaces": ref + "43", "launches": kern3["launches"],
          **{k: kern3[k] for k in keys}},
+        {"name": "flash_attention (K4)", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_kernel.py:29",
+         "launches": served["launches"],
+         **{k: kern4[k] for k in keys},
+         "max_abs_err": max(kern4["max_abs_err"], served["max_abs_err"])},
     ]
 
 
@@ -1123,7 +1504,8 @@ def main(argv=None) -> int:
     kernels = run(torch.device("cuda"), n_sgrs=args.sgrs,
                   n_unique=args.n_unique, nt_w=args.nt_w, seed=args.seed,
                   n_truth=args.truth_windows, dyn_records=args.dyn_records,
-                  dyn_nt_w=args.dyn_nt_w, dyn_ids=args.dyn_ids)
+                  dyn_nt_w=args.dyn_nt_w, dyn_ids=args.dyn_ids,
+                  lm_batch=4, lm_prompt=4096, lm_gen=64)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.4f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -58,6 +58,7 @@ __all__ = [
     "count_butterflies_dense_multiset",
     "count_butterflies_from_edges",
     "count_butterflies_from_edges_multiset",
+    "snapshot_count",
     "count_butterflies_tiled",
     "count_butterflies_tiled_multiset",
     "count_butterflies_sparse",
@@ -389,6 +390,13 @@ def count_butterflies_from_edges_multiset(
     """Multiset count directly from padded (edge, multiplicity) lanes."""
     adj = build_biadjacency_multiset(edge_i, edge_j, mult, valid, n_i, n_j)
     return count_butterflies_dense_multiset(adj)
+
+
+def snapshot_count(edge_i: torch.Tensor, edge_j: torch.Tensor,
+                   valid: torch.Tensor, *, n_i: int, n_j: int) -> torch.Tensor:
+    """Butterflies of one graph snapshot given as padded edge lanes (the
+    serving monitor's call): :func:`count_butterflies_from_edges`."""
+    return count_butterflies_from_edges(edge_i, edge_j, valid, n_i, n_j)
 
 
 def _tiled(adj: torch.Tensor, tile: int, multiset: bool) -> torch.Tensor:

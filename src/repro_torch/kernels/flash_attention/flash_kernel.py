@@ -1,0 +1,204 @@
+"""K4, the flash-attention forward kernel, its wrappers and its plain twin.
+
+:func:`flash_attention_bshd` is K4's wrapper.  For q ``[B, Sq, H, hd]`` and
+k, v ``[B, Skv, Hkv, hd]`` (``H`` a multiple of ``Hkv``: query head ``h``
+reads key/value head ``h // (H // Hkv)``) it returns softmax attention
+``[B, Sq, H, hd]`` by the FlashAttention-2 online softmax that the
+reference's Pallas kernel
+(``repro.kernels.flash_attention.flash_kernel._kernel``) runs: fp32 scores
+``q.k * scale``, the causal mask by global index (query row ``r`` sits at
+position ``q_offset + r``) with ``-1e30``, an fp32 ``(acc, m, l)`` and
+``acc / max(l, 1e-30)`` written in ``q.dtype``.  Lengths need not divide a
+block.
+
+On a CUDA tensor the wrapper launches the hand-written kernel
+(``csrc/flash_attention.cu``, built at first use, see :mod:`.build`) on the
+tensors' strides -- no transpose and no copy of the key/value heads -- or
+raises; it never falls back.  On a CPU tensor it runs
+:func:`flash_attention_plain`, the same online softmax in torch, block by
+block in the reference's order, which the CPU tests and ``chip_smoke.py``'s
+comparisons use.  The wrapper counts its own launches (:func:`launch_count`);
+the CPU path and empty inputs launch nothing and count nothing.
+
+:func:`flash_attention_call` keeps the reference's ``[BH, S, hd]`` entry and
+its ``ValueError`` when a length does not divide its block.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core.butterfly import full_fp32_matmul
+
+__all__ = ["flash_attention_bshd", "flash_attention_call",
+           "flash_attention_plain", "check_blocks", "launch_count",
+           "reset_launch_count"]
+
+_NEG = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_HD = 128
+_MAX_GRID_YZ = 65535
+
+_launches = {"K4": 0}
+
+
+def launch_count() -> int:
+    """How many times K4's wrapper launched its CUDA kernel in this
+    process."""
+    return _launches["K4"]
+
+
+def reset_launch_count() -> None:
+    """Set K4's launch count to 0."""
+    _launches["K4"] = 0
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           q_offset: int) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be [B, S, H, hd], got shape {tuple(t.shape)}")
+    b, _, h, hd = q.shape
+    if k.shape != v.shape:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ "
+                         "(hd_v != hd is MLA's, not ported)")
+    if k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
+                         "on batch or head dim")
+    if k.shape[2] < 1 or h % k.shape[2]:
+        raise ValueError(f"{h} query heads do not group over {k.shape[2]} "
+                         "key/value heads")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v lie on different devices")
+    if isinstance(q_offset, bool) or not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
+
+
+def check_blocks(sq: int, skv: int, block_q: int, block_k: int
+                 ) -> tuple[int, int]:
+    """The reference's blocks ``(min(block_q, sq), min(block_k, skv))``;
+    raises its ``ValueError`` when a length does not divide its block."""
+    bq, bk = min(block_q, sq), min(block_k, skv)
+    if sq % bq or skv % bk:
+        raise ValueError(f"seq lens ({sq},{skv}) must divide blocks ({bq},{bk})")
+    return bq, bk
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, q_offset: int = 0,
+                          block_q: int = 512, block_k: int = 512
+                          ) -> torch.Tensor:
+    """Plain torch version of K4: per query block of ``block_q`` rows, an
+    online softmax over key blocks of ``block_k`` (the last of each may be
+    short), every key block in order as the reference walks them, in full
+    fp32.  Shapes and semantics as :func:`flash_attention_bshd`."""
+    _check(q, k, v, q_offset)
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = 1.0 / hd ** 0.5
+    # [B, Hkv, G, S, hd]: query heads grouped under their key/value head
+    qf = q.float().reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    out = torch.empty((b, hkv, g, sq, hd), dtype=torch.float32, device=q.device)
+    bq, bk = max(1, min(block_q, sq)), max(1, min(block_k, skv))
+    neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
+    with full_fp32_matmul():
+        for q0 in range(0, sq, bq):
+            qb = qf[..., q0:q0 + bq, :]
+            rows = q_offset + q0 + torch.arange(qb.shape[-2], device=q.device)
+            acc = torch.zeros_like(qb)
+            m = torch.full(qb.shape[:-1] + (1,), _NEG, dtype=torch.float32,
+                           device=q.device)
+            l = torch.zeros_like(m)
+            for k0 in range(0, skv, bk):
+                kb, vb = kf[..., k0:k0 + bk, :], vf[..., k0:k0 + bk, :]
+                s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+                if causal:
+                    cols = k0 + torch.arange(kb.shape[-2], device=q.device)
+                    s = torch.where(rows[:, None] >= cols[None, :], s, neg)
+                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                p = torch.exp(s - m_new)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(dim=-1, keepdim=True)
+                acc = acc * corr + torch.matmul(p, vb)
+                m = m_new
+            out[..., q0:q0 + bq, :] = acc / torch.clamp_min(l, 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, q_offset: int) -> torch.Tensor:
+    """Launch K4 on CUDA tensors and count one launch.  Raises on anything
+    the kernel does not take: another device, a dtype other than float32 or
+    bfloat16, a head dim above 128, a last axis that is not contiguous, or
+    more than 65535 batches or heads.  The output is allocated with
+    ``torch.empty`` and the kernel launches on the current CUDA stream
+    without synchronizing; the C entry point's error code is checked right
+    after the launch."""
+    if q.device.type != "cuda":
+        raise ValueError(f"K4 runs on CUDA or CPU tensors, got {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"K4 takes float32 or bfloat16, got {q.dtype}")
+    b, sq, h, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if hd > _MAX_HD:
+        raise ValueError(f"K4 takes a head dim up to {_MAX_HD}, got {hd}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("q, k, v must be contiguous along the head dim")
+    if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
+        raise ValueError(f"K4 takes at most {_MAX_GRID_YZ} batches and heads, "
+                         f"got {b} and {h}")
+    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    if b == 0 or sq == 0:
+        return out
+    from .build import load_library
+
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
+                                         for s in t.stride()[:3]))
+    fn = load_library().lib.flash_attention_launch
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _DTYPES[q.dtype], b, h, h // hkv, sq, skv, hd, strides,
+                 int(causal), q_offset, 1.0 / hd ** 0.5, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_launch failed: cudaError {err}")
+    _launches["K4"] += 1
+    return out
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, q_offset: int = 0,
+                         block_q: int = 512, block_k: int = 512
+                         ) -> torch.Tensor:
+    """K4's wrapper: q ``[B, Sq, H, hd]``, k/v ``[B, Skv, Hkv, hd]`` ->
+    ``[B, Sq, H, hd]`` in ``q.dtype``.  ``block_q`` / ``block_k`` set the
+    plain version's blocks only (K4 tiles by 64 and masks ragged
+    lengths)."""
+    _check(q, k, v, q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                     block_q=block_q, block_k=block_k)
+    return _launch(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, block_q: int = 512,
+                         block_k: int = 512) -> torch.Tensor:
+    """The reference's entry: q, k, v ``[BH, S, hd]`` -> ``[BH, Sq, hd]``,
+    one head per row of ``BH``.  Raises ``ValueError`` when a length does not
+    divide its block, as the reference does."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 3:
+            raise ValueError(f"{name} must be [BH, S, hd], got shape {tuple(t.shape)}")
+    check_blocks(q.shape[1], k.shape[1], block_q, block_k)
+    return flash_attention_bshd(q[:, :, None], k[:, :, None], v[:, :, None],
+                                causal=causal, block_q=block_q,
+                                block_k=block_k)[:, :, 0]

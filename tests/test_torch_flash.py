@@ -1,0 +1,247 @@
+"""K4's plain version and wrappers against the reference flash-attention
+kernel.
+
+The reference runs its Pallas kernel in interpret mode on the CPU, as its
+own tests do (``tests/test_kernel_flash.py``).  On CPU tensors the port's K4
+wrappers run the plain torch version, so these tests hold that version,
+through ``flash_attention`` (``[B, S, H, hd]``, GQA by stride) and
+``flash_attention_call`` (``[BH, S, hd]``), to the reference kernel and to
+both packages' ``attention_ref``.  Inputs are numpy normals from a seed.
+
+Tolerances: float32 rtol = atol = 2e-5, as the reference's own test (the
+same online softmax summed in another order); bfloat16 one bf16 ulp (rtol
+8e-3, atol 1e-3: both compute in float32 and round once to bfloat16, so
+they differ by at most one rounding step where the float32 values straddle
+a rounding boundary).  Held to the reference's float32 output on the same
+bf16 inputs, a bf16 output is within its rounding, half a bf16 ulp (2**-8
+of the value), on top of the float32 tolerance (``ROUNDED``); an online
+softmax that keeps P in bf16 is not.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.flash_attention import (  # noqa: E402
+    attention_ref as j_ref,
+    flash_attention as j_flash,
+)
+from repro.kernels.flash_attention.flash_kernel import (  # noqa: E402
+    flash_attention_call as j_call,
+)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_ref,
+    flash_attention,
+    flash_attention_bshd,
+    flash_attention_call,
+    flash_attention_plain,
+)
+from repro_torch.kernels.flash_attention import flash_kernel  # noqa: E402
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+BF16 = dict(rtol=8e-3, atol=1e-3)
+ROUNDED = dict(rtol=2.0**-8 + 2e-5, atol=2e-5)
+
+
+def rand_qkv(b, sq, skv, h, hkv, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, hd), dtype=np.float32),
+            rng.standard_normal((b, skv, hkv, hd), dtype=np.float32),
+            rng.standard_normal((b, skv, hkv, hd), dtype=np.float32))
+
+
+def both(arrays, dtype="float32"):
+    """The same numpy arrays as JAX arrays and torch tensors of ``dtype``
+    (float32 -> bfloat16 rounds to nearest even in both)."""
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrays]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays]
+    return jx, tx
+
+
+def as_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+CASES = [
+    # causal, b, sq, skv, h, hkv, hd, bq, bk
+    (True, 1, 64, 64, 2, 2, 16, 16, 16),
+    (False, 1, 64, 64, 2, 2, 16, 16, 16),
+    (True, 2, 128, 128, 4, 2, 32, 32, 64),     # GQA groups + uneven blocks
+    (False, 2, 128, 128, 4, 2, 32, 32, 64),
+    (False, 1, 32, 96, 2, 1, 16, 16, 32),      # cross lengths
+    (True, 1, 96, 96, 6, 2, 8, 32, 96),        # 3 groups, one key block
+]
+
+
+@pytest.mark.parametrize("causal,b,sq,skv,h,hkv,hd,bq,bk", CASES)
+def test_flash_matches_reference_kernel(causal, b, sq, skv, h, hkv, hd, bq, bk):
+    (jq, jk, jv), (q, k, v) = both(rand_qkv(b, sq, skv, h, hkv, hd, seed=sq + h))
+    got = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    want = j_flash(jq, jk, jv, causal=causal, block_q=bq, block_k=bk,
+                   interpret=True)
+    assert got.shape == (b, sq, h, hd) and got.dtype == torch.float32
+    np.testing.assert_allclose(as_np(got), as_np(want), **F32)
+
+
+@pytest.mark.parametrize("causal,b,sq,skv,h,hkv,hd,bq,bk", CASES)
+def test_flash_matches_both_oracles(causal, b, sq, skv, h, hkv, hd, bq, bk):
+    (jq, jk, jv), (q, k, v) = both(rand_qkv(b, sq, skv, h, hkv, hd, seed=7))
+    g = h // hkv
+    got = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    mine = attention_ref(q, k.repeat_interleave(g, dim=2),
+                         v.repeat_interleave(g, dim=2), causal=causal)
+    theirs = j_ref(jq, jnp.repeat(jk, g, axis=2), jnp.repeat(jv, g, axis=2),
+                   causal=causal)
+    np.testing.assert_allclose(as_np(got), as_np(theirs), **F32)
+    np.testing.assert_allclose(as_np(mine), as_np(theirs), **F32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_call_matches_reference_call(causal):
+    rng = np.random.default_rng(3)
+    arrays = [rng.standard_normal((6, 64, 16), dtype=np.float32) for _ in range(3)]
+    (jq, jk, jv), (q, k, v) = both(arrays)
+    got = flash_attention_call(q, k, v, causal=causal, block_q=16, block_k=32)
+    want = j_call(jq, jk, jv, causal=causal, block_q=16, block_k=32,
+                  interpret=True)
+    assert got.shape == (6, 64, 16)
+    np.testing.assert_allclose(as_np(got), as_np(want), **F32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_within_one_ulp(causal):
+    (jq, jk, jv), (q, k, v) = both(rand_qkv(2, 64, 64, 4, 2, 32, seed=3),
+                                   "bfloat16")
+    got = flash_attention(q, k, v, causal=causal, block_q=32, block_k=32)
+    want = j_flash(jq, jk, jv, causal=causal, block_q=32, block_k=32,
+                   interpret=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(as_np(got), as_np(want), **BF16)
+    g = 2
+    ref = j_ref(jq.astype(jnp.float32),
+                jnp.repeat(jk, g, axis=2).astype(jnp.float32),
+                jnp.repeat(jv, g, axis=2).astype(jnp.float32), causal=causal)
+    np.testing.assert_allclose(as_np(got), as_np(ref), **BF16)
+
+
+def bf16_p_attention(q, k, v, *, causal, block_k):
+    """The online softmax of ``flash_attention_plain`` on [B, S, H, hd], but
+    with P rounded to bf16 before the PV product (what a bf16 tensor-core
+    kernel does); a control that ``ROUNDED`` must reject."""
+    g = q.shape[2] // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf, vf = (t.float().repeat_interleave(g, dim=2).transpose(1, 2)
+              for t in (k, v))
+    sq, skv = qf.shape[2], kf.shape[2]
+    acc = torch.zeros_like(qf)
+    m = torch.full(qf.shape[:-1] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    for k0 in range(0, skv, block_k):
+        s = qf @ kf[..., k0:k0 + block_k, :].transpose(-1, -2) / qf.shape[-1] ** 0.5
+        if causal:
+            cols = k0 + torch.arange(s.shape[-1])
+            s = s.masked_fill(torch.arange(sq)[:, None] < cols, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.bfloat16().float() @ vf[..., k0:k0 + block_k, :]
+        m = m_new
+    return (acc / l).transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("causal,b,sq,skv,h,hkv,hd,bq,bk", [
+    (True, 1, 256, 256, 4, 2, 64, 64, 128),
+    (False, 2, 64, 192, 2, 1, 32, 32, 64),
+])
+def test_flash_bf16_is_the_rounding_of_float32(causal, b, sq, skv, h, hkv, hd,
+                                               bq, bk):
+    """bf16 inputs: the port's bf16 output is within ``ROUNDED`` of the
+    reference kernel's float32 output on the same inputs widened; a bf16 P
+    is not, at many elements, though it passes one-ulp ``BF16`` nearly
+    everywhere."""
+    _, (q, k, v) = both(rand_qkv(b, sq, skv, h, hkv, hd, seed=sq + hd),
+                        "bfloat16")
+    widened = [jnp.asarray(t.float().numpy()) for t in (q, k, v)]
+    want32 = as_np(j_flash(*widened, causal=causal, block_q=bq, block_k=bk,
+                           interpret=True))
+    got = flash_attention(q, k, v, causal=causal, block_q=bq, block_k=bk)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(as_np(got), want32, **ROUNDED)
+    ctl = as_np(bf16_p_attention(q, k, v, causal=causal, block_k=bk))
+    beyond = np.abs(ctl - want32) > ROUNDED["atol"] + ROUNDED["rtol"] * np.abs(want32)
+    assert beyond.mean() > 0.01
+    assert np.mean(np.abs(ctl - as_np(got)) > BF16["atol"]
+                   + BF16["rtol"] * np.abs(as_np(got))) < 0.001
+
+
+def test_flash_first_token_attends_itself_only():
+    """Causal row 0's output is v[0] exactly (a softmax over one key)."""
+    _, (q, k, v) = both(rand_qkv(1, 16, 16, 1, 1, 8, seed=5))
+    got = flash_attention(q, k, v, causal=True, block_q=8, block_k=8)
+    np.testing.assert_allclose(got[0, 0, 0].numpy(), v[0, 0, 0].numpy(),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("entry", ["bshd", "call"])
+def test_lengths_must_divide_blocks(entry):
+    _, (q, k, v) = both(rand_qkv(1, 48, 48, 2, 2, 16))
+    if entry == "call":
+        q, k, v = (t[:, :, 0] for t in (q, k, v))
+        fn, jfn = flash_attention_call, j_call
+    else:
+        fn, jfn = flash_attention, j_flash
+    with pytest.raises(ValueError, match="must divide blocks"):
+        fn(q, k, v, block_q=32, block_k=16)
+    with pytest.raises(ValueError, match="must divide blocks"):
+        jfn(*(jnp.asarray(t.numpy()) for t in (q, k, v)), block_q=32,
+            block_k=16, interpret=True)
+
+
+@pytest.mark.parametrize("q_offset,sq,skv,bq,bk", [
+    (0, 50, 50, 16, 16),        # ragged lengths, causal from 0
+    (30, 20, 50, 8, 16),        # a later chunk of the prompt
+    (7, 33, 40, 64, 64),        # one block each, both ragged
+])
+def test_plain_ragged_q_offset_matches_full_softmax(q_offset, sq, skv, bq, bk):
+    """The kernel wrapper's own entry: any lengths, queries at global
+    positions ``q_offset + r``, masked against the full softmax."""
+    _, (q, k, v) = both(rand_qkv(2, sq, skv, 4, 2, 16, seed=q_offset))
+    got = flash_attention_bshd(q, k, v, causal=True, q_offset=q_offset,
+                               block_q=bq, block_k=bk)
+    kf, vf = (t.repeat_interleave(2, dim=2).double() for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kf) / 4.0
+    rows = q_offset + torch.arange(sq)[:, None]
+    s = s.masked_fill(rows < torch.arange(skv)[None, :], float("-inf"))
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vf)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32)
+
+
+def test_cpu_path_launches_nothing():
+    flash_kernel.reset_launch_count()
+    _, (q, k, v) = both(rand_qkv(1, 32, 32, 2, 1, 16))
+    flash_attention(q, k, v, block_q=16, block_k=16)
+    flash_attention_plain(q, k, v)
+    assert flash_kernel.launch_count() == 0
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda q, k, v: (q, k[..., :8], v[..., :8]), "disagree"),
+    (lambda q, k, v: (q, k, v[:, :, :, :8]), "differ"),
+    (lambda q, k, v: (q[:, :, :3], k, v), "do not group"),
+    (lambda q, k, v: (q, k.double(), v.double()), "dtypes differ"),
+    (lambda q, k, v: (q[0], k, v), r"\[B, S, H, hd\]"),
+])
+def test_wrapper_rejects_malformed_inputs(bad, match):
+    _, qkv = both(rand_qkv(1, 16, 16, 4, 2, 16))
+    with pytest.raises(ValueError, match=match):
+        flash_attention_bshd(*bad(*qkv))
+
+
+def test_wrapper_rejects_negative_q_offset():
+    _, (q, k, v) = both(rand_qkv(1, 16, 16, 2, 2, 16))
+    with pytest.raises(ValueError, match="q_offset"):
+        flash_attention_bshd(q, k, v, q_offset=-1)

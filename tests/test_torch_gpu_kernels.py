@@ -1,4 +1,4 @@
-"""K1, K2 and K3 on the card against their plain torch versions (marked
+"""K1, K2, K3 and K4 on the card against their plain torch versions (marked
 ``gpu``).
 
 Run on a machine with a CUDA device:
@@ -28,7 +28,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: K1, K2 and K3 are CUDA kernels "
+        pytest.skip("needs a CUDA device: K1, K2, K3 and K4 are CUDA kernels "
                     "with no CPU mode")
     return torch.device("cuda")
 
@@ -190,3 +190,115 @@ def test_multiset_executor_equals_oracle_on_cuda(cuda, tier):
     want = WindowExecutor("numpy", device="cpu").window_counts(batch)
     assert want.max() < 2**24
     np.testing.assert_array_equal(got, want)
+
+
+# --------------------------------------------------------------------------
+# K4: the flash-attention kernel
+# --------------------------------------------------------------------------
+
+def qkv(b, sq, skv, h, hkv, hd, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(dtype) for shape in (
+        (b, sq, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd))]
+
+
+K4_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+          torch.bfloat16: dict(rtol=8e-3, atol=1e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal,b,sq,skv,h,hkv,hd,q_offset", [
+    (True, 2, 128, 128, 4, 2, 32, 0),
+    (False, 1, 96, 200, 2, 1, 64, 0),       # cross lengths, ragged kv
+    (True, 2, 100, 300, 6, 2, 128, 200),    # a later chunk, ragged q
+    (True, 1, 64, 64, 3, 3, 8, 0),          # hd below a 16-byte vector
+    (True, 1, 70, 70, 2, 2, 20, 0),         # hd not a multiple of 8
+])
+def test_k4_equals_plain(cuda, dtype, causal, b, sq, skv, h, hkv, hd, q_offset):
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    q, k, v = (t.to(cuda) for t in qkv(b, sq, skv, h, hkv, hd, dtype, sq + hd))
+    got = k4.flash_attention_bshd(q, k, v, causal=causal, q_offset=q_offset)
+    want = k4.flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, sq, h, hd)
+    torch.testing.assert_close(got.float(), want.float(), **K4_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal,b,sq,skv,h,hkv,hd,q_offset", [
+    (True, 2, 256, 256, 6, 2, 128, 0),
+    (True, 1, 100, 300, 4, 2, 64, 200),     # a later chunk, ragged q
+    (False, 1, 96, 200, 2, 1, 32, 0),
+])
+def test_k4_bf16_is_the_rounding_of_float32(cuda, causal, b, sq, skv, h, hkv,
+                                            hd, q_offset):
+    """bf16 K4 within half a bf16 ulp (2**-8 of the value) plus the float32
+    tolerance of the plain version's float32 output on the same inputs
+    widened: K4 keeps P in fp32, as the reference does."""
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    q, k, v = (t.to(cuda) for t in qkv(b, sq, skv, h, hkv, hd, torch.bfloat16,
+                                       sq + hd))
+    got = k4.flash_attention_bshd(q, k, v, causal=causal, q_offset=q_offset)
+    want = k4.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, rtol=2.0**-8 + 2e-5,
+                               atol=2e-5)
+
+
+def test_k4_reads_strided_heads_without_copies(cuda):
+    """q, k and v as views into one fused projection (non-contiguous in
+    every axis but the last) give the same result as contiguous copies."""
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    gen = torch.Generator().manual_seed(5)
+    fused = torch.randn((2, 80, 4 + 2 + 2, 32), generator=gen).to(cuda)
+    q, k, v = fused[:, :, :4], fused[:, :, 4:6], fused[:, :, 6:]
+    got = k4.flash_attention_bshd(q, k, v, causal=True)
+    want = k4.flash_attention_bshd(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_k4_counts_launches_and_rejects(cuda):
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    k4.reset_launch_count()
+    q, k, v = qkv(1, 32, 32, 2, 2, 16, torch.float32, 1)
+    k4.flash_attention_bshd(q, k, v)                       # CPU: plain
+    assert k4.launch_count() == 0
+    k4.flash_attention_bshd(q.to(cuda), k.to(cuda), v.to(cuda))
+    assert k4.launch_count() == 1
+    with pytest.raises(ValueError, match="head dim up to 128"):
+        big = torch.zeros((1, 8, 1, 160), device=cuda)
+        k4.flash_attention_bshd(big, big, big)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        half = torch.zeros((1, 8, 1, 16), device=cuda, dtype=torch.float16)
+        k4.flash_attention_bshd(half, half, half)
+    assert k4.launch_count() == 1
+
+
+def test_prefill_on_cuda_equals_the_cpu_path(cuda):
+    """The smoke phi4-mini in float32: prefill on the card (K4) against the
+    same weights on the CPU (K4's plain version)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.models.transformer import init_lm_params, prefill
+
+    cfg = dataclasses.replace(get_arch("phi4-mini-3.8b").smoke_config(),
+                              dtype="float32")
+    model = init_lm_params(cfg, seed=0, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 150)))
+    want, cache = prefill(model, toks, cfg, 160)
+    k4.reset_launch_count()
+    got, gcache = prefill(model.to(cuda), toks.to(cuda), cfg, 160)
+    assert k4.launch_count() == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(gcache["k"].cpu(), cache["k"], rtol=1e-4,
+                               atol=1e-4)

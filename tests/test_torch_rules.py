@@ -10,7 +10,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import WindowExecutor, run_sgrapp, run_sgrapp_x  # noqa: E402
 from repro_torch.core.sgrapp import sgrapp_estimate  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch.serve import load_model, monitor_butterflies  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    init_cache,
+    init_lm_params,
+    params_from_reference,
+)
 from repro_torch.streams import (  # noqa: E402
     EngineConfig,
     StreamingSGrapp,
@@ -43,7 +50,13 @@ def test_port_never_imports_jax_or_the_reference(path):
 def test_scan_sees_every_module():
     names = {p.name for p in PORT_FILES}
     assert {"executor.py", "sgrapp.py", "engine.py", "butterfly_kernel.py",
-            "ops.py", "build.py", "chip_smoke.py"} <= names
+            "ops.py", "build.py", "chip_smoke.py", "flash_kernel.py",
+            "attention.py", "model.py", "convert.py", "serve.py",
+            "registry.py", "common.py", "rope.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/kernels/build.py",
+            "src/repro_torch/kernels/butterfly/build.py",
+            "src/repro_torch/kernels/flash_attention/build.py"} <= rel
     assert imported_roots(ROOT / "tests" / "test_torch_engine.py") >= {
         "repro", "repro_torch"}
 
@@ -53,6 +66,14 @@ def test_cuda_sources_ship_with_the_package():
                  / "csrc").glob("*.cu"))
     text = (ROOT / "pyproject.toml").read_text()
     assert "csrc/*.cu" in text and "gpu:" in text
+
+
+@pytest.mark.parametrize("package", ["butterfly", "flash_attention"])
+def test_each_kernel_package_ships_its_sources(package):
+    assert list((ROOT / "src" / "repro_torch" / "kernels" / package
+                 / "csrc").glob("*.cu"))
+    text = (ROOT / "pyproject.toml").read_text()
+    assert f'"repro_torch.kernels.{package}" = ["csrc/*.cu"]' in text
 
 
 @pytest.fixture
@@ -74,9 +95,15 @@ def small_batch():
     lambda: StreamingSGrapp(20, 1.02, config=EngineConfig(tier="pallas")),
     lambda: sgrapp_estimate(np.ones(3), np.arange(3), 1.0),
     lambda: resolve_device("cuda"),
+    lambda: init_lm_params(get_arch("phi4-mini-3.8b").smoke_config()),
+    lambda: init_cache(get_arch("granite-8b").smoke_config(), 1, 4),
+    lambda: load_model("phi4-mini-3.8b", smoke=True),
+    lambda: params_from_reference({}, get_arch("phi4-mini-3.8b").smoke_config()),
+    lambda: monitor_butterflies(np.zeros((1, 2), int), np.zeros((1, 1), int)),
 ], ids=["run_sgrapp_pallas", "run_sgrapp_default", "run_sgrapp_x",
         "executor_pallas", "executor_numpy", "engine", "estimator",
-        "resolve_cuda"])
+        "resolve_cuda", "init_lm_params", "init_cache", "serve_load_model",
+        "params_from_reference", "monitor_butterflies"])
 def test_without_a_card_entry_points_raise(no_card, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()

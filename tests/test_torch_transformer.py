@@ -1,0 +1,410 @@
+"""The port's dense GQA LM serving path against the reference, at the
+phi4-mini-3.8b and granite-8b smoke configs, in float32 and bfloat16.
+
+The reference's parameters (``init_lm_params`` from a PRNG key) are carried
+across with ``params_from_reference``; tokens and activations are numpy
+draws from a seed.  On CPU tensors prefill attention runs K4's plain
+version (``gqa_attention_chunked``'s chunked online softmax).
+
+Tolerances.  float32: rtol = atol = 1e-4 (measured max abs gap on logits up
+to 4.4: 5.5e-06), and the greedy tokens of a prefill-then-decode loop are
+equal.  bfloat16: the two frameworks round bf16 at other places (matmul
+outputs, the SwiGLU product, residual adds), and a one-ulp difference in a
+hidden state carries through the layers: measured max abs gap on the logits
+0.0508 (prefill and decode, logits up to 4.4, where a bf16 ulp is 0.03125),
+held within atol 0.125 (four ulps at 4) and rtol 0; per-op bf16 results
+(norm, rope, attention) within one bf16 ulp (rtol 8e-3, atol 1e-3).  In
+bfloat16 greedy tokens can flip on near-ties, so decode is teacher-forced
+with the reference's tokens.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_arch as j_get_arch  # noqa: E402
+from repro.core.butterfly import snapshot_count as j_snapshot_count  # noqa: E402
+from repro.models.common import rms_norm as j_rms_norm  # noqa: E402
+from repro.models.transformer import (  # noqa: E402
+    decode_step as j_decode_step,
+    init_lm_params as j_init,
+    lm_forward as j_lm_forward,
+    prefill as j_prefill,
+)
+from repro.models.transformer.attention import (  # noqa: E402
+    gqa_attention_chunked as j_gqa,
+    gqa_decode_attention as j_decode_attn,
+)
+from repro.models.transformer.rope import (  # noqa: E402
+    apply_rope as j_apply_rope,
+    rope_freqs as j_rope_freqs,
+)
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.core.butterfly import count_butterflies_np, snapshot_count  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_kernel  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.common import rms_norm  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    LMConfig,
+    MLAConfig,
+    MoEConfig,
+    TransformerLM,
+    decode_step,
+    init_cache,
+    init_lm_params,
+    lm_forward,
+    params_from_reference,
+    prefill,
+)
+from repro_torch.models.transformer.attention import (  # noqa: E402
+    gqa_attention_chunked,
+    gqa_decode_attention,
+    mla_attention,
+)
+from repro_torch.models.transformer.convert import tensor_from_numpy  # noqa: E402
+from repro_torch.models.transformer.rope import apply_rope, rope_freqs  # noqa: E402
+
+ARCHS = ["phi4-mini-3.8b", "granite-8b"]
+DTYPES = ["float32", "bfloat16"]
+TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+       "bfloat16": dict(rtol=0, atol=0.125)}
+OP_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+          "bfloat16": dict(rtol=8e-3, atol=1e-3)}
+PROMPT, GEN = 100, 3          # a prompt past one 64-row attention chunk
+
+
+def as_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def both(a, dtype):
+    return jnp.asarray(a, getattr(jnp, dtype)), torch.from_numpy(
+        np.ascontiguousarray(a)).to(getattr(torch, dtype))
+
+
+def configs(arch, dtype):
+    return (dataclasses.replace(j_get_arch(arch).smoke_config(), dtype=dtype),
+            dataclasses.replace(get_arch(arch).smoke_config(), dtype=dtype))
+
+
+@pytest.fixture(scope="module", params=[(a, d) for a in ARCHS for d in DTYPES],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def served(request):
+    """One arch x dtype through the reference: weights, logits over all
+    positions, a prefill, three decode steps fed the reference's greedy
+    tokens; and the port's model carried across from the same weights."""
+    arch, dtype = request.param
+    jcfg, cfg = configs(arch, dtype)
+    jp = j_init(jax.random.PRNGKey(0), jcfg)
+    model = params_from_reference(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, PROMPT))
+    jt = jnp.asarray(toks, jnp.int32)
+    logits, _ = jax.jit(lambda p, t: j_lm_forward(p, t, jcfg))(jp, jt)
+    max_len = PROMPT + GEN + 1
+    last, cache = jax.jit(lambda p, t: j_prefill(p, t, jcfg, max_len))(jp, jt)
+    prefilled = {k: np.asarray(cache[k], np.float32) if k != "len"
+                 else int(cache[k]) for k in cache}
+    step = jax.jit(lambda p, c, t: j_decode_step(p, c, t, jcfg))
+    fed, steps = [], []
+    nxt = jnp.argmax(last[:, :cfg.vocab_size], -1).astype(jnp.int32)
+    for _ in range(GEN):
+        fed.append(np.array(nxt))
+        lo, cache = step(jp, cache, nxt)
+        steps.append(np.asarray(lo, np.float32))
+        nxt = jnp.argmax(lo[:, :cfg.vocab_size], -1).astype(jnp.int32)
+    return dict(arch=arch, dtype=dtype, cfg=cfg, model=model, toks=toks,
+                logits=np.asarray(logits, np.float32),
+                last=np.asarray(last, np.float32),
+                cache=prefilled,
+                fed=fed, steps=steps, max_len=max_len)
+
+
+# --------------------------------------------------------------------------
+# the ops
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rms_norm(dtype):
+    rng = np.random.default_rng(0)
+    jx, x = both(rng.standard_normal((3, 5, 64), dtype=np.float32) * 3, dtype)
+    js, s = both(rng.standard_normal(64, dtype=np.float32), dtype)
+    got = rms_norm(x, s)
+    assert got.dtype == x.dtype
+    np.testing.assert_allclose(as_np(got), as_np(j_rms_norm(jx, js)),
+                               **OP_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("theta", [10_000.0, 10_000_000.0])
+def test_rope(dtype, theta):
+    rng = np.random.default_rng(1)
+    jx, x = both(rng.standard_normal((2, 37, 4, 32), dtype=np.float32), dtype)
+    pos = np.arange(5, 42)
+    jc, js = j_rope_freqs(32, theta, jnp.asarray(pos))
+    c, s = rope_freqs(32, theta, torch.as_tensor(pos))
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-5, atol=1e-5)
+    got = apply_rope(x, c, s)
+    assert got.dtype == x.dtype
+    np.testing.assert_allclose(as_np(got), as_np(j_apply_rope(jx, jc, js)),
+                               **OP_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,q_offset,sq,skv,chunk", [
+    (True, 0, 100, 100, 64),    # S not a multiple of the chunk
+    (True, 30, 20, 50, 16),     # a later prompt chunk against the cache
+    (False, 0, 24, 70, 32),     # cross lengths
+])
+def test_gqa_attention_chunked(dtype, causal, q_offset, sq, skv, chunk):
+    rng = np.random.default_rng(sq + skv)
+    jq, q = both(rng.standard_normal((2, sq, 4, 32), dtype=np.float32), dtype)
+    jk, k = both(rng.standard_normal((2, skv, 2, 32), dtype=np.float32), dtype)
+    jv, v = both(rng.standard_normal((2, skv, 2, 32), dtype=np.float32), dtype)
+    got = gqa_attention_chunked(q, k, v, causal=causal, q_offset=q_offset,
+                                chunk_q=chunk, chunk_k=chunk)
+    want = j_gqa(jq, jk, jv, causal=causal, q_offset=q_offset, chunk_q=chunk,
+                 chunk_k=chunk)
+    assert got.shape == (2, sq, 4, 32) and got.dtype == q.dtype
+    np.testing.assert_allclose(as_np(got), as_np(want), **OP_TOL[dtype])
+
+
+def test_gqa_attention_refuses_mla_value_dims():
+    q = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(NotImplementedError, match="hd_v"):
+        gqa_attention_chunked(q, q, torch.zeros((1, 4, 2, 8)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lens", [17, [5, 30]])
+def test_gqa_decode_attention(dtype, lens):
+    rng = np.random.default_rng(4)
+    jq, q = both(rng.standard_normal((2, 4, 32), dtype=np.float32), dtype)
+    jk, k = both(rng.standard_normal((2, 40, 2, 32), dtype=np.float32), dtype)
+    jv, v = both(rng.standard_normal((2, 40, 2, 32), dtype=np.float32), dtype)
+    got = gqa_decode_attention(q, k, v, torch.as_tensor(lens) if isinstance(
+        lens, list) else lens)
+    want = j_decode_attn(jq, jk, jv, jnp.asarray(lens, jnp.int32))
+    assert got.dtype == q.dtype
+    np.testing.assert_allclose(as_np(got), as_np(want), **OP_TOL[dtype])
+
+
+# --------------------------------------------------------------------------
+# the model
+# --------------------------------------------------------------------------
+
+def test_lm_forward(served):
+    logits, aux = lm_forward(served["model"], torch.as_tensor(served["toks"]),
+                             served["cfg"])
+    assert logits.shape == served["logits"].shape
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(as_np(logits), served["logits"],
+                               **TOL[served["dtype"]])
+
+
+def test_lm_forward_collects_the_cache(served):
+    _, _, (k, v) = lm_forward(served["model"], torch.as_tensor(served["toks"]),
+                              served["cfg"], collect_cache=True)
+    cfg = served["cfg"]
+    assert k.shape == v.shape == (cfg.n_layers, 2, PROMPT, cfg.n_kv_heads,
+                                  cfg.head_dim)
+    np.testing.assert_allclose(as_np(k), served["cache"]["k"][:, :, :PROMPT],
+                               **TOL[served["dtype"]])
+
+
+def test_prefill_last_logits_and_cache(served):
+    last, cache = prefill(served["model"], torch.as_tensor(served["toks"]),
+                          served["cfg"], served["max_len"])
+    tol = TOL[served["dtype"]]
+    np.testing.assert_allclose(as_np(last), served["last"], **tol)
+    assert cache["len"] == served["cache"]["len"] == PROMPT
+    for name in ("k", "v"):
+        assert cache[name].shape == served["cache"][name].shape
+        np.testing.assert_allclose(as_np(cache[name]), served["cache"][name],
+                                   **tol)
+        assert not cache[name][:, :, PROMPT:].any()
+
+
+def test_three_decode_steps(served):
+    cfg = served["cfg"]
+    _, cache = prefill(served["model"], torch.as_tensor(served["toks"]), cfg,
+                       served["max_len"])
+    for s, (fed, want) in enumerate(zip(served["fed"], served["steps"])):
+        logits, cache = decode_step(served["model"], cache,
+                                    torch.as_tensor(fed, dtype=torch.int64), cfg)
+        assert cache["len"] == PROMPT + s + 1
+        np.testing.assert_allclose(as_np(logits), want, **TOL[served["dtype"]])
+
+
+def test_greedy_tokens_equal(served):
+    """float32: the port's own prefill-then-decode loop picks the reference's
+    tokens.  bfloat16 may flip near-ties, so it is held to the first token
+    only (decode logits are held teacher-forced above)."""
+    res = serve.serve(served["model"], served["cfg"], served["toks"], GEN + 1)
+    want = np.stack(served["fed"], axis=1)
+    if served["dtype"] == "float32":
+        np.testing.assert_array_equal(res.tokens[:, :GEN], want)
+    else:
+        np.testing.assert_array_equal(res.tokens[:, 0], want[:, 0])
+    assert np.isfinite(as_np(res.last_logits)).all()
+
+
+def test_decode_refuses_a_full_cache():
+    cfg = get_arch("phi4-mini-3.8b").smoke_config()
+    model = init_lm_params(cfg, seed=0, device="cpu")
+    cache = init_cache(cfg, 1, 4, device="cpu")
+    cache["len"] = 4
+    with pytest.raises(ValueError, match="full"):
+        decode_step(model, cache, torch.zeros(1, dtype=torch.int64), cfg)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_lm_params_distributions(arch):
+    """Shapes, dtypes and scales of the reference's initializer: dense
+    weights N(0, 1/d_in), the embedding N(0, 0.02**2), norms 1; the same
+    seed gives the same weights."""
+    cfg = get_arch(arch).smoke_config()
+    m = init_lm_params(cfg, seed=3, device="cpu")
+    tree = jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(0), configs(
+        arch, "bfloat16")[0]))
+    assert m.embed.shape == tree["embed"].shape
+    assert m.head.shape == tree["head"].shape
+    for name, p in m.layers[0].named_parameters():
+        assert p.shape == tree["layers"][name].shape[1:], name
+        assert p.dtype == torch.bfloat16 and not p.requires_grad
+    assert abs(float(m.embed.float().std()) - 0.02) < 0.002
+    d = cfg.d_model
+    assert abs(float(m.layers[1].wq.float().std()) * d ** 0.5 - 1) < 0.05
+    assert abs(float(m.layers[0].wo_mlp.float().std()) * cfg.d_ff ** 0.5 - 1) < 0.05
+    assert torch.equal(m.layers[0].ln_attn, torch.ones(d, dtype=torch.bfloat16))
+    again = init_lm_params(cfg, seed=3, device="cpu")
+    assert torch.equal(again.layers[1].wg, m.layers[1].wg)
+    assert not torch.equal(m.layers[0].wg, m.layers[1].wg)
+
+
+def test_bf16_arrays_carry_their_bits():
+    """``np.asarray`` of a JAX bf16 array is an ``ml_dtypes.bfloat16`` array,
+    which ``torch.from_numpy`` refuses; the bits travel as uint16."""
+    x = np.array(jnp.asarray([1.0, -2.5, 3.1415926, 1e-20], jnp.bfloat16))
+    with pytest.raises(TypeError):
+        torch.from_numpy(x)
+    got = tensor_from_numpy(x, "cpu")
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  x.view(np.int16))
+
+
+@pytest.mark.parametrize("cfg", [
+    LMConfig(name="moe", n_layers=1, d_model=32, n_heads=2, n_kv_heads=2,
+             d_ff=64, vocab_size=64, head_dim=16,
+             moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32)),
+    LMConfig(name="mla", n_layers=1, d_model=32, n_heads=2, n_kv_heads=2,
+             d_ff=64, vocab_size=64, head_dim=16, mla=MLAConfig()),
+], ids=["moe", "mla"])
+def test_moe_and_mla_are_later_slices(cfg):
+    with pytest.raises(NotImplementedError):
+        init_lm_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        init_cache(cfg, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError):
+        mla_attention()
+    with pytest.raises(NotImplementedError):
+        TransformerLM(cfg, *(torch.zeros(1),) * 3, [])
+
+
+# --------------------------------------------------------------------------
+# the launcher and the sGrapp monitor
+# --------------------------------------------------------------------------
+
+def test_serve_main_runs_on_the_cpu(capsys):
+    flash_kernel.reset_launch_count()
+    serve.main(["--arch", "phi4-mini-3.8b", "--smoke", "--device", "cpu",
+                "--batch", "2", "--prompt", "70", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "[serve] prefill 2x70" in out and "[serve] decode 3 steps" in out
+    assert "sGrapp monitor" in out
+    assert flash_kernel.launch_count() == 0
+
+
+@pytest.mark.parametrize("gen,decode_s,want", [
+    (4, 1.5, 2 * 3 / 1.5),    # 3 decode steps of 2 tokens: the prefill's not
+    (1, 0.25, float("nan")),  # no decode step
+    (4, 0.0, float("nan")),
+])
+def test_decode_rate_counts_the_decode_steps_tokens(gen, decode_s, want):
+    res = serve.ServeResult(np.zeros((2, gen), np.int64), 0.5, decode_s,
+                            torch.zeros(1), torch.zeros(1))
+    np.testing.assert_equal(res.decode_tok_s(), want)
+
+
+def test_serve_main_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "phi4-mini-3.8b", "--smoke"])
+
+
+@pytest.mark.parametrize("batch,prompt,gen,vocab", [
+    (4, 32, 8, 50),       # shared tokens across requests: many butterflies
+    (3, 20, 5, 4000),     # sparse overlap
+    (1, 10, 2, 30),       # one request: no butterfly
+])
+def test_monitor_butterflies_equals_the_oracle(batch, prompt, gen, vocab):
+    rng = np.random.default_rng(batch * prompt)
+    prompts = rng.integers(0, vocab, (batch, prompt))
+    generated = rng.integers(0, vocab, (batch, gen))
+    got = serve.monitor_butterflies(prompts, generated, "cpu")
+    full = np.concatenate([prompts, generated], axis=1)
+    edges = np.stack([np.repeat(np.arange(batch), full.shape[1]),
+                      full.reshape(-1)], axis=1)
+    assert got == count_butterflies_np(edges)
+
+
+def test_snapshot_count_matches_the_reference():
+    rng = np.random.default_rng(9)
+    cap, n = 64, 50
+    ei = np.zeros(cap, np.int32)
+    ej = np.zeros(cap, np.int32)
+    valid = np.zeros(cap, bool)
+    ei[:n], ej[:n], valid[:n] = rng.integers(0, 6, n), rng.integers(0, 9, n), True
+    got = snapshot_count(torch.as_tensor(ei), torch.as_tensor(ej),
+                         torch.as_tensor(valid), n_i=6, n_j=cap)
+    want = j_snapshot_count(jnp.asarray(ei), jnp.asarray(ej), jnp.asarray(valid),
+                            n_i=6, n_j=cap)
+    assert float(got) == float(want) == count_butterflies_np(
+        np.stack([ei[:n], ej[:n]], axis=1))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_monitor_at_the_serve_shape_equals_the_reference(seed):
+    """4 prompts x 4,096 tokens plus 64 generated, phi4-mini's vocabulary:
+    the dense tier's whole-Gram sum (the diagonal's C(degree, 2) terms) passes
+    2**24, so float32 counts may miss the int64 oracle by a few; the port's
+    count equals the reference's, and both stay within the float32 bound
+    (n**2 + n) * 2**-24 * that sum."""
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, 200_064, (4, 4096))
+    generated = rng.integers(0, 200_064, (4, 64))
+    got = serve.monitor_butterflies(prompts, generated, "cpu")
+    full = np.concatenate([prompts, generated], axis=1)
+    n = full.size
+    cap = 1 << int(np.ceil(np.log2(n)))
+    ei = np.zeros(cap, np.int32)
+    ej = np.zeros(cap, np.int32)
+    valid = np.zeros(cap, bool)
+    ei[:n], valid[:n] = np.repeat(np.arange(4), full.shape[1]), True
+    ej[:n] = np.unique(full.reshape(-1), return_inverse=True)[1]
+    want = float(j_snapshot_count(jnp.asarray(ei), jnp.asarray(ej),
+                                  jnp.asarray(valid), n_i=4, n_j=cap))
+    assert got == want
+    edges = np.unique(np.stack([ei[:n], full.reshape(-1)], axis=1), axis=0)
+    exact = count_butterflies_np(edges)
+    deg = np.bincount(edges[:, 0]).astype(np.float64)
+    total = np.sum(deg * (deg - 1) / 2) + 2 * exact
+    assert total > 2**24
+    assert abs(got - exact) <= 20 * 2.0**-24 * total
