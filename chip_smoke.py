@@ -21,7 +21,8 @@ Phases (each path's launch counts are set to 0 just before it runs and read
 just after):
 
 0. setup: the card's name and power limit, torch and CUDA versions, the
-   kernels' build (time and ``-Xptxas -v``), and the smoke stream;
+   kernels' build (time and ``-Xptxas -v``; for each K4 variant its
+   registers, spills and dynamic shared memory), and the smoke stream;
 1. kernel: K1 against its plain version on adversarial shapes (exact), a
    dense random stack whose sums pass 2**24 (rtol 1e-5 against float64) and
    the replay's own bucket stacks (exact); K2 against its float64 plain
@@ -57,14 +58,18 @@ just after):
 9. K4: at the serve path's shapes (q [4, 4096, 24, 128], k and v
    [4, 4096, 8, 128], bf16, causal) against its plain version, again in
    float32 and at a ragged later prompt chunk with ``q_offset > 0``
-   (``K4_TOL``); K4's, the plain version's and
+   (``K4_TOL``); bf16 runs the wgmma variant, float32 the SIMT variant;
+   K4's (both variants), the plain version's and
    ``scaled_dot_product_attention``'s times (the last never called by the
-   port) and the least time the card could take;
+   port), the least time the card could take, K4's share of it and its
+   factor against SDPA;
 10. serve: phi4-mini-3.8b at full width with seeded random weights, 4
    prompts x 4,096 tokens and 64 greedy tokens through
    ``repro_torch.launch.serve``: K4 held against its plain version on every
    layer's q, k, v in one prefill; a counted, timed run (K4 once per layer,
-   finite logits, prefill ms, decode tok/s, peak memory); the profile of a
+   every launch the bf16 wgmma variant on the tensors as they lie, through
+   TMA with no padded copy; finite logits, prefill ms, decode tok/s, peak
+   memory); the profile of a
    prefill (K4's share) and of decode steps; the smoke config in float32 on
    the card against the CPU path; the sGrapp monitor's butterfly count of
    the (request, token) graph against the numpy oracle.
@@ -1064,6 +1069,45 @@ def profile(label: str, fn, device, top: int = 8
     return wall_ms, busy_ms, by_kernel
 
 
+def k4_build_lines(info) -> list[str]:
+    """One line for each K4 kernel that ``nvcc -Xptxas -v`` compiled:
+    variant, head dims, registers, spills and the dynamic shared memory
+    that the launcher asks for (``flash_attention_smem_bytes``)."""
+    import re
+
+    fn = info.lib.flash_attention_smem_bytes
+    out, name, spills = [], None, ""
+    for line in info.log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m is None or name is None:
+            continue
+        w = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", name)
+        f = re.search(r"flash_attention_kernelILi(\d+)E", name)
+        if w:
+            atoms = int(w.group(1))
+            what = (f"bf16 wgmma (TMA, 3-limb P), hd {64 * atoms - 63}-"
+                    f"{64 * atoms} (setmaxnreg: producer 40, consumers 232)",
+                    fn(1, 64 * atoms))
+        elif f:
+            hdp = int(f.group(1))
+            what = (f"float32 SIMT, hd {hdp // 2 + 1 if hdp > 32 else 1}-{hdp}",
+                    fn(0, hdp))
+        else:
+            continue
+        out.append(f"[setup] K4 {what[0]}: {m.group(1)} registers at entry, "
+                   f"{spills}; {what[1]} B of dynamic shared memory")
+        name = None
+    return out
+
+
 def within(got, want, tol: dict) -> tuple[bool, float]:
     """Whether ``|got - want| <= atol + rtol * |want|`` everywhere (in
     float32), and the largest absolute difference."""
@@ -1142,8 +1186,12 @@ def phase_k4(device, seed: int, *, batch: int, seq: int, heads: int,
                               (batch, skv, kv_heads, head_dim))]
 
     def hold(q, k, v, q_offset, what):
+        k4.reset_launch_count()
         got = k4.flash_attention_bshd(q, k, v, causal=True, q_offset=q_offset)
         sync(device)
+        variant = "simt" if q.dtype == torch.float32 else "wgmma"
+        check(device.type != "cuda" or k4.launch_count(variant) == 1,
+              f"K4 on {what} did not run its {variant} variant")
         err, err32 = hold_k4(got, q, k, v, causal=True, q_offset=q_offset,
                              chunk=chunk, what=what)
         tol = K4_TOL[str(q.dtype).split(".")[-1]]
@@ -1199,17 +1247,19 @@ def phase_k4(device, seed: int, *, batch: int, seq: int, heads: int,
         f"{lib_out:.4%} of the elements (K4 at none)")
     bound_ms, bound_by, gflop, rate = k4_bound_ms(q, k, causal=True)
     simt_ms = gflop * 1e9 / PEAK_FP32_SIMT * 1e3
-    log(f"[k4] timing, bf16, causal: K4 {ms:.4f} ms (float32 inputs "
-        f"{f32_ms:.4f} ms), plain {plain_ms:.4f} ms (blocks {chunk}), "
+    log(f"[k4] timing, bf16, causal: K4 (wgmma variant) {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms (blocks {chunk}), "
         f"scaled_dot_product_attention(enable_gqa=True) {library_ms:.4f} ms "
         f"(max abs err {lib_err:.4g} vs plain: it keeps P in bf16); bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {gflop:.6g} GFLOP, {rate}; at the "
-        f"fp32 SIMT peak {simt_ms:.4f} ms); K4 at {bound_ms / ms:.4%} of the "
-        f"bound, {simt_ms / ms:.2%} of fp32 SIMT peak")
+        f"{bound_ms:.4f} ms ({bound_by}: {gflop:.6g} GFLOP, {rate})")
+    log(f"[k4] K4 bf16 at {bound_ms / ms:.4%} of its bound; "
+        f"{ms / library_ms:.4f}x the time of scaled_dot_product_attention; "
+        f"float32 inputs (SIMT variant) {f32_ms:.4f} ms, {simt_ms / f32_ms:.2%} "
+        f"of the fp32 SIMT peak ({simt_ms:.4f} ms)")
     del fq, fk, fv
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "float32_simt_ms": f32_ms}
 
 
 @contextlib.contextmanager
@@ -1301,10 +1351,14 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
     k4.reset_launch_count()
     res = serve(model, cfg, prompts, gen)
     launches = k4.launch_count()
+    tma = k4.launch_count("wgmma")
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     # K4 launches only for CUDA tensors (a CPU rehearsal runs its plain twin)
     check(launches == cfg.n_layers or not cuda,
           f"K4 launches {launches} != {cfg.n_layers} (one per layer)")
+    check(tma == launches,
+          f"only {tma} of K4's {launches} serve launches took the TMA route "
+          "on the tensors as they lie (the rest a padded copy or SIMT)")
     check(all(kk.launch_count(n) == 0 for n in kk.KERNELS),
           "LM serving launched a butterfly kernel")
     for name, lg in (("prefill", res.prefill_logits),
@@ -1319,13 +1373,14 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
         f"decode {gen - 1} steps ({batch * (gen - 1)} tokens; the prefill "
         f"gives the first): {res.decode_s * 1e3:.4f} ms = "
         f"{res.decode_tok_s():.4f} tok/s; K4 launches {launches} (one per "
-        f"layer; decode attention is plain torch); logits finite; peak device "
+        f"layer, all the bf16 wgmma variant through TMA with no padded copy; "
+        f"decode attention is plain torch); logits finite; peak device "
         f"memory {peak / 2**30:.4f} GiB; sample {res.tokens[0][:8].tolist()}")
 
     _, busy, by_kernel = profile("serve, one prefill", lambda: prefill(
         model, toks, cfg, prompt + gen), device)
     k4_ms = sum(t for name, t in by_kernel.items()
-                if "flash_attention_kernel" in name)
+                if "flash_attention" in name)
     log(f"[serve] K4 takes {k4_ms:.4f} ms of the prefill's {busy:.4f} ms of "
         f"device time ({k4_ms / max(busy, 1e-9):.4%})")
     _, cache = prefill(model, toks, cfg, prompt + gen)
@@ -1348,14 +1403,14 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
     small_prompts = make_prompts(small, 2, 150, seed)
     on_cpu = serve(cpu_model, small, small_prompts, 6)
     on_card = serve(cpu_model.to(device), small, small_prompts, 6)
-    ok, err = within(on_card.prefill_logits.cpu(), on_cpu.prefill_logits,
-                     dict(rtol=1e-4, atol=1e-4))
+    ok, logit_err = within(on_card.prefill_logits.cpu(), on_cpu.prefill_logits,
+                           dict(rtol=1e-4, atol=1e-4))
     check(ok and np.array_equal(on_card.tokens, on_cpu.tokens),
-          f"smoke {arch} in float32: the card's prefill logits are {err} off "
-          f"the CPU path's, or the greedy tokens differ")
+          f"smoke {arch} in float32: the card's prefill logits are {logit_err} "
+          f"off the CPU path's, or the greedy tokens differ")
     log(f"[serve] smoke config in float32, 2 prompts x 150 tokens, 6 tokens: "
         f"{device} (K4 on a card) and the CPU path (plain) agree (prefill logits max "
-        f"abs err {err:.6g} <= 1e-4, greedy tokens equal)")
+        f"abs err {logit_err:.6g} <= 1e-4, greedy tokens equal)")
 
     # the sGrapp monitor over prompts plus generations.  snapshot_count is
     # the dense tier: it sums C(W, 2) over the whole request x request Gram
@@ -1406,6 +1461,9 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
                    "skipped (built earlier from the same sources)"))
             if info.log:
                 log(info.log.rstrip())
+            if what == "K4":
+                for line in k4_build_lines(info):
+                    log(line)
     t0 = time.perf_counter()
     stream = bipartite_pa_stream(n_sgrs, temporal="uniform",
                                  n_unique=n_unique, seed=seed)
@@ -1465,13 +1523,16 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
          "route": "cuda", "source": src + "butterfly_windows.cu",
          "replaces": ref + "43", "launches": kern3["launches"],
          **{k: kern3[k] for k in keys}},
-        {"name": "flash_attention (K4)", "route": "cuda",
+        {"name": "flash_attention (K4: bf16 wgmma tensor cores fed by TMA, "
+                 "fp32 P as 3 bf16 limbs; float32 inputs on fp32 SIMT)",
+         "route": "cuda",
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                   "flash_attention.cu",
+                   "flash_attention_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_kernel.py:29",
          "launches": served["launches"],
          **{k: kern4[k] for k in keys},
-         "max_abs_err": max(kern4["max_abs_err"], served["max_abs_err"])},
+         "max_abs_err": max(kern4["max_abs_err"], served["max_abs_err"]),
+         "float32_simt_ms": kern4["float32_simt_ms"]},
     ]
 
 

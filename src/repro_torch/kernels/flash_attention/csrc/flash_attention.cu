@@ -1,5 +1,6 @@
-// K4 on Hopper: the FlashAttention-2 forward pass (online softmax over
-// key/value tiles) for prefill attention.
+// K4 on Hopper, float32 inputs: the FlashAttention-2 forward pass (online
+// softmax over key/value tiles) on the fp32 SIMT units, and the C entry
+// point of both K4 variants (bf16 inputs go to flash_attention_wgmma.cu).
 //
 // Replaces the TPU kernel `_kernel` launched by `flash_attention_call` in
 // src/repro/kernels/flash_attention/flash_kernel.py:29 (pallas_call :83),
@@ -15,7 +16,7 @@
 //     s   = -1e30 where col >= Skv, or causal and col > q_offset + row
 //     m'  = max(m, rowmax(s));  p = exp(s - m');  corr = exp(m - m')
 //     l   = l * corr + rowsum(p);  acc = acc * corr + p v;  m = m'
-//     o   = acc / max(l, 1e-30)                   (written in q's type)
+//     o   = acc / max(l, 1e-30)
 //
 // with (acc, m, l) in fp32, as the reference kernel computes them.  Tiles
 // wholly above the causal diagonal are skipped: there the reference's p is
@@ -25,26 +26,18 @@
 // masked here; callers pad nothing.  expf, never __expf (no fast math).
 //
 // Design.  One block of 256 threads per (64 query rows, head, batch).  The
-// Q tile is widened to fp32 in shared memory once; each 64-key K and V tile
-// is staged in shared memory in the input type (bf16 widens to fp32
-// exactly when it is read).  A thread owns 4 query rows and, for them, 4
-// score columns and hd_pad / 16 output columns: the 16 threads of a row
-// group are lanes of one warp, so the row max and sum are warp shuffles
-// and the P tile needs only a warp barrier between its write and its read.
-// The whole block is fp32 SIMT.  Query tiles launch heaviest first (the
-// last causal tiles walk the most keys).
+// Q tile and each 64-key K and V tile are staged in shared memory.  A
+// thread owns 4 query rows and, for them, 4 score columns and hd_pad / 16
+// output columns: the 16 threads of a row group are lanes of one warp, so
+// the row max and sum are warp shuffles and the P tile needs only a warp
+// barrier between its write and its read.  Query tiles launch heaviest
+// first (the last causal tiles walk the most keys).
 //
-// What bounds it on an H100.  Operations.  At the serve path's shape (q
-// [4, 4096, 24, 128], k and v [4, 4096, 8, 128], bf16, causal) QK^T and PV
-// are 206.2 GFLOP each over 268 MB of input and output (80 us at
-// 3.35 TB/s).  QK^T on bf16 operands is exact on bf16 tensor cores with
-// fp32 accumulation (989 TFLOP/s); PV takes the reference's fp32 P, which
-// three bf16 limbs hold exactly, so three bf16 products: together about
-// 0.83 ms.  This kernel runs both products on the fp32 SIMT units (67
-// TFLOP/s: 6.2 ms at best).  wgmma, TMA and a bf16 P (which changes the
-// result against the reference's fp32 P) are later work.
+// What bounds it on an H100.  Operations: float32 operands have no exact
+// tensor-core product (TF32 keeps 10 bits), so both products run on the
+// fp32 SIMT units (67 TFLOP/s).  float32 inputs are off the serve path
+// (the LM serves bf16); they keep this kernel.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -60,10 +53,10 @@ constexpr int kCols = kBK / 16;           // score columns per thread
 constexpr float kNeg = -1e30f;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   long long q_sb, q_ss, q_sh;             // strides in elements
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -72,44 +65,15 @@ struct Params {
   float scale;
 };
 
-template <typename D>
-__device__ __forceinline__ D from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// stores x in a shared tile of type D: fp32 widens, the input type copies
-__device__ __forceinline__ void put(float* d, float x) { *d = x; }
-__device__ __forceinline__ void put(float* d, __nv_bfloat16 x) {
-  *d = __bfloat162float(x);
-}
-__device__ __forceinline__ void put(__nv_bfloat16* d, __nv_bfloat16 x) { *d = x; }
-
-// two neighbouring elements of a shared row as fp32
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-template <typename T, int HDP>
+template <int HDP>
 struct Smem {
-  static constexpr int kQS = HDP + 4;     // fp32 Q row stride: float4 rows
+  static constexpr int kQS = HDP + 4;     // Q row stride: float4 rows
   static constexpr int kKS = HDP + 2;     // K row stride: 16 rows, 16 banks
   static constexpr int kVS = HDP;         // V rows are read along hd
   static constexpr int kPS = kBK + 4;
   static constexpr size_t kQBytes = size_t(kBQ) * kQS * sizeof(float);
-  static constexpr size_t kKBytes = size_t(kBK) * kKS * sizeof(T);
-  static constexpr size_t kVBytes = size_t(kBK) * kVS * sizeof(T);
+  static constexpr size_t kKBytes = size_t(kBK) * kKS * sizeof(float);
+  static constexpr size_t kVBytes = size_t(kBK) * kVS * sizeof(float);
   static constexpr size_t kPBytes = size_t(kBQ) * kPS * sizeof(float);
   static constexpr size_t kBytes = kQBytes + kKBytes + kVBytes + kPBytes;
 };
@@ -117,43 +81,42 @@ struct Smem {
 // dst[r][d] = src[r * row_stride + d] for r < rows, d < hd; 0 elsewhere in
 // the [64][HDP] tile.  With vec, 16-byte loads (the host checked alignment,
 // strides and hd).
-template <typename T, typename D, int HDP>
-__device__ __forceinline__ void load_tile(D* dst, int dst_stride, const T* src,
+template <int HDP>
+__device__ __forceinline__ void load_tile(float* dst, int dst_stride, const float* src,
                                           long long row_stride, int rows, int hd,
                                           bool vec) {
   if (vec) {
-    constexpr int kVec = 16 / sizeof(T);
-    constexpr int kPerRow = HDP / kVec;
+    constexpr int kPerRow = HDP / 4;
     for (int idx = threadIdx.x; idx < kBK * kPerRow; idx += kThreads) {
       const int r = idx / kPerRow;
-      const int c = (idx % kPerRow) * kVec;
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      const int c = (idx % kPerRow) * 4;
+      float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < rows && c < hd)
-        u = __ldg(reinterpret_cast<const uint4*>(src + r * row_stride + c));
-      const T* t = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) put(dst + r * dst_stride + c + e, t[e]);
+        u = __ldg(reinterpret_cast<const float4*>(src + r * row_stride + c));
+      float* d = dst + r * dst_stride + c;  // K rows are not 16-byte aligned
+      d[0] = u.x;
+      d[1] = u.y;
+      d[2] = u.z;
+      d[3] = u.w;
     }
   } else {
-    const T zero = from_float<T>(0.f);
     for (int idx = threadIdx.x; idx < kBK * HDP; idx += kThreads) {
       const int r = idx / HDP;
       const int c = idx % HDP;
-      put(dst + r * dst_stride + c,
-          (r < rows && c < hd) ? src[r * row_stride + c] : zero);
+      dst[r * dst_stride + c] = (r < rows && c < hd) ? src[r * row_stride + c] : 0.f;
     }
   }
 }
 
-template <typename T, int HDP>
+template <int HDP>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel(const Params p, const bool vec) {
-  using S = Smem<T, HDP>;
+  using S = Smem<HDP>;
   constexpr int kOut = HDP / 16;          // output columns per thread
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
-  T* ks = reinterpret_cast<T*>(smem + S::kQBytes);
-  T* vs = reinterpret_cast<T*>(smem + S::kQBytes + S::kKBytes);
+  float* ks = reinterpret_cast<float*>(smem + S::kQBytes);
+  float* vs = reinterpret_cast<float*>(smem + S::kQBytes + S::kKBytes);
   float* ps = reinterpret_cast<float*>(smem + S::kQBytes + S::kKBytes + S::kVBytes);
 
   const int q0 = (p.n_qtiles - 1 - static_cast<int>(blockIdx.x)) * kBQ;
@@ -162,11 +125,11 @@ flash_attention_kernel(const Params p, const bool vec) {
   const int hk = h / p.groups;
   const int ty = threadIdx.x / 16;        // row group: rows ty * kRows + i
   const int tx = threadIdx.x % 16;        // columns tx + 16 * j
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const float* qg = p.q + b * p.q_sb + h * p.q_sh + q0 * p.q_ss;
+  const float* kg = p.k + b * p.k_sb + hk * p.k_sh;
+  const float* vg = p.v + b * p.v_sb + hk * p.v_sh;
 
-  load_tile<T, float, HDP>(qs, S::kQS, qg, p.q_ss, min(kBQ, p.sq - q0), p.hd, vec);
+  load_tile<HDP>(qs, S::kQS, qg, p.q_ss, min(kBQ, p.sq - q0), p.hd, vec);
 
   int kv_end = p.skv;
   if (p.causal) kv_end = min(kv_end, p.q_offset + min(q0 + kBQ, p.sq));
@@ -185,8 +148,8 @@ flash_attention_kernel(const Params p, const bool vec) {
     const int k0 = t * kBK;
     const int rows = min(kBK, p.skv - k0);
     __syncthreads();                      // the last tile's readers are done
-    load_tile<T, T, HDP>(ks, S::kKS, kg + k0 * p.k_ss, p.k_ss, rows, p.hd, vec);
-    load_tile<T, T, HDP>(vs, S::kVS, vg + k0 * p.v_ss, p.v_ss, rows, p.hd, vec);
+    load_tile<HDP>(ks, S::kKS, kg + k0 * p.k_ss, p.k_ss, rows, p.hd, vec);
+    load_tile<HDP>(vs, S::kVS, vg + k0 * p.v_ss, p.v_ss, rows, p.hd, vec);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -198,9 +161,9 @@ flash_attention_kernel(const Params p, const bool vec) {
     for (int d = 0; d < HDP; d += 2) {
       float2 qv[kRows], kv[kCols];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = load2(qs + (ty * kRows + i) * S::kQS + d);
+      for (int i = 0; i < kRows; ++i) qv[i] = *reinterpret_cast<const float2*>(qs + (ty * kRows + i) * S::kQS + d);
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = load2(ks + (tx + 16 * j) * S::kKS + d);
+      for (int j = 0; j < kCols; ++j) kv[j] = *reinterpret_cast<const float2*>(ks + (tx + 16 * j) * S::kKS + d);
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -251,7 +214,7 @@ flash_attention_kernel(const Params p, const bool vec) {
 #pragma unroll
       for (int i = 0; i < kRows; ++i) pv[i] = ps[(ty * kRows + i) * S::kPS + j];
 #pragma unroll
-      for (int c = 0; c < kOut; ++c) vv[c] = to_float(vs[j * S::kVS + tx + 16 * c]);
+      for (int c = 0; c < kOut; ++c) vv[c] = vs[j * S::kVS + tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -263,48 +226,55 @@ flash_attention_kernel(const Params p, const bool vec) {
   for (int i = 0; i < kRows; ++i) {
     const int row = q0 + ty * kRows + i;
     if (row >= p.sq) continue;
-    T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + row * p.o_ss;
+    float* og = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kOut; ++c) {
       const int d = tx + 16 * c;
-      if (d < p.hd) og[d] = from_float<T>(acc[i][c] / denom);
+      if (d < p.hd) og[d] = acc[i][c] / denom;
     }
   }
 }
 
-template <typename T, int HDP>
+template <int HDP>
 cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  bool vec = p.hd % kVec == 0;
+  bool vec = p.hd % 4 == 0;
   for (const void* ptr : {p.q, p.k, p.v})
     vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   for (long long s : {p.q_sb, p.q_ss, p.q_sh, p.k_sb, p.k_ss, p.k_sh, p.v_sb,
                       p.v_ss, p.v_sh})
-    vec = vec && s % kVec == 0;
-  const size_t smem = Smem<T, HDP>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, HDP>,
+    vec = vec && s % 4 == 0;
+  const size_t smem = Smem<HDP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<HDP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(p.n_qtiles), static_cast<unsigned>(heads),
                   static_cast<unsigned>(batch));
-  flash_attention_kernel<T, HDP><<<grid, kThreads, smem, stream>>>(p, vec);
+  flash_attention_kernel<HDP><<<grid, kThreads, smem, stream>>>(p, vec);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(const Params& p, int batch, int heads, cudaStream_t stream) {
-  if (p.hd <= 32) return launch<T, 32>(p, batch, heads, stream);
-  if (p.hd <= 64) return launch<T, 64>(p, batch, heads, stream);
-  return launch<T, 128>(p, batch, heads, stream);
+cudaError_t launch_f32(const Params& p, int batch, int heads, cudaStream_t stream) {
+  if (p.hd <= 32) return launch<32>(p, batch, heads, stream);
+  if (p.hd <= 64) return launch<64>(p, batch, heads, stream);
+  return launch<128>(p, batch, heads, stream);
 }
 
 }  // namespace
 
-// q, k, v, o: device pointers; dtype 0 = float32, 1 = bfloat16 (all four
-// alike); strides: 12 element strides (batch, seq, head) of q, k, v, o.
-// Returns a cudaError_t; 0 when the launch was taken.
+// flash_attention_wgmma.cu: the bf16 variant
+cudaError_t k4_bf16_launch(const void* q, const void* k, const void* v, void* o,
+                           int batch, int heads, int groups, int sq, int skv, int hd,
+                           const long long* strides, int causal, int q_offset,
+                           float scale, cudaStream_t stream);
+int k4_bf16_smem_bytes(int hd);
+
+// q, k, v, o: device pointers; dtype 0 = float32 (this file's SIMT kernel),
+// 1 = bfloat16 (the wgmma kernel, which takes only TMA-ready q, k, v: a
+// 16-byte-aligned base and strides of 16 bytes); all four alike; strides:
+// 12 element strides (batch, seq, head) of q, k, v, o.  Returns a
+// cudaError_t; 0 when the launch was taken.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, int dtype, int batch, int heads,
                                       int groups, int sq, int skv, int hd,
@@ -316,11 +286,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (batch == 0 || sq == 0) return 0;
   if (batch > 65535 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return static_cast<int>(k4_bf16_launch(q, k, v, o, batch, heads, groups, sq, skv,
+                                           hd, strides, causal, q_offset, scale, s));
   Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
   p.q_sb = strides[0]; p.q_ss = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_ss = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_ss = strides[7]; p.v_sh = strides[8];
@@ -333,8 +307,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.q_offset = q_offset;
   p.n_qtiles = (sq + kBQ - 1) / kBQ;
   p.scale = scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 1 ? dispatch_hd<__nv_bfloat16>(p, batch, heads, s)
-                                     : dispatch_hd<float>(p, batch, heads, s);
-  return static_cast<int>(err);
+  return static_cast<int>(launch_f32(p, batch, heads, s));
+}
+
+// The dynamic shared memory of the variant that `flash_attention_launch`
+// runs for dtype (0 float32, 1 bfloat16) and head dim hd.
+extern "C" int flash_attention_smem_bytes(int dtype, int hd) {
+  if (dtype == 1) return k4_bf16_smem_bytes(hd);
+  if (hd <= 32) return static_cast<int>(Smem<32>::kBytes);
+  if (hd <= 64) return static_cast<int>(Smem<64>::kBytes);
+  return static_cast<int>(Smem<128>::kBytes);
 }

@@ -11,14 +11,21 @@ position ``q_offset + r``) with ``-1e30``, an fp32 ``(acc, m, l)`` and
 ``acc / max(l, 1e-30)`` written in ``q.dtype``.  Lengths need not divide a
 block.
 
-On a CUDA tensor the wrapper launches the hand-written kernel
-(``csrc/flash_attention.cu``, built at first use, see :mod:`.build`) on the
-tensors' strides -- no transpose and no copy of the key/value heads -- or
-raises; it never falls back.  On a CPU tensor it runs
+On a CUDA tensor the wrapper launches one of K4's two hand-written
+variants (built at first use, see :mod:`.build`) on the tensors' strides --
+no transpose and no copy of the key/value heads -- or raises; it never
+falls back from one to the other or to torch.  bf16 inputs run the wgmma
+kernel (``csrc/flash_attention_wgmma.cu``: tensor cores fed by TMA, the
+fp32 P carried into PV as three bf16 limbs, :func:`split_bf16_limbs`); an
+input whose base or strides TMA cannot take (not 16-byte aligned: a head
+dim that is not a multiple of 8, or such a view) reaches it through a
+zero-padded copy.  float32 inputs run the fp32 SIMT kernel
+(``csrc/flash_attention.cu``).  On a CPU tensor it runs
 :func:`flash_attention_plain`, the same online softmax in torch, block by
 block in the reference's order, which the CPU tests and ``chip_smoke.py``'s
-comparisons use.  The wrapper counts its own launches (:func:`launch_count`);
-the CPU path and empty inputs launch nothing and count nothing.
+comparisons use.  The wrapper counts its own launches, in all and per
+variant (:func:`launch_count`); the CPU path and empty inputs launch
+nothing and count nothing.
 
 :func:`flash_attention_call` keeps the reference's ``[BH, S, hd]`` entry and
 its ``ValueError`` when a length does not divide its block.
@@ -33,25 +40,63 @@ from ...core.butterfly import full_fp32_matmul
 
 __all__ = ["flash_attention_bshd", "flash_attention_call",
            "flash_attention_plain", "check_blocks", "launch_count",
-           "reset_launch_count"]
+           "reset_launch_count", "split_bf16_limbs", "tma_ready", "VARIANTS"]
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HD = 128
 _MAX_GRID_YZ = 65535
 
-_launches = {"K4": 0}
+# K4's variants: bf16 on wgmma with q, k, v as given, bf16 on wgmma through
+# a padded copy, float32 on fp32 SIMT
+VARIANTS = ("wgmma", "wgmma_padded", "simt")
+_launches = dict.fromkeys(("K4", *VARIANTS), 0)
 
 
-def launch_count() -> int:
-    """How many times K4's wrapper launched its CUDA kernel in this
-    process."""
-    return _launches["K4"]
+def launch_count(variant: str | None = None) -> int:
+    """How many times K4's wrapper launched a CUDA kernel in this process:
+    all variants, or the one named (one of :data:`VARIANTS`)."""
+    return _launches["K4" if variant is None else variant]
 
 
 def reset_launch_count() -> None:
-    """Set K4's launch count to 0."""
-    _launches["K4"] = 0
+    """Set K4's launch counts to 0."""
+    for key in _launches:
+        _launches[key] = 0
+
+
+def split_bf16_limbs(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """The three bf16 limbs ``(hi, mid, lo)`` of a float32 ``p`` as the bf16
+    K4 peels them: ``hi = bf16(p)``, ``mid = bf16(p - hi)``,
+    ``lo = bf16(p - hi - mid)``, each rounded to nearest even and each
+    subtraction exact in float32.  ``hi + mid + lo == p`` wherever no limb
+    falls below float32's normal range (``p`` above about 2**-100)."""
+    if p.dtype != torch.float32:
+        raise ValueError(f"p must be float32, got {p.dtype}")
+    hi = p.to(torch.bfloat16)
+    rest = p - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can read ``t`` [B, S, H, hd] as it lies: a 16-byte-aligned
+    base and, for every axis longer than 1, a stride of a multiple of 16
+    bytes (the last axis is contiguous)."""
+    return (t.data_ptr() % 16 == 0
+            and all(n == 1 or st * t.element_size() % 16 == 0
+                    for n, st in zip(t.shape[:3], t.stride()[:3])))
+
+
+def _tma_copy(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` with its head dim zero-padded to a
+    multiple of 8 (16 bytes of bf16), which :func:`tma_ready` accepts."""
+    b, s, h, hd = t.shape
+    out = t.new_zeros((b, s, h, -(-hd // 8) * 8))
+    out[..., :hd] = t
+    return out
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -135,10 +180,12 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, q_offset: int) -> torch.Tensor:
-    """Launch K4 on CUDA tensors and count one launch.  Raises on anything
-    the kernel does not take: another device, a dtype other than float32 or
-    bfloat16, a head dim above 128, a last axis that is not contiguous, or
-    more than 65535 batches or heads.  The output is allocated with
+    """Launch K4 on CUDA tensors and count one launch, in all and for its
+    variant.  Raises on anything the kernels do not take: another device, a
+    dtype other than float32 or bfloat16, a head dim above 128, a last axis
+    that is not contiguous, or more than 65535 batches or heads.  A bf16
+    input that is not :func:`tma_ready` goes to the kernel as a padded copy
+    (variant ``wgmma_padded``).  The output is allocated with
     ``torch.empty`` and the kernel launches on the current CUDA stream
     without synchronizing; the C entry point's error code is checked right
     after the launch."""
@@ -160,6 +207,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     from .build import load_library
 
+    variant = "simt"
+    if q.dtype == torch.bfloat16:
+        ready = [tma_ready(t) for t in (q, k, v)]
+        variant = "wgmma" if all(ready) else "wgmma_padded"
+        q, k, v = (t if ok else _tma_copy(t) for t, ok in zip((q, k, v), ready))
+
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out)
                                          for s in t.stride()[:3]))
     fn = load_library().lib.flash_attention_launch
@@ -171,6 +224,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention_launch failed: cudaError {err}")
     _launches["K4"] += 1
+    _launches[variant] += 1
     return out
 
 
@@ -180,7 +234,7 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          ) -> torch.Tensor:
     """K4's wrapper: q ``[B, Sq, H, hd]``, k/v ``[B, Skv, Hkv, hd]`` ->
     ``[B, Sq, H, hd]`` in ``q.dtype``.  ``block_q`` / ``block_k`` set the
-    plain version's blocks only (K4 tiles by 64 and masks ragged
+    plain version's blocks only (K4 tiles by itself and masks ragged
     lengths)."""
     _check(q, k, v, q_offset)
     if q.device.type == "cpu":

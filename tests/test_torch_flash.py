@@ -37,6 +37,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_call,
     flash_attention_plain,
 )
+from repro_torch.core.butterfly import full_fp32_matmul  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_kernel  # noqa: E402
 
 F32 = dict(rtol=2e-5, atol=2e-5)
@@ -127,10 +128,13 @@ def test_flash_bf16_within_one_ulp(causal):
     np.testing.assert_allclose(as_np(got), as_np(ref), **BF16)
 
 
-def bf16_p_attention(q, k, v, *, causal, block_k):
+def bf16_p_attention(q, k, v, *, causal, block_k, n_limbs=1):
     """The online softmax of ``flash_attention_plain`` on [B, S, H, hd], but
-    with P rounded to bf16 before the PV product (what a bf16 tensor-core
-    kernel does); a control that ``ROUNDED`` must reject."""
+    with P reaching the PV product as its first ``n_limbs`` bf16 limbs
+    (``split_bf16_limbs``), each limb's product in float32.  One limb is P
+    rounded to bf16 (what a bf16 tensor-core kernel does), a control that
+    ``ROUNDED`` must reject; three are the fp32 P exactly, as the bf16 K4
+    carries it."""
     g = q.shape[2] // k.shape[2]
     qf = q.float().transpose(1, 2)
     kf, vf = (t.float().repeat_interleave(g, dim=2).transpose(1, 2)
@@ -148,7 +152,11 @@ def bf16_p_attention(q, k, v, *, causal, block_k):
         p = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1, keepdim=True)
-        acc = acc * corr + p.bfloat16().float() @ vf[..., k0:k0 + block_k, :]
+        vb = vf[..., k0:k0 + block_k, :]
+        with full_fp32_matmul():
+            pv = sum(limb.float() @ vb
+                     for limb in flash_kernel.split_bf16_limbs(p)[:n_limbs])
+        acc = acc * corr + pv
         m = m_new
     return (acc / l).transpose(1, 2).to(q.dtype)
 
@@ -176,6 +184,86 @@ def test_flash_bf16_is_the_rounding_of_float32(causal, b, sq, skv, h, hkv, hd,
     assert beyond.mean() > 0.01
     assert np.mean(np.abs(ctl - as_np(got)) > BF16["atol"]
                    + BF16["rtol"] * np.abs(as_np(got))) < 0.001
+
+
+def exp_range_samples(n, seed):
+    """float32 values over the exponents that softmax's ``p = exp(s - m)``
+    takes down to 2**-100: every exponent in [-100, 0] with random
+    significands, the bf16 rounding boundaries (ties) among them, and a
+    dense sweep of ``exp(-x)``."""
+    rng = np.random.default_rng(seed)
+    e = rng.integers(-100, 1, n)
+    sig = 1.0 + rng.integers(0, 2**23, n) / 2.0**23
+    ties = 1.0 + (2 * rng.integers(0, 2**7, n) + 1) / 2.0**8
+    sweep = np.exp(-np.linspace(0.0, 100 * np.log(2.0), n))
+    vals = np.concatenate([np.ldexp(sig, e), np.ldexp(ties, e), sweep, [1.0]])
+    return torch.from_numpy(vals.astype(np.float32))
+
+
+def assert_limbs_rebuild(p):
+    hi, mid, lo = flash_kernel.split_bf16_limbs(p)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    # exact in float64, and in float32 in the kernel's order
+    assert torch.equal(hi.double() + mid.double() + lo.double(), p.double())
+    assert torch.equal(hi.float() + mid.float() + lo.float(), p)
+    # every limb at most half an ulp of the one before: none is wasted
+    assert bool((mid.float().abs() <= hi.float().abs() * 2.0**-8).all())
+    assert bool((lo.float().abs() <= mid.float().abs() * 2.0**-8).all())
+
+
+def test_three_bf16_limbs_rebuild_p_exactly():
+    """The bf16 K4's split of the fp32 P (``split_bf16_limbs``): hi + mid +
+    lo == p exactly for every p that softmax gives down to 2**-100."""
+    assert_limbs_rebuild(exp_range_samples(20000, seed=1))
+
+
+def test_three_bf16_limbs_rebuild_p_exactly_hypothesis():
+    """The same over hypothesis's float32 draws in [2**-100, 1]."""
+    hypothesis = pytest.importorskip("hypothesis")
+    st = hypothesis.strategies
+
+    @hypothesis.settings(max_examples=500, deadline=None)
+    @hypothesis.given(st.lists(st.floats(min_value=2.0**-100, max_value=1.0,
+                                         width=32), min_size=1, max_size=64))
+    def rebuild(xs):
+        assert_limbs_rebuild(torch.tensor(xs, dtype=torch.float32))
+
+    rebuild()
+
+
+@pytest.mark.parametrize("n_keys,seed", [(64, 0), (1000, 1), (4096, 2)])
+def test_pv_over_three_limbs_equals_fp32_pv(n_keys, seed):
+    """P V with P as three bf16 limbs, each product in float32, equals the
+    float32 P V within the float32 tolerance (``F32``, K4_TOL's float32)."""
+    rng = np.random.default_rng(seed)
+    s = torch.from_numpy(rng.standard_normal((32, n_keys), dtype=np.float32)) * 3
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    v = torch.from_numpy(rng.standard_normal((n_keys, 64), dtype=np.float32)
+                         ).bfloat16().float()
+    with full_fp32_matmul():
+        want = p @ v
+        got = sum(limb.float() @ v for limb in flash_kernel.split_bf16_limbs(p))
+    torch.testing.assert_close(got, want, **F32)
+
+
+@pytest.mark.parametrize("n_limbs,holds", [(1, False), (2, True), (3, True)])
+def test_limbs_of_p_against_rounded(n_limbs, holds):
+    """At bf16 inputs, the online softmax with P carried as three bf16 limbs
+    is within ``ROUNDED`` of the reference kernel's float32 output, as K4
+    is; with one limb (P in bf16) it is beyond it at many elements.  Two
+    limbs (P to 16 bits, off by at most 2**-17 of each term) also hold at
+    this size: K4 ships three, which are P exactly."""
+    _, (q, k, v) = both(rand_qkv(1, 256, 256, 4, 2, 64, seed=11), "bfloat16")
+    widened = [jnp.asarray(t.float().numpy()) for t in (q, k, v)]
+    want32 = as_np(j_flash(*widened, causal=True, block_q=64, block_k=128,
+                           interpret=True))
+    got = as_np(bf16_p_attention(q, k, v, causal=True, block_k=128,
+                                 n_limbs=n_limbs))
+    beyond = np.abs(got - want32) > ROUNDED["atol"] + ROUNDED["rtol"] * np.abs(want32)
+    if holds:
+        assert not beyond.any()
+    else:
+        assert beyond.mean() > 0.01
 
 
 def test_flash_first_token_attends_itself_only():

@@ -248,6 +248,84 @@ def test_k4_bf16_is_the_rounding_of_float32(cuda, causal, b, sq, skv, h, hkv,
                                atol=2e-5)
 
 
+EDGES = (127, 128, 129, 191)
+
+
+def hold_bf16(got, q, k, v, *, causal, q_offset):
+    """bf16 K4 within one bf16 ulp of the plain version and within its
+    rounding of the plain version's float32 output (the K4_ROUNDED of
+    chip_smoke.py)."""
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    want = k4.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=causal, q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.bfloat16().float(),
+                               **K4_TOL[torch.bfloat16])
+    torch.testing.assert_close(got.float(), want, rtol=2.0**-8 + 2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("sq", EDGES)
+@pytest.mark.parametrize("skv", EDGES)
+def test_k4_bf16_tile_edges(cuda, sq, skv):
+    """Lengths at the wgmma kernel's 128-row and 64-key tile edges, queries
+    as the last ``sq`` positions of ``skv`` where they fit (a later chunk)."""
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    q_offset = max(0, skv - sq)
+    q, k, v = (t.to(cuda) for t in qkv(2, sq, skv, 4, 2, 128, torch.bfloat16,
+                                       sq * skv))
+    k4.reset_launch_count()
+    got = k4.flash_attention_bshd(q, k, v, causal=True, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert k4.launch_count("wgmma") == 1
+    hold_bf16(got, q, k, v, causal=True, q_offset=q_offset)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sq,skv,q_offset", [
+    (128, 165, 37),     # one 128-row tile across the diagonal, odd offset
+    (256, 300, 44),     # two row tiles, the diagonal inside key tiles
+])
+def test_k4_bf16_diagonal_with_q_offset_through_tma(cuda, hd, sq, skv,
+                                                    q_offset):
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    q, k, v = (t.to(cuda) for t in qkv(1, sq, skv, 6, 3, hd, torch.bfloat16,
+                                       hd + q_offset))
+    assert all(k4.tma_ready(t) for t in (q, k, v))
+    k4.reset_launch_count()
+    got = k4.flash_attention_bshd(q, k, v, causal=True, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert k4.launch_count("wgmma") == 1
+    hold_bf16(got, q, k, v, causal=True, q_offset=q_offset)
+
+
+@pytest.mark.parametrize("view", ["stride", "base"])
+def test_k4_bf16_view_that_breaks_tma_alignment(cuda, view):
+    """A view whose head stride (68 bf16 = 136 bytes) or base (2 bytes
+    past a 16-byte boundary, strides of 144 bytes) TMA cannot take reaches
+    the kernel as a padded copy and gives what the contiguous tensors give,
+    bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    gen = torch.Generator().manual_seed(9)
+    width = 68 if view == "stride" else 72
+    wide = torch.randn((2, 150, 4 + 2 + 2, width), generator=gen).bfloat16().to(cuda)
+    cut = wide[..., :64] if view == "stride" else wide[..., 1:65]
+    q, k, v = cut[:, :, :4], cut[:, :, 4:6], cut[:, :, 6:]
+    assert not any(k4.tma_ready(t) for t in (q, k, v))
+    k4.reset_launch_count()
+    got = k4.flash_attention_bshd(q, k, v, causal=True)
+    want = k4.flash_attention_bshd(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert k4.launch_count("wgmma_padded") == 1
+    assert k4.launch_count("wgmma") == 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    hold_bf16(got, q, k, v, causal=True, q_offset=0)
+
+
 def test_k4_reads_strided_heads_without_copies(cuda):
     """q, k and v as views into one fused projection (non-contiguous in
     every axis but the last) give the same result as contiguous copies."""
@@ -271,7 +349,7 @@ def test_k4_counts_launches_and_rejects(cuda):
     k4.flash_attention_bshd(q, k, v)                       # CPU: plain
     assert k4.launch_count() == 0
     k4.flash_attention_bshd(q.to(cuda), k.to(cuda), v.to(cuda))
-    assert k4.launch_count() == 1
+    assert k4.launch_count() == 1 == k4.launch_count("simt")
     with pytest.raises(ValueError, match="head dim up to 128"):
         big = torch.zeros((1, 8, 1, 160), device=cuda)
         k4.flash_attention_bshd(big, big, big)
