@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout.  It builds the port's CUDA kernels K1, K2
+Run from the root of a checkout.  It builds the port's CUDA kernels K1
+(which K3 launches at B = 1) and K2
 (``src/repro_torch/kernels/butterfly/csrc/``) and K4
 (``src/repro_torch/kernels/flash_attention/csrc/``) for ``sm_90a``, one
 ``nvcc`` per source, all started together, holds each kernel against its
@@ -21,21 +22,29 @@ Phases (each path's launch counts are set to 0 just before it runs and read
 just after):
 
 0. setup: the card's name and power limit, torch and CUDA versions, the
-   kernels' build (time and ``-Xptxas -v``; for each K4 variant its
-   registers, spills and dynamic shared memory), and the smoke stream;
-1. kernel: K1 against its plain version on adversarial shapes (exact), a
-   dense random stack whose sums pass 2**24 (rtol 1e-5 against float64) and
-   the replay's own bucket stacks (exact); K2 against its float64 plain
+   kernels' build (time and ``-Xptxas -v``; for K1's wgmma kernel and
+   each K4 variant its registers, spills and dynamic shared memory, and
+   any ptxas warning that it serialized K1's wgmma), and the smoke stream;
+1. kernel: K1 against its plain version, ``torch.equal`` at every size
+   (both sum the reference's float32 per-entry values exactly and round
+   once): on adversarial shapes as float32 (through the padded uint8 copy)
+   and as uint8 (as it lies where its rows allow), on a dense uint8 stack
+   whose sums pass 2**24 (also within rtol 1e-5 of float64) and on the
+   replay's own uint8 bucket stacks; K2 against its float64 plain
    version on adversarial shapes with multiplicities <= 8 (exact) and on
    the largest stack the multiset engine handed K2 in phase 4 (rtol
    ``RTOL_K2``; this check runs after phase 4); each kernel's time beside
-   its plain version, a ``torch.bmm`` yardstick (never called by the port)
+   its plain version, its library yardsticks (never called by the port:
+   for K1 a float32 and a bf16 ``torch.bmm`` Gram with float32 output,
+   each checked to compute the same function; for K2 float32 ``torch.bmm``)
    and the least time the card could take;
 2. replay: ``pallas`` equals ``dense`` on every window and the numpy oracle
-   on every 10th, K1 ran once per bucket chunk, and sGrapp-x runs with
-   truths on the first windows;
+   on every 10th, K1 ran once per bucket chunk, each time on the uint8
+   stack as it lies (no padded copy), the peak device memory, and sGrapp-x
+   runs with truths on the first windows;
 3. stream: micro-batches of 256 through the engine equal the replay bit for
-   bit, across a ``state_dict`` / ``restore`` at the midpoint;
+   bit, across a ``state_dict`` / ``restore`` at the midpoint; every K1
+   launch read its stack as it lies;
 4. multiset: the smoke stream through ``StreamingSGrapp(dup_policy=
    "multiset")`` on ``pallas`` (K2) at mb=256 across a restore equals
    ``pallas`` at mb = the whole stream bit for bit; ``dense`` and ``pallas``
@@ -51,10 +60,14 @@ just after):
    ``auto`` sent to ``sparse``, and the card's ``route_tier`` crossover;
 7. K3: every 25th replay window through ``butterfly_count_pallas`` and
    ``butterfly_count_tiles`` equals the replay, K3 against its plain version
-   and its time;
+   on the largest window, its route (a float32 matrix: the padded copy),
+   its time with the copy, its float32 and bf16 ``torch.mm`` yardsticks and
+   its bound;
 8. profile: ``torch.profiler`` over the replay (pallas and dense tiers) and
    the distinct and multiset streams: the device's busy and idle share of
-   the wall time and the kernels that take the most device time;
+   the wall time, the kernels that take the most device time, and
+   (``cProfile``) the host functions with the most own time in the pallas
+   replay and the distinct stream;
 9. K4: at the serve path's shapes (q [4, 4096, 24, 128], k and v
    [4, 4096, 8, 128], bf16, causal) against its plain version, again in
    float32 and at a ragged later prompt chunk with ``q_offset > 0``
@@ -97,8 +110,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the int8 tensor-core rate is
-# the bound K1's 0/1 operands could reach exactly; fp32 SIMT is the rate
-# the first kernels run at
+# the bound for K1's 0/1 operands, exact there (K1 runs on it); fp32 SIMT
+# is the rate K2 and K4's float32 variant run at
 PEAK_INT8_OPS = 1979e12
 PEAK_FP16_OPS = 989e12
 PEAK_BF16_OPS = 989e12
@@ -271,17 +284,77 @@ def push_engine(cfg, nt_w, alpha0, tau, ei, ej, op=None, mb=256,
     return eng, eng.finalize(), half, n_sd
 
 
+def gram_yardsticks(a):
+    """The two library yardsticks for K1 on the stack ``a`` (``[B, n, k]``
+    or one ``[n, k]`` matrix, 0/1): one float32 Gram (``torch.bmm`` /
+    ``torch.mm``, full float32) and one bf16 Gram with float32 output
+    (``out_dtype``; exact for 0/1 operands while every w stays below 2**24),
+    each with the epilogue and each window's whole sum.  Each takes its own
+    copy of ``a`` in its input type, made here, outside its timing.
+    Returns ``{name: fn}``; ``fn()`` gives the ``[B]`` (or 0-d) window
+    sums.  Never called by the port."""
+    import torch
+
+    from repro_torch.core.butterfly import full_fp32_matmul
+
+    a3 = a if a.dim() == 3 else a[None]
+    a32, a16 = a3.to(torch.float32), a3.to(torch.bfloat16)
+
+    def epilogue(w):
+        pairs = w * (w - 1.0) * 0.5
+        out = (pairs.sum(dim=(1, 2))
+               - torch.diagonal(pairs, dim1=1, dim2=2).sum(dim=1)) * 0.5
+        return out if a.dim() == 3 else out[0]
+
+    def fp32():
+        with full_fp32_matmul():
+            if a.dim() == 2:
+                return epilogue(torch.mm(a32[0], a32[0].T)[None])
+            return epilogue(torch.bmm(a32, a32.transpose(1, 2)))
+
+    def bf16():
+        if a16.device.type == "cpu":
+            # out_dtype is CUDA's; a CPU rehearsal widens instead
+            return epilogue(torch.bmm(a16.float(), a16.float().transpose(1, 2)))
+        if a.dim() == 2:
+            return epilogue(torch.mm(a16[0], a16[0].T,
+                                     out_dtype=torch.float32)[None])
+        return epilogue(torch.bmm(a16, a16.transpose(1, 2),
+                                  out_dtype=torch.float32))
+
+    return {"fp32": fp32, "bf16": bf16}
+
+
+def k1_bounds(a, out) -> tuple[float, str, float]:
+    """The least time an H100 could take for K1's work on the stack ``a``
+    (``[B, n, k]``) with partials ``out``: (bound ms, "bytes" or
+    "operations", operations).  Operations: the strict upper triangle of
+    each window's Gram at the int8 tensor-core peak (0/1 operands are exact
+    there).  Bytes: the stack read once at its own element size and the
+    partials written once."""
+    bsz, n_g, n_k = a.shape
+    ops = 2 * bsz * n_g * (n_g - 1) / 2 * n_k
+    ops_ms = ops / PEAK_INT8_OPS * 1e3
+    bytes_ms = (a.numel() * a.element_size()
+                + out.numel() * out.element_size()) / PEAK_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops)
+
+
 def phase_kernel(wb, device, ex) -> dict:
-    """Phase 1: K1 against its plain version, then its timing."""
+    """Phase 1: K1 against its plain version on both routes, then its
+    timing beside its two library yardsticks."""
     import torch
 
     from repro_torch.kernels.butterfly import butterfly_kernel as k1
     from repro_torch.kernels.butterfly.ops import clamp_block_i
 
     max_err = 0.0
+    cuda = device.type == "cuda"
 
-    def exact(a, block_i, what):
+    def exact(a, block_i, what, route=None):
         nonlocal max_err
+        k1.reset_launch_count()
         got = k1.butterfly_pairs_windows_kernel_call(a, block_i=block_i)
         want = k1.butterfly_pairs_windows_plain(a, block_i=block_i)
         sync(device)
@@ -289,9 +362,16 @@ def phase_kernel(wb, device, ex) -> dict:
         max_err = max(max_err, err)
         check(torch.equal(got, want),
               f"K1 != plain on {what} (block_i={block_i}, max abs err {err})")
+        if route is None:
+            route = "wgmma" if k1.tma_ready(a) else "wgmma_padded"
+        check(not cuda or got.numel() == 0
+              or k1.launch_count("K1", route) == 1,
+              f"K1 on {what} did not take the route {route}")
 
-    # (a) adversarial shapes: the corpus, all-zero windows, n_i > n_j,
-    # non-tile-multiples and a hub whose row sits on a tile boundary
+    # (a) adversarial shapes, each as float32 (through the padded copy) and
+    # as uint8 (as it lies where its rows are a multiple of 16 bytes): the
+    # corpus, all-zero windows, n_i > n_j, non-tile-multiples and a hub
+    # whose row sits on a tile boundary
     corpus = weighted_stack(corpus_edges(),
                             [np.ones(len(e)) for e in corpus_edges()], device)
     hub = torch.zeros((2, 600, 700), dtype=torch.float32)
@@ -309,15 +389,26 @@ def phase_kernel(wb, device, ex) -> dict:
         "non-tile-multiple": (torch.rand((3, 129, 515), generator=gen) < 0.1
                               ).float().to(device),
         "hub on a tile boundary": hub.to(device),
+        "hub, 16-byte rows": torch.nn.functional.pad(hub, (0, 4)).to(device),
+        "empty contraction": torch.zeros((4, 40, 0), device=device),
     }
+    routes = {"wgmma": 0, "wgmma_padded": 0}
     for what, a in cases.items():
-        for block_i in (8, 64, 256):
-            exact(a, clamp_block_i(block_i, a.shape[1]), what)
+        for dtype in (torch.float32, torch.uint8):
+            a = a.to(dtype)
+            for block_i in (8, 64, 256):
+                exact(a, clamp_block_i(block_i, a.shape[1]),
+                      f"{what} ({str(dtype).split('.')[-1]})")
+            routes["wgmma" if k1.tma_ready(a) else "wgmma_padded"] += 3
     log(f"[kernel] (a) adversarial shapes: K1 == plain exactly "
-        f"({len(cases)} stacks x 3 tile sizes)")
+        f"({len(cases)} stacks x 2 dtypes x 3 tile sizes; {routes['wgmma']} "
+        f"launches read the uint8 stack as it lies, "
+        f"{routes['wgmma_padded']} through the padded copy)")
 
     # (b) a dense random stack whose sums pass 2**24
-    a = (torch.rand((8, 1024, 2048), generator=gen) < 0.3).float().to(device)
+    a = (torch.rand((8, 1024, 2048), generator=gen) < 0.3).to(
+        torch.uint8).to(device)
+    exact(a, 256, "dense [8, 1024, 2048] past 2**24", route="wgmma")
     got = k1.butterfly_pairs_windows_kernel_call(a, block_i=256).double()
     want = k1.butterfly_pairs_windows_plain(a, block_i=256,
                                             dtype=torch.float64)
@@ -325,24 +416,25 @@ def phase_kernel(wb, device, ex) -> dict:
     rel = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
     check(float(want.max()) > 2**24, "dense stack does not pass 2**24")
     check(rel <= 1e-5, f"K1 vs float64 plain: max rel err {rel} > 1e-5")
-    log(f"[kernel] (b) dense [8, 1024, 2048] at 0.3: partials up to "
-        f"{float(want.max()):.4g} > 2**24, where float32 sums round in any "
-        f"order, so K1 is held to a float64 plain version: max rel err "
-        f"{rel:.3g} <= 1e-5")
+    log(f"[kernel] (b) dense uint8 [8, 1024, 2048] at 0.3: partials up to "
+        f"{float(want.max()):.4g} > 2**24; K1 == plain exactly (both the "
+        f"exact sum of the float32 per-entry values, rounded once), and "
+        f"within {rel:.3g} of the float64 plain version (bound 1e-5)")
     del a, got, want
 
-    # (c) the replay's own bucket stacks
+    # (c) the replay's own bucket stacks, uint8 as the scatter builds them
     n_stacks, largest = 0, None
     for b, adjs in adjacency_stacks(wb, ex, device):
         block_i = clamp_block_i(ex.block_i, adjs.shape[1])
-        exact(adjs, block_i, f"bucket {b.cap_e}x{b.cap_i}x{b.cap_j}")
+        exact(adjs, block_i, f"bucket {b.cap_e}x{b.cap_i}x{b.cap_j}",
+              route="wgmma")
         n_stacks += 1
         work = adjs.shape[0] * adjs.shape[1] ** 2 * adjs.shape[2]
         if largest is None or work > largest[0]:
             largest = (work, b)
         del adjs
     log(f"[kernel] (c) replay bucket stacks: K1 == plain exactly on "
-        f"{n_stacks} stacks")
+        f"{n_stacks} uint8 stacks, each read as it lies (route wgmma)")
 
     # timing at the largest bucket of the replay
     b = largest[1]
@@ -351,38 +443,29 @@ def phase_kernel(wb, device, ex) -> dict:
     block_i = clamp_block_i(ex.block_i, n_g)
     k1.reset_launch_count()
     ms = time_ms(lambda: k1.butterfly_pairs_windows_kernel_call(
-        adjs, block_i=block_i), device)
+        adjs, block_i=block_i), device, reps=20, warmup=2)
     plain_ms = time_ms(lambda: k1.butterfly_pairs_windows_plain(
         adjs, block_i=block_i), device)
-
-    def library():
-        w = torch.bmm(adjs, adjs.transpose(1, 2))
-        pairs = w * (w - 1.0) * 0.5
-        return (pairs.sum(dim=(1, 2))
-                - torch.diagonal(pairs, dim1=1, dim2=2).sum(dim=1)) * 0.5
-
-    library_ms = time_ms(library, device)
-    check(torch.allclose(library(), k1.butterfly_pairs_windows_kernel_call(
-        adjs, block_i=block_i).sum(dim=1), rtol=1e-6, atol=0),
-        "the bmm yardstick computes another function than K1")
-    t = k1.n_tile_pairs(n_g, block_i)
-    macs = bsz * n_g * (n_g - 1) / 2 * n_k     # the strict upper triangle
-    ops_ms = 2 * macs / PEAK_INT8_OPS * 1e3
-    bytes_ms = (adjs.numel() * 4 + bsz * t * 4) / PEAK_BYTES * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    simt_ms = 2 * macs / PEAK_FP32_SIMT * 1e3
+    out = k1.butterfly_pairs_windows_kernel_call(adjs, block_i=block_i)
+    sums = out.double().sum(dim=1)
+    lib_ms = {}
+    for name, fn in gram_yardsticks(adjs).items():
+        check(torch.allclose(fn().double(), sums, rtol=1e-6, atol=0),
+              f"the {name} yardstick computes another function than K1")
+        lib_ms[name] = time_ms(fn, device)
+    bound_ms, bound_by, ops = k1_bounds(adjs, out)
     log(f"[kernel] timing at the largest replay bucket (cap_e={b.cap_e}, "
-        f"stack [{bsz}, {n_g}, {n_k}], block_i={block_i}, T={t}): "
-        f"K1 {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm Gram + "
-        f"epilogue {library_ms:.4f} ms; bound {bound_ms:.4f} ms "
-        f"(operations: {2 * macs:.4g} at the int8 tensor-core peak; bytes "
-        f"{bytes_ms:.4f} ms; at the fp32 SIMT peak {simt_ms:.4f} ms); "
-        f"K1 at {bound_ms / ms:.4%} of the bound, {simt_ms / ms:.2%} of fp32 "
-        f"SIMT peak")
+        f"uint8 stack [{bsz}, {n_g}, {n_k}], block_i={block_i}, T="
+        f"{out.shape[1]}): K1 {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+        f"torch.bmm Gram + epilogue: float32 {lib_ms['fp32']:.4f} ms, bf16 "
+        f"with float32 output {lib_ms['bf16']:.4f} ms (each on its own copy "
+        f"of the stack); bound {bound_ms:.4f} ms ({bound_by}: {ops:.4g} at "
+        f"the int8 tensor-core peak); K1 at {bound_ms / ms:.4%} of the "
+        f"bound, {lib_ms['fp32'] / ms:.4f}x faster than the float32 "
+        f"yardstick and {lib_ms['bf16'] / ms:.4f}x than the bf16 one")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "simt_bound_ms": simt_ms}
+            "library_ms": lib_ms["bf16"], "fp32_library_ms": lib_ms["fp32"],
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_replay(stream, wb, nt_w, alpha0, device, ex, n_truth):
@@ -410,10 +493,16 @@ def phase_replay(stream, wb, nt_w, alpha0, device, ex, n_truth):
           "the pallas replay never launched K1")
     check(launches == ex.chunks_dispatched or device.type != "cuda",
           f"K1 launches {launches} != bucket chunks {ex.chunks_dispatched}")
+    check(k1.launch_count("K1", "wgmma") == launches,
+          f"only {k1.launch_count('K1', 'wgmma')} of K1's {launches} replay "
+          "launches read the uint8 stack as it lies (the rest a padded copy)")
     log(f"[replay] pallas: {wb.n_windows} windows in {sec:.4f} s = "
         f"{wb.n_windows / sec:.4f} windows/s, {n_sgrs / sec:.4f} sgrs/s; "
-        f"K1 launches {launches} = bucket chunks; {len(ex.plan(wb))} buckets; "
-        f"peak device memory {peak / 2**20:.4f} MiB")
+        f"K1 launches {launches} = bucket chunks, every one on the uint8 "
+        f"stack as it lies (route wgmma, no padded copy); "
+        f"{len(ex.plan(wb))} buckets; peak device memory "
+        f"{peak / 2**20:.4f} MiB")
+    routes = {r: k1.launch_count("K1", r) for r in k1.ROUTES}
 
     t0 = time.perf_counter()
     dense = run_sgrapp(wb, alpha0, tier="dense", device=device)
@@ -460,7 +549,7 @@ def phase_replay(stream, wb, nt_w, alpha0, device, ex, n_truth):
     log(f"[replay] sGrapp-x with truths on the first {n_truth} windows "
         f"(oracle {tsec:.4f} s): MAPE on them {res_x.mape():.6f}, alpha "
         f"{alpha0} -> {res_x.alpha_final:.6f}")
-    return res, launches, sec
+    return res, launches, routes
 
 
 def phase_stream(stream, nt_w, alpha0, device, replay, mb: int = 256) -> int:
@@ -480,6 +569,9 @@ def phase_stream(stream, nt_w, alpha0, device, replay, mb: int = 256) -> int:
     sec = time.perf_counter() - t0
     launches = k1.launch_count()
     check(launches > 0 or device.type != "cuda", "the engine never launched K1")
+    check(k1.launch_count("K1", "wgmma") == launches,
+          f"only {k1.launch_count('K1', 'wgmma')} of K1's {launches} stream "
+          "launches read the uint8 stack as it lies (the rest a padded copy)")
     check(np.array_equal(res.window_counts, replay.window_counts),
           "streamed counts differ from the replay")
     check(np.array_equal(res.estimates, replay.estimates),
@@ -487,7 +579,8 @@ def phase_stream(stream, nt_w, alpha0, device, replay, mb: int = 256) -> int:
     log(f"[stream] mb={mb}, flush_every=32, state_dict/restore after "
         f"{half} sgrs ({n_sd} windows): {len(res.estimates)} "
         f"windows bit-identical to the replay; {n} sgrs in {sec:.4f} s = "
-        f"{n / sec:.4f} sgrs/s; K1 launches {launches}")
+        f"{n / sec:.4f} sgrs/s; K1 launches {launches}, every one on the "
+        f"uint8 stack as it lies (route wgmma)")
     return launches
 
 
@@ -977,44 +1070,51 @@ def phase_k3(wb, replay_counts, device) -> dict:
         check(c1 == c2 == replay_counts[k],
               f"window {k}: K3 {c1} / {c2} != replay {replay_counts[k]}")
     launches = kk.launch_count("K3")
+    routes = {r: kk.launch_count("K3", r) for r in kk.ROUTES}
     check(launches == 2 * len(picks) or device.type != "cuda",
           f"K3 launches {launches} != {2 * len(picks)}")
     log(f"[k3] butterfly_count_pallas and butterfly_count_tiles equal the "
-        f"replay on {len(picks)} windows; K3 launches {launches}")
+        f"replay on {len(picks)} windows; K3 launches {launches} (routes "
+        f"{routes}: float32 matrices go through the padded uint8 copy)")
 
     k = int(np.argmax(wb.n_i_per_window * wb.n_j_per_window))
     a = oriented(matrix(k))
     n_g, n_k = a.shape
     block_i = clamp_block_i(256, n_g)
+    kk.reset_launch_count()
     got = kk.butterfly_pairs_kernel_call(a, block_i=block_i)
     want = kk.butterfly_pairs_plain(a, block_i=block_i)
     sync(device)
+    route = "wgmma" if kk.tma_ready(a) else "wgmma_padded"
+    check(device.type != "cuda" or kk.launch_count("K3", route) == 1,
+          f"K3 did not take the route {route}")
     err = float((got - want).abs().max())
     check(torch.equal(got, want), f"K3 != plain (max abs err {err})")
     ms = time_ms(lambda: kk.butterfly_pairs_kernel_call(a, block_i=block_i),
-                 device)
+                 device, reps=20, warmup=2)
     plain_ms = time_ms(lambda: kk.butterfly_pairs_plain(a, block_i=block_i),
                        device)
-
-    def library():
-        w = torch.mm(a, a.T)
-        pairs = w * (w - 1.0) * 0.5
-        return (pairs.sum() - torch.diagonal(pairs).sum()) * 0.5
-
-    library_ms = time_ms(library, device)
-    macs = n_g * (n_g - 1) / 2 * n_k
-    ops_ms = 2 * macs / PEAK_INT8_OPS * 1e3
-    bytes_ms = (a.numel() * 4 + got.numel() * 4) / PEAK_BYTES * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    log(f"[k3] K3 == plain exactly on the largest window ({k}: [{n_g}, "
-        f"{n_k}], block_i={block_i}): K3 {ms:.4f} ms, plain {plain_ms:.4f} "
-        f"ms, torch.mm Gram + epilogue {library_ms:.4f} ms; bound "
-        f"{bound_ms:.4f} ms (operations at the int8 tensor-core peak; bytes "
-        f"{bytes_ms:.4f} ms); {bound_ms / ms:.4%} of the bound")
-    return {"launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+    lib_ms = {}
+    for name, fn in gram_yardsticks(a).items():
+        check(torch.allclose(fn().double(), got.double().sum(), rtol=1e-6,
+                             atol=0),
+              f"the {name} yardstick computes another function than K3")
+        lib_ms[name] = time_ms(fn, device)
+    bound_ms, bound_by, ops = k1_bounds(a[None], got[None])
+    log(f"[k3] K3 == plain exactly on the largest window ({k}: "
+        f"{str(a.dtype).split('.')[-1]} [{n_g}, {n_k}], block_i={block_i}, "
+        f"route {route}): K3 {ms:.4f} ms with its padded copy, plain "
+        f"{plain_ms:.4f} ms; torch.mm Gram + epilogue: float32 "
+        f"{lib_ms['fp32']:.4f} ms, bf16 with float32 output "
+        f"{lib_ms['bf16']:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{ops:.4g} at the int8 tensor-core peak, the float32 matrix read "
+        f"once); {bound_ms / ms:.4%} of the bound, "
+        f"{lib_ms['fp32'] / ms:.4f}x faster than the float32 yardstick and "
+        f"{lib_ms['bf16'] / ms:.4f}x than the bf16 one")
+    return {"launches": launches, "routes": routes, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms["bf16"],
+            "fp32_library_ms": lib_ms["fp32"], "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def phase_profile(stream, wb, nt_w, alpha0, device, ex) -> None:
@@ -1025,6 +1125,8 @@ def phase_profile(stream, wb, nt_w, alpha0, device, ex) -> None:
 
     profile("replay, pallas tier",
             lambda: run_sgrapp(wb, alpha0, executor=ex), device)
+    host_profile("replay, pallas tier",
+                 lambda: run_sgrapp(wb, alpha0, executor=ex), device)
     profile("replay, dense tier", lambda: run_sgrapp(
         wb, alpha0, tier="dense", device=device), device)
     cols = (stream.tau, stream.edge_i, stream.edge_j)
@@ -1033,6 +1135,33 @@ def phase_profile(stream, wb, nt_w, alpha0, device, ex) -> None:
                            device=device)
         profile(f"stream, pallas tier, {policy}, mb=256",
                 lambda: push_engine(cfg, nt_w, alpha0, *cols), device)
+        if policy == "distinct":
+            host_profile(f"stream, pallas tier, {policy}, mb=256",
+                         lambda: push_engine(cfg, nt_w, alpha0, *cols),
+                         device)
+
+
+def host_profile(label: str, fn, device, top: int = 4) -> None:
+    """Where the host time of ``fn`` goes: ``cProfile`` over one call (it
+    sees the numpy and Python work that ``torch.profiler``'s operator list
+    does not) and the ``top`` functions with the most own time."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    sync(device)
+    prof.disable()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: kv[1][2], reverse=True)
+    log(f"[profile] {label}: host functions with the most own time, wall "
+        f"{wall_ms:.4f} ms under cProfile")
+    for (path, line, name), (_, calls, own, _, _) in rows[:top]:
+        where = f"{Path(path).name}:{line}({name})" if line else name
+        log(f"[profile]   host {own * 1e3:12.4f} ms {calls:6d} x  {where[:80]}")
 
 
 def profile(label: str, fn, device, top: int = 8
@@ -1069,43 +1198,70 @@ def profile(label: str, fn, device, top: int = 8
     return wall_ms, busy_ms, by_kernel
 
 
-def k4_build_lines(info) -> list[str]:
-    """One line for each K4 kernel that ``nvcc -Xptxas -v`` compiled:
-    variant, head dims, registers, spills and the dynamic shared memory
-    that the launcher asks for (``flash_attention_smem_bytes``)."""
+def build_lines(info, describe) -> list[str]:
+    """One line for each kernel that ``nvcc -Xptxas -v`` compiled into the
+    library ``info`` and that ``describe`` names: ``describe(info, entry
+    name)`` gives (what it is, its dynamic shared memory in bytes or None),
+    or None to skip it; the line adds its registers and spills.  Any warning of
+    ptxas that it serialized wgmma instructions gets a line of its own."""
     import re
 
-    fn = info.lib.flash_attention_smem_bytes
-    out, name, spills = [], None, ""
+    out, what, spills = [], None, ""
     for line in info.log.splitlines():
+        if "wgmma" in line and "serialized" in line:
+            out.append(f"[setup] ptxas: {line.strip()}")
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1)
+            what = describe(info, m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
             spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
             continue
         m = re.search(r"Used (\d+) registers", line)
-        if m is None or name is None:
+        if m is None or what is None:
             continue
-        w = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", name)
-        f = re.search(r"flash_attention_kernelILi(\d+)E", name)
-        if w:
-            atoms = int(w.group(1))
-            what = (f"bf16 wgmma (TMA, 3-limb P), hd {64 * atoms - 63}-"
-                    f"{64 * atoms} (setmaxnreg: producer 40, consumers 232)",
-                    fn(1, 64 * atoms))
-        elif f:
-            hdp = int(f.group(1))
-            what = (f"float32 SIMT, hd {hdp // 2 + 1 if hdp > 32 else 1}-{hdp}",
-                    fn(0, hdp))
-        else:
-            continue
-        out.append(f"[setup] K4 {what[0]}: {m.group(1)} registers at entry, "
-                   f"{spills}; {what[1]} B of dynamic shared memory")
-        name = None
+        out.append(f"[setup] {what[0]}: {m.group(1)} registers at entry, "
+                   f"{spills}" + ("" if what[1] is None else
+                                  f"; {what[1]} B of dynamic shared memory"))
+        what = None
     return out
+
+
+def butterfly_kernel_name(info, name: str):
+    """``build_lines``' description of a butterfly kernel: K1's wgmma
+    kernel with the shared memory its launcher asks for
+    (``butterfly_windows_wgmma_smem_bytes``), its rounding pass, K2."""
+    if "butterfly_windows_wgmma_kernel" in name:
+        return ("K1/K3 wgmma (u8 operands, s32 accumulators, TMA, "
+                "persistent; setmaxnreg: producer 40, consumers 232)",
+                info.lib.butterfly_windows_wgmma_smem_bytes())
+    if "round_sums_kernel" in name:
+        return "K1/K3 rounding pass (exact sums -> float32)", None
+    if "butterfly_windows_multiset_kernel" in name:
+        return "K2 fp32 SIMT", None
+    return None
+
+
+def k4_kernel_name(info, name: str):
+    """``build_lines``' description of a K4 kernel: variant, head dims and
+    the shared memory its launcher asks for
+    (``flash_attention_smem_bytes``)."""
+    import re
+
+    fn = info.lib.flash_attention_smem_bytes
+    w = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", name)
+    f = re.search(r"flash_attention_kernelILi(\d+)E", name)
+    if w:
+        atoms = int(w.group(1))
+        return (f"K4 bf16 wgmma (TMA, 3-limb P), hd {64 * atoms - 63}-"
+                f"{64 * atoms} (setmaxnreg: producer 40, consumers 232)",
+                fn(1, 64 * atoms))
+    if f:
+        hdp = int(f.group(1))
+        return (f"K4 float32 SIMT, hd {hdp // 2 + 1 if hdp > 32 else 1}-"
+                f"{hdp}", fn(0, hdp))
+    return None
 
 
 def within(got, want, tol: dict) -> tuple[bool, float]:
@@ -1461,9 +1617,9 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
                    "skipped (built earlier from the same sources)"))
             if info.log:
                 log(info.log.rstrip())
-            if what == "K4":
-                for line in k4_build_lines(info):
-                    log(line)
+            for line in build_lines(info, k4_kernel_name if what == "K4"
+                                    else butterfly_kernel_name):
+                log(line)
     t0 = time.perf_counter()
     stream = bipartite_pa_stream(n_sgrs, temporal="uniform",
                                  n_unique=n_unique, seed=seed)
@@ -1486,8 +1642,8 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
 
     ex = WindowExecutor("pallas", device=device)
     kern1 = phase_kernel(wb, device, ex)
-    replay, k1_launches, _ = phase_replay(stream, wb, nt_w, alpha0, device,
-                                          ex, n_truth)
+    replay, k1_launches, k1_routes = phase_replay(stream, wb, nt_w, alpha0,
+                                                  device, ex, n_truth)
     phase_stream(stream, nt_w, alpha0, device, replay)
     seen: dict = {}
     k2_launches = phase_multiset(stream, wins, nt_w, alpha0, device, seen)
@@ -1511,18 +1667,23 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     ref = "src/repro/kernels/butterfly/butterfly_kernel.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    k1_keys = keys + ("fp32_library_ms",)
     return [
-        {"name": "butterfly_windows (K1)", "route": "cuda",
-         "source": src + "butterfly_windows.cu", "replaces": ref + "112",
-         "launches": k1_launches, **{k: kern1[k] for k in keys}},
+        {"name": "butterfly_windows (K1: int8 wgmma tensor cores on u8 "
+                 "operands fed by TMA, persistent triangle schedule, exact "
+                 "integer sums)",
+         "route": "cuda", "source": src + "butterfly_windows_wgmma.cu",
+         "replaces": ref + "112", "launches": k1_launches,
+         "routes": k1_routes,
+         **{k: kern1[k] for k in k1_keys}},
         {"name": "butterfly_windows_multiset (K2)", "route": "cuda",
          "source": src + "butterfly_windows_multiset.cu",
          "replaces": ref + "191", "launches": k2_launches,
          **{k: kern2[k] for k in keys}},
         {"name": "butterfly_pairs (K3: K1's kernel at B = 1)",
-         "route": "cuda", "source": src + "butterfly_windows.cu",
+         "route": "cuda", "source": src + "butterfly_windows_wgmma.cu",
          "replaces": ref + "43", "launches": kern3["launches"],
-         **{k: kern3[k] for k in keys}},
+         "routes": kern3["routes"], **{k: kern3[k] for k in k1_keys}},
         {"name": "flash_attention (K4: bf16 wgmma tensor cores fed by TMA, "
                  "fp32 P as 3 bf16 limbs; float32 inputs on fp32 SIMT)",
          "route": "cuda",

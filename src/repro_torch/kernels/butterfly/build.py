@@ -10,19 +10,22 @@ from pathlib import Path
 
 from ..build import BUILD_DIR, NVCC_FLAGS, BuildInfo, KernelLibrary, load
 
-__all__ = ["BuildInfo", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "ENTRY_POINTS",
-           "LIBRARY", "load_library"]
+__all__ = ["BuildInfo", "CSRC", "BUILD_DIR", "NVCC_FLAGS", "LIBRARY",
+           "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 
-# the C entry points: (device stack, partials, n_windows, n_rows, n_cols,
-# block_i, stream) -> cudaError_t as int
-ENTRY_POINTS = ("butterfly_windows_launch", "butterfly_windows_multiset_launch")
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-
-LIBRARY = KernelLibrary("butterfly", CSRC,
-                        tuple((name, _ARGTYPES) for name in ENTRY_POINTS))
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# butterfly_windows_wgmma_launch (K1 and K3: uint8 stack, uint64 scratch,
+# partials, n_windows, n_rows, row_bytes, block_i, stream) and
+# butterfly_windows_multiset_launch (K2: float32 stack, partials, n_windows,
+# n_rows, n_cols, block_i, stream) -> cudaError_t as int;
+# butterfly_windows_wgmma_smem_bytes () -> K1's dynamic shared memory
+LIBRARY = KernelLibrary("butterfly", CSRC, (
+    ("butterfly_windows_wgmma_launch", (_P, _P, _P, _I, _I, _I, _I, _P)),
+    ("butterfly_windows_wgmma_smem_bytes", ()),
+    ("butterfly_windows_multiset_launch", (_P, _P, _I, _I, _I, _I, _P)),
+))
 
 
 def load_library() -> BuildInfo:

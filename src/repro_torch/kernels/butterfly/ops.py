@@ -39,24 +39,30 @@ def clamp_block_i(block_i: int, n: int) -> int:
 
 def oriented(adjs: torch.Tensor) -> torch.Tensor:
     """The stack the kernels read: ``adjs`` (``[B, n_i, n_j]``, or one
-    ``[n_i, n_j]`` matrix) as contiguous float32 with the smaller side (the
-    Gram side) as rows.  Every window of a bucket shares its capacity, so
+    ``[n_i, n_j]`` matrix) as a contiguous stack with the smaller side (the
+    Gram side) as rows, in uint8 if it is uint8 (K1's 0/1 stacks) and in
+    float32 otherwise.  Every window of a bucket shares its capacity, so
     the transpose decision the per-window reference makes applies
     stack-wide; a transposed stack is copied."""
     a = adjs.transpose(-2, -1) if adjs.shape[-2] > adjs.shape[-1] else adjs
-    return a.to(torch.float32).contiguous()
+    dtype = torch.uint8 if a.dtype == torch.uint8 else torch.float32
+    return a.to(dtype).contiguous()
 
 
 def oriented_biadjacency(edge_i: torch.Tensor, edge_j: torch.Tensor,
                          valid: torch.Tensor, n_i: int,
                          n_j: int) -> torch.Tensor:
-    """Lanes ``[c, cap_e]`` -> the stack :func:`oriented` would make of
-    their ``[c, n_i, n_j]`` biadjacencies, built oriented by the scatter
+    """Lanes ``[c, cap_e]`` -> the uint8 stack :func:`oriented` would make
+    of their ``[c, n_i, n_j]`` biadjacencies, built oriented by the scatter
     itself: a strided transpose copy of a large stack costs a sizeable
-    share of K1's own time."""
+    share of K1's own time.  uint8 is what K1 reads; with the executor's
+    capacities (multiples of ``snap`` or of 64) its rows are a multiple of
+    16 bytes, so K1 reads it through TMA as it lies."""
     if n_i > n_j:
-        return build_biadjacency(edge_j, edge_i, valid, n_j, n_i)
-    return build_biadjacency(edge_i, edge_j, valid, n_i, n_j)
+        return build_biadjacency(edge_j, edge_i, valid, n_j, n_i,
+                                 dtype=torch.uint8)
+    return build_biadjacency(edge_i, edge_j, valid, n_i, n_j,
+                             dtype=torch.uint8)
 
 
 def oriented_biadjacency_multiset(edge_i: torch.Tensor, edge_j: torch.Tensor,
@@ -88,8 +94,10 @@ def butterfly_count_pallas_windows(adjs: torch.Tensor, *,
                                    block_i: int = 256) -> torch.Tensor:
     """Count a ``[B, n_i, n_j]`` stack of 0/1 biadjacencies -> ``[B]``
     float32 counts with ONE launch of K1 on the :func:`oriented` stack, at
-    the tile clamped to its Gram side.  Any dtype is cast to float32 (as the
-    reference kernel casts).  No padding: K1 masks the ragged edge.
+    the tile clamped to its Gram side.  A uint8 stack stays uint8; any other
+    dtype is cast to float32 (as the reference kernel casts), which K1
+    reads through one uint8 copy.  No padding to the tile: K1 masks the
+    ragged edge.
     """
     a = oriented(adjs)
     partials = butterfly_pairs_windows_kernel_call(
@@ -102,8 +110,9 @@ def butterfly_count_pallas_windows_multiset(adjs: torch.Tensor, *,
                                             ) -> torch.Tensor:
     """Multiset twin of :func:`butterfly_count_pallas_windows`: a
     ``[B, n_i, n_j]`` stack of weighted biadjacencies (entries = net edge
-    multiplicities) -> ``[B]`` float32 counts with ONE launch of K2."""
-    a = oriented(adjs)
+    multiplicities) -> ``[B]`` float32 counts with ONE launch of K2 (any
+    dtype is cast to float32)."""
+    a = oriented(adjs).to(torch.float32)
     partials = butterfly_pairs_windows_multiset_kernel_call(
         a, block_i=clamp_block_i(block_i, a.shape[1]))
     return window_sums(partials)

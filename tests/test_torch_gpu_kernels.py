@@ -83,6 +83,92 @@ def test_kernel_rejects_non_contiguous(cuda):
         k1.butterfly_pairs_windows_kernel_call(a, block_i=8)
 
 
+K1_BLOCKS = (1, 8, 64, 96, 256, 300)
+
+
+@pytest.mark.parametrize("block_i", K1_BLOCKS)
+@pytest.mark.parametrize("dtype,route", [
+    (torch.uint8, "wgmma"), (torch.float32, "wgmma_padded")],
+    ids=["uint8", "float32"])
+@pytest.mark.parametrize("b,n,k,density", [
+    (3, 37, 48, 0.3),           # n below 64, k not a multiple of 32
+    (2, 300, 160, 0.1),         # n not a multiple of the 128 x 256 tile
+    (1, 513, 704, 0.05),        # tiles across the diagonal, several slices
+    (5, 40, 0, 0.0),            # empty contraction
+    (2000, 20, 32, 0.3),        # thousands of windows
+])
+def test_k1_equals_plain_exactly_on_both_routes(cuda, block_i, dtype, route,
+                                                b, n, k, density):
+    a = stack(b, n, k, density, seed=n + k).to(dtype).to(cuda)
+    k1.reset_launch_count()
+    got = k1.butterfly_pairs_windows_kernel_call(a, block_i=block_i)
+    torch.cuda.synchronize()
+    assert k1.launch_count("K1", route) == 1 == k1.launch_count("K1")
+    want = k1.butterfly_pairs_windows_plain(a, block_i=block_i)
+    assert got.shape == want.shape == (b, k1.n_tile_pairs(n, block_i))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k", [37, 129, 1000])
+def test_k1_padded_copy_of_odd_uint8_rows(cuda, k):
+    a = stack(2, 150, k, 0.2, seed=k).to(torch.uint8).to(cuda)
+    assert not k1.tma_ready(a)
+    k1.reset_launch_count()
+    got = k1.butterfly_pairs_windows_kernel_call(a, block_i=64)
+    torch.cuda.synchronize()
+    assert k1.launch_count("K1", "wgmma_padded") == 1
+    assert torch.equal(got, k1.butterfly_pairs_windows_plain(a, block_i=64))
+
+
+@pytest.mark.parametrize("block_i", [256, 300])
+def test_k3_at_its_main_shape_equals_plain(cuda, block_i):
+    """One window at about K3's shape on the smoke stream, float32 as the
+    single-matrix entries hand it (the padded copy)."""
+    a = stack(1, 3969, 5389, 0.002, seed=1)[0].to(cuda)
+    k1.reset_launch_count()
+    got = k1.butterfly_pairs_kernel_call(a, block_i=block_i)
+    torch.cuda.synchronize()
+    assert k1.launch_count("K3", "wgmma_padded") == 1
+    assert k1.launch_count("K1") == 0
+    assert torch.equal(got, k1.butterfly_pairs_plain(a, block_i=block_i))
+
+
+def test_k1_past_2_24_exact_and_within_1e5_of_float64(cuda):
+    a = stack(2, 512, 2048, 0.3, seed=7).to(torch.uint8).to(cuda)
+    got = k1.butterfly_pairs_windows_kernel_call(a, block_i=256)
+    want = k1.butterfly_pairs_windows_plain(a, block_i=256)
+    want64 = k1.butterfly_pairs_windows_plain(a, block_i=256,
+                                              dtype=torch.float64)
+    assert float(want64.max()) > 2**24
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got.double(), want64, rtol=1e-5, atol=0)
+
+
+def test_k1_window_partials_do_not_depend_on_the_stack(cuda):
+    a = stack(6, 400, 512, 0.4, seed=3).to(torch.uint8).to(cuda)
+    whole = k1.butterfly_pairs_windows_kernel_call(a, block_i=96)
+    assert float(whole.max()) > 2**24
+    for lo, hi in ((0, 1), (2, 5), (5, 6)):
+        part = k1.butterfly_pairs_windows_kernel_call(a[lo:hi], block_i=96)
+        assert torch.equal(part, whole[lo:hi])
+
+
+def test_k1_rejects_what_it_does_not_take(cuda):
+    k1.reset_launch_count()
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.butterfly_pairs_windows_kernel_call(
+            torch.zeros((2, 32, 20), dtype=torch.uint8,
+                        device=cuda).transpose(1, 2), block_i=8)
+    with pytest.raises(ValueError, match="limits"):
+        k1.butterfly_pairs_windows_kernel_call(
+            torch.zeros((65536, 1, 16), dtype=torch.uint8, device=cuda),
+            block_i=8)
+    with pytest.raises(ValueError, match="uint8 or float32"):
+        k1.butterfly_pairs_windows_kernel_call(
+            torch.zeros((1, 8, 16), dtype=torch.int8, device=cuda), block_i=8)
+    assert k1.launch_count("K1") == 0
+
+
 def test_ops_counts_equal_oracle(cuda):
     a = stack(3, 70, 45, 0.2, seed=3)
     got = butterfly_count_pallas_windows(a.to(cuda), block_i=16).cpu()
