@@ -30,14 +30,18 @@ just after):
    once): on adversarial shapes as float32 (through the padded uint8 copy)
    and as uint8 (as it lies where its rows allow), on a dense uint8 stack
    whose sums pass 2**24 (also within rtol 1e-5 of float64) and on the
-   replay's own uint8 bucket stacks; K2 against its float64 plain
-   version on adversarial shapes with multiplicities <= 8 (exact) and on
-   the largest stack the multiset engine handed K2 in phase 4 (rtol
-   ``RTOL_K2``; this check runs after phase 4); each kernel's time beside
-   its plain version, its library yardsticks (never called by the port:
-   for K1 a float32 and a bf16 ``torch.bmm`` Gram with float32 output,
-   each checked to compute the same function; for K2 float32 ``torch.bmm``)
-   and the least time the card could take;
+   replay's own uint8 bucket stacks; K2 against its plain version with
+   ``torch.equal`` (both compute the Grams exactly, apply the reference's
+   float32 epilogue per entry and sum exactly) on adversarial shapes with
+   multiplicities <= 8 (also equal to the float64 plain version) and on
+   the largest uint8 limb stack the multiset engine handed K2 in phase 4
+   (also within ``RTOL_K2`` of float64; this check runs after phase 4),
+   with the limbs that stack's windows need and its overflow margin; each
+   kernel's time beside its plain version, its library yardsticks (never
+   called by the port: for K1 a float32 and a bf16 ``torch.bmm`` Gram with
+   float32 output, each checked to compute the same function; for K2 two
+   float32 ``torch.bmm`` Grams) and the least time the card could take (for
+   K2 from the limb products each pair of 64-row blocks needs);
 2. replay: ``pallas`` equals ``dense`` on every window and the numpy oracle
    on every 10th, K1 ran once per bucket chunk, each time on the uint8
    stack as it lies (no padded copy), the peak device memory, and sGrapp-x
@@ -46,7 +50,8 @@ just after):
    bit, across a ``state_dict`` / ``restore`` at the midpoint; every K1
    launch read its stack as it lies;
 4. multiset: the smoke stream through ``StreamingSGrapp(dup_policy=
-   "multiset")`` on ``pallas`` (K2) at mb=256 across a restore equals
+   "multiset")`` on ``pallas`` (K2, every launch on the scatter's limb
+   stack as it lies) at mb=256 across a restore equals
    ``pallas`` at mb = the whole stream bit for bit; ``dense`` and ``pallas``
    agree within ``RTOL_MULTISET``, and so does each with the int64 oracle
    on every 10th window of ``replay_dynamic``'s replay of the stream;
@@ -98,7 +103,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import math
 import subprocess
 import sys
 import time
@@ -110,10 +114,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the int8 tensor-core rate is
-# the bound for K1's 0/1 operands, exact there (K1 runs on it); fp32 SIMT
-# is the rate K2 and K4's float32 variant run at
+# the bound for K1's 0/1 operands and K2's uint8 limbs, exact there (both
+# run on it); fp32 SIMT is the rate K4's float32 variant runs at
 PEAK_INT8_OPS = 1979e12
-PEAK_FP16_OPS = 989e12
 PEAK_BF16_OPS = 989e12
 PEAK_FP32_SIMT = 67e12
 PEAK_BYTES = 3.35e12
@@ -121,8 +124,8 @@ PEAK_BYTES = 3.35e12
 # K2 against its float64 plain version on the largest stack the multiset
 # engine hands it, per window count: the W^2 - S cancellation leaves the
 # float32 rounding of both terms in the count.  Measured 1.07653e-06 at
-# [11, 3776, 5056] on an H100 (PERF.md, PR 12); the bound leaves a factor
-# of about 9.
+# [11, 3776, 5056] on an H100 with the earlier fp32 SIMT K2 (PERF.md); the
+# bound leaves a factor of about 9.
 RTOL_K2 = 1e-5
 # multiset counts of one window from two float32 tiers, or from a float32
 # tier and the int64 oracle, on the smoke stream.  Measured on an H100: K2
@@ -584,46 +587,66 @@ def phase_stream(stream, nt_w, alpha0, device, replay, mb: int = 256) -> int:
     return launches
 
 
-def exact_op_time(max_value: float, depth: int) -> tuple[float, str]:
-    """Seconds per operation at the fastest H100 rate that multiplies
-    integer operands up to ``max_value`` exactly over a contraction of
-    ``depth``: fp16 tensor cores (11-bit significand) up to 2,048, int8
-    tensor cores on 7-bit limbs (``L`` limbs cost ``L**2`` products, each
-    summed exactly in int32 while ``127**2 * depth < 2**31``), or the fp32
-    SIMT units, whichever is quickest."""
-    options = [(1 / PEAK_FP32_SIMT, "fp32 SIMT")]
-    if max_value <= 2048:
-        options.append((1 / PEAK_FP16_OPS, "fp16 tensor cores"))
-    if 127 ** 2 * depth < 2 ** 31:
-        limbs = max(1, math.ceil(math.log2(max_value + 1) / 7))
-        options.append((limbs ** 2 / PEAK_INT8_OPS, "int8 tensor cores" + (
-            f" on {limbs} 7-bit limbs ({limbs ** 2} limb products)"
-            if limbs > 1 else "")))
-    return min(options)
+def k2_bounds(planes, masks, lw, out) -> tuple[float, str, float, float]:
+    """The least time an H100 could take for K2's work on the limb planes
+    ``planes`` (``[B, lw + ls, n_g, k]``) with block masks ``masks``
+    (``[B, ceil(n_g / 64)]``) and partials ``out``: (bound ms, "bytes" or
+    "operations", operations, the share of all limb products that the data
+    needs).  Operations: for each window and each pair of 64-row blocks of
+    its strict upper triangle, the limb products whose planes hold a
+    nonzero byte in both blocks (u8 ``wgmma`` takes 8-bit limbs, each
+    product exact in s32; a product of a zero block is no work), at the
+    int8 tensor-core peak.  Bytes: the planes and masks read once, the
+    partials written once."""
+    import torch
+
+    from repro_torch.core.butterfly import MASK_ROWS
+
+    bsz, n_planes, n_g, n_k = planes.shape
+    n_blocks = masks.shape[1]
+    bits = (masks.cpu().long()[..., None] >> torch.arange(n_planes)) & 1
+    nw = bits[..., :lw].sum(dim=-1).double()
+    ns = bits[..., lw:].sum(dim=-1).double()
+    rows = torch.full((n_blocks,), float(MASK_ROWS), dtype=torch.float64)
+    rows[-1] = n_g - MASK_ROWS * (n_blocks - 1)
+    pairs = (torch.outer(rows, rows).triu(1)
+             + torch.diag(rows * (rows - 1) / 2))
+    need = (nw[:, :, None] * nw[:, None, :]
+            + ns[:, :, None] * ns[:, None, :])
+    macs = float((need * pairs).sum()) * n_k
+    every = float(pairs.sum()) * bsz * (lw ** 2 + (n_planes - lw) ** 2) * n_k
+    ops = 2 * macs
+    ops_ms = ops / PEAK_INT8_OPS * 1e3
+    bytes_ms = (planes.numel() + masks.numel() * 4
+                + out.numel() * out.element_size()) / PEAK_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops,
+            macs / every if every else 0.0)
 
 
 @contextlib.contextmanager
 def largest_k2_stack(seen: dict):
-    """While open, keep a copy of the largest stack (by K2's work,
-    ``B * n_g**2 * n_k``) that the pallas tier hands its multiset entry,
-    with its ``block_i``, in ``seen``; ``seen["stacks"]`` counts them."""
+    """While open, keep a copy of the largest limb stack (by K2's work,
+    ``B * n_g**2 * n_k``) that the pallas tier hands K2, with its block
+    masks, ``lw`` and ``block_i``, in ``seen``; ``seen["stacks"]`` counts
+    them."""
     from repro_torch.kernels.butterfly import ops
 
-    entry = ops.butterfly_count_pallas_windows_multiset
+    entry = ops.butterfly_count_pallas_windows_multiset_limbs
 
-    def recording(adjs, *, block_i=256):
-        n_g, n_k = sorted(adjs.shape[1:])
-        work = adjs.shape[0] * n_g * n_g * n_k
+    def recording(planes, masks, *, lw, block_i=256):
+        work = planes.shape[0] * planes.shape[2] ** 2 * planes.shape[3]
         seen["stacks"] = seen.get("stacks", 0) + 1
         if work > seen.get("work", -1):
-            seen.update(work=work, adjs=adjs.clone(), block_i=block_i)
-        return entry(adjs, block_i=block_i)
+            seen.update(work=work, planes=planes.clone(), masks=masks.clone(),
+                        lw=lw, block_i=block_i)
+        return entry(planes, masks, lw=lw, block_i=block_i)
 
-    ops.butterfly_count_pallas_windows_multiset = recording
+    ops.butterfly_count_pallas_windows_multiset_limbs = recording
     try:
         yield seen
     finally:
-        ops.butterfly_count_pallas_windows_multiset = entry
+        ops.butterfly_count_pallas_windows_multiset_limbs = entry
 
 
 def gram_envelope(adj) -> tuple[float, float, float]:
@@ -644,21 +667,26 @@ def gram_envelope(adj) -> tuple[float, float, float]:
 
 
 def phase_kernel_k2(seen, device) -> dict:
-    """Phase 1 for K2: exact on adversarial shapes with multiplicities <= 8,
-    within RTOL_K2 on the largest stack the multiset engine handed K2 in
-    phase 4 (``seen``, from :func:`largest_k2_stack`), then its time
+    """Phase 1 for K2: equal to its plain version bit for bit and, below
+    2**24, to the float64 plain version on adversarial shapes with
+    multiplicities <= 8 (through the float32 entry, route
+    ``wgmma_limbs_copy``); equal to its plain version bit for bit and
+    within RTOL_K2 of the float64 one on the largest limb stack the
+    multiset engine handed K2 in phase 4 (``seen``, from
+    :func:`largest_k2_stack`, route ``wgmma_limbs``), then its time
     there."""
     import torch
 
-    from repro_torch.core.butterfly import full_fp32_matmul
-    from repro_torch.kernels.butterfly import butterfly_kernel as kk
-    from repro_torch.kernels.butterfly.ops import (
-        clamp_block_i,
-        oriented,
-        window_sums,
+    from repro_torch.core.butterfly import (
+        full_fp32_matmul,
+        join_limbs,
+        limb_block_masks,
     )
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.kernels.butterfly.ops import clamp_block_i, window_sums
 
     max_err = 0.0
+    cuda = device.type == "cuda"
     gen = torch.Generator().manual_seed(13)
     rng = np.random.default_rng(13)
 
@@ -687,54 +715,88 @@ def phase_kernel_k2(seen, device) -> dict:
     for what, a in cases.items():
         for block_i in (8, 64, 256):
             bi = clamp_block_i(block_i, a.shape[1])
-            want = kk.butterfly_pairs_windows_multiset_plain(
+            want64 = kk.butterfly_pairs_windows_multiset_plain(
                 a, block_i=bi, dtype=torch.float64)
-            check(want.numel() == 0 or float(want.abs().max()) < 2**24,
+            check(want64.numel() == 0 or float(want64.abs().max()) < 2**24,
                   f"K2 case {what} passes 2**24: not an exactness case")
+            kk.reset_launch_count()
             got = kk.butterfly_pairs_windows_multiset_kernel_call(a,
                                                                   block_i=bi)
+            want = kk.butterfly_pairs_windows_multiset_plain(a, block_i=bi)
             sync(device)
-            err = (float((got.double() - want).abs().max())
+            err = (float((got.double() - want64).abs().max())
                    if got.numel() else 0.0)
             max_err = max(max_err, err)
-            check(torch.equal(got.double(), want),
+            check(torch.equal(got, want),
+                  f"K2 != plain on {what} (block_i={bi})")
+            check(torch.equal(got.double(), want64),
                   f"K2 != float64 plain on {what} (block_i={bi}, max abs "
                   f"err {err})")
+            check(not cuda or got.numel() == 0
+                  or kk.launch_count("K2", "wgmma_limbs_copy") == 1,
+                  f"K2 on {what} did not take the route wgmma_limbs_copy")
     log(f"[kernel] K2 (a) adversarial shapes, multiplicities <= 8, every "
-        f"partial below 2**24: K2 == float64 plain exactly ({len(cases)} "
-        f"stacks x 3 tile sizes)")
+        f"partial below 2**24: K2 == plain and == float64 plain exactly "
+        f"({len(cases)} float32 stacks x 3 tile sizes, each through one "
+        f"limb split, route wgmma_limbs_copy)")
 
-    # (b) the largest stack the engine handed K2 in phase 4's counted run,
-    # at the tile the pallas tier clamps it to
-    adjs = oriented(seen["adjs"])
-    bsz, n_g, n_k = adjs.shape
+    # (b) the largest limb stack the engine handed K2 in phase 4's counted
+    # run, at the tile the pallas tier clamps it to
+    planes, masks, lw = seen["planes"], seen["masks"], seen["lw"]
+    bsz, n_planes, n_g, n_k = planes.shape
     block_i = clamp_block_i(seen["block_i"], n_g)
-    got = kk.butterfly_pairs_windows_multiset_kernel_call(adjs,
-                                                          block_i=block_i)
-    want = kk.butterfly_pairs_windows_multiset_plain(adjs, block_i=block_i,
-                                                     dtype=torch.float64)
+    check(torch.equal(masks, limb_block_masks(planes)),
+          "the scatter's block masks differ from the planes' own")
+    kk.reset_launch_count()
+    got = kk.butterfly_pairs_windows_multiset_limbs_call(
+        planes, masks, lw=lw, block_i=block_i)
     sync(device)
-    counts, want_counts = window_sums(got).double(), want.sum(dim=1)
-    rel = float(((counts - want_counts).abs()
+    check(not cuda or kk.launch_count("K2", "wgmma_limbs") == 1,
+          "K2 on the engine's limb stack did not take the route wgmma_limbs")
+    want = kk.butterfly_pairs_windows_multiset_plain(planes, block_i=block_i,
+                                                     lw=lw)
+    check(torch.equal(got, want),
+          f"K2 != plain on the engine's largest limb stack (max abs err "
+          f"{float((got - want).abs().max())})")
+    adjs = join_limbs(planes, lw).to(torch.float32)
+    want64 = kk.butterfly_pairs_windows_multiset_plain(adjs, block_i=block_i,
+                                                       dtype=torch.float64)
+    counts64, want_counts = window_sums(got).double(), want64.sum(dim=1)
+    rel = float(((counts64 - want_counts).abs()
                  / want_counts.abs().clamp_min(1.0)).max())
-    prel = float(((got.double() - want).abs()
-                  / want.abs().clamp_min(1.0)).max())
-    max_err = max(max_err, float((got.double() - want).abs().max()))
-    max_mult = float(adjs.max())
-    log(f"[kernel] K2 (b) the largest of the {seen['stacks']} stacks the "
-        f"multiset engine handed K2 in phase 4 (stack [{bsz}, {n_g}, {n_k}], "
-        f"block_i={block_i}, "
-        f"multiplicities up to {max_mult:.0f}): window counts up to "
+    prel = float(((got.double() - want64).abs()
+                  / want64.abs().clamp_min(1.0)).max())
+    max_err = max(max_err, float((got.double() - want64).abs().max()))
+    max_mult = int(adjs.max())
+    vsq = kk.vertex_sq(adjs)
+    hist = {}
+    for window in masks.cpu().tolist():
+        seen_planes = 0
+        for m in window:
+            seen_planes |= m
+        limbs = ((seen_planes & ((1 << lw) - 1)).bit_length(),
+                 (seen_planes >> lw).bit_length())
+        hist[limbs] = hist.get(limbs, 0) + 1
+    hist_s = ", ".join(f"(lw {a}, ls {b}): {c}" for (a, b), c in
+                       sorted(hist.items()))
+    log(f"[kernel] K2 (b) the largest of the {seen['stacks']} limb stacks "
+        f"the multiset engine handed K2 in phase 4 (planes [{bsz}, "
+        f"{n_planes}, {n_g}, {n_k}] uint8, lw={lw}, ls={n_planes - lw}, "
+        f"block_i={block_i}, multiplicities up to {max_mult}; windows by "
+        f"the limbs they need: {hist_s}; overflow margin: largest sum of "
+        f"squared multiplicities at one vertex {vsq} of the "
+        f"{kk.MAX_VERTEX_SQ} K2 takes, {vsq / kk.MAX_VERTEX_SQ:.6%}): K2 == "
+        f"plain bit for bit (route wgmma_limbs); window counts up to "
         f"{float(want_counts.max()):.6g}, partials up to "
-        f"{float(want.max()):.6g}; K2 vs float64 plain: max rel err "
+        f"{float(want64.max()):.6g}; K2 vs float64 plain: max rel err "
         f"{rel:.6g} per window count (bound {RTOL_K2}), {prel:.6g} per "
         f"partial")
     check(rel <= RTOL_K2, f"K2 vs float64 plain: rel err {rel} > {RTOL_K2}")
 
-    ms = time_ms(lambda: kk.butterfly_pairs_windows_multiset_kernel_call(
-        adjs, block_i=block_i), device)
+    ms = time_ms(lambda: kk.butterfly_pairs_windows_multiset_limbs_call(
+        planes, masks, lw=lw, block_i=block_i), device, reps=10, warmup=2)
     plain_ms = time_ms(lambda: kk.butterfly_pairs_windows_multiset_plain(
-        adjs, block_i=block_i), device)
+        planes, block_i=block_i, lw=lw), device, reps=2)
 
     def library():
         with full_fp32_matmul():
@@ -750,27 +812,33 @@ def phase_kernel_k2(seen, device) -> dict:
                      / want_counts.abs().clamp_min(1.0)).max())
     check(lib_rel <= RTOL_MULTISET,
           f"the bmm yardstick is {lib_rel} off the float64 counts")
-    t = kk.n_tile_pairs(n_g, block_i)
-    macs = bsz * n_g * (n_g - 1) / 2 * n_k      # per Gram, strict upper
-    op_w, unit_w = exact_op_time(max_mult, n_k)
-    op_s, unit_s = exact_op_time(max_mult ** 2, n_k)
-    ops_ms = 2 * macs * (op_w + op_s) * 1e3
-    bytes_ms = (adjs.numel() * 4 + bsz * t * 4) / PEAK_BYTES * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    simt_ms = 4 * macs / PEAK_FP32_SIMT * 1e3
+    bound_ms, bound_by, ops, share = k2_bounds(planes, masks, lw, got)
     log(f"[kernel] K2 timing there: K2 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.bmm Grams + epilogue {library_ms:.4f} ms (max rel err "
-        f"{lib_rel:.6g} vs float64); bound {bound_ms:.4f} ms (operations: "
-        f"{4 * macs:.4g} in two Gram triangles, W on {unit_w} for "
-        f"multiplicities up to {max_mult:.0f}, S on {unit_s} for their "
-        f"squares up to {max_mult ** 2:.0f}; bytes {bytes_ms:.4f} ms; both "
-        f"Grams at the fp32 SIMT peak {simt_ms:.4f} ms); K2 at "
-        f"{bound_ms / ms:.4%} of the bound, {simt_ms / ms:.2%} of fp32 SIMT "
-        f"peak")
+        f"two float32 torch.bmm Grams + epilogue {library_ms:.4f} ms (max "
+        f"rel err {lib_rel:.6g} vs float64; K2 {library_ms / ms:.4f}x "
+        f"faster); bound {bound_ms:.4f} ms ({bound_by}: {ops:.4g} int8 "
+        f"operations at the int8 tensor-core peak, the limb products each "
+        f"pair of 64-row blocks needs: {share:.4%} of all {lw}**2 + "
+        f"{n_planes - lw}**2 in every pair); K2 at {bound_ms / ms:.4%} of "
+        f"the bound")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "rel": rel}
+            "bound_by": bound_by, "rel": rel}
+
+
+def max_vertex_sq(wins) -> int:
+    """The largest sum of squared multiplicities at one vertex (either
+    side) over ``replay_dynamic``'s windows: what K2's overflow guard
+    (``check_no_wrap``) holds to its limit."""
+    top = 0
+    for w in wins:
+        if len(w.mult) == 0:
+            continue
+        sq = w.mult.astype(np.int64) ** 2
+        for side in (0, 1):
+            _, inv = np.unique(w.edges[:, side], return_inverse=True)
+            top = max(top, int(np.bincount(inv, weights=sq).max()))
+    return top
 
 
 def phase_multiset(stream, wins, nt_w, alpha0, device,
@@ -788,6 +856,7 @@ def phase_multiset(stream, wins, nt_w, alpha0, device,
 
     n = len(stream)
     cols = (stream.tau, stream.edge_i, stream.edge_j)
+    margin = max_vertex_sq(wins)
     pallas = EngineConfig(tier="pallas", dup_policy="multiset",
                           flush_every=32, device=device)
     kk.reset_launch_count()
@@ -800,12 +869,18 @@ def phase_multiset(stream, wins, nt_w, alpha0, device,
     launches = kk.launch_count("K2")
     check(launches > 0 or device.type != "cuda",
           "the multiset engine never launched K2")
+    check(kk.launch_count("K2", "wgmma_limbs") == launches,
+          "a K2 launch of the multiset engine did not read the scatter's "
+          "limb stack as it lies")
     check(kk.launch_count("K1") == 0, "the multiset engine launched K1")
     check(len(res.window_counts) == len(wins), "multiset window count")
     log(f"[multiset] pallas (K2), mb=256, flush_every=32, state_dict/"
         f"restore after {half} sgrs ({n_sd} windows): {len(wins)} windows, "
         f"{n} sgrs in {sec:.4f} s = {n / sec:.4f} sgrs/s; K2 launches "
-        f"{launches}")
+        f"{launches}, every one on the scatter's limb stack as it lies "
+        f"(route wgmma_limbs); largest sum of squared multiplicities at one "
+        f"vertex {margin} of the {kk.MAX_VERTEX_SQ} K2 takes "
+        f"({margin / kk.MAX_VERTEX_SQ:.6%})")
     t0 = time.perf_counter()
     _, whole, _, _ = push_engine(pallas, nt_w, alpha0, *cols, mb=n)
     sync(device)
@@ -922,8 +997,11 @@ def phase_dynamic(device, *, n_records, nt_w, n_ids, seed, alpha0) -> dict:
               f"window {k}: distinct edge set differs")
         check(m == ow.n_sgrs and end == ow.end_tau,
               f"window {k}: n_sgrs or end_tau differ")
+    margin = max_vertex_sq(oracle)
     log(f"[dynamic] the engine's windows (edges, multiplicities, n_sgrs, "
-        f"end_tau) equal replay_dynamic's on all {len(oracle)} windows")
+        f"end_tau) equal replay_dynamic's on all {len(oracle)} windows; "
+        f"largest sum of squared multiplicities at one vertex {margin} of "
+        f"the {kk.MAX_VERTEX_SQ} K2 takes ({margin / kk.MAX_VERTEX_SQ:.6%})")
 
     launches = {}
     for policy, kernel in (("distinct", "K1"), ("multiset", "K2")):
@@ -1229,17 +1307,22 @@ def build_lines(info, describe) -> list[str]:
 
 
 def butterfly_kernel_name(info, name: str):
-    """``build_lines``' description of a butterfly kernel: K1's wgmma
-    kernel with the shared memory its launcher asks for
-    (``butterfly_windows_wgmma_smem_bytes``), its rounding pass, K2."""
+    """``build_lines``' description of a butterfly kernel: K1's and K2's
+    wgmma kernels with the shared memory their launchers ask for
+    (``*_smem_bytes``) and their rounding passes."""
     if "butterfly_windows_wgmma_kernel" in name:
         return ("K1/K3 wgmma (u8 operands, s32 accumulators, TMA, "
                 "persistent; setmaxnreg: producer 40, consumers 232)",
                 info.lib.butterfly_windows_wgmma_smem_bytes())
     if "round_sums_kernel" in name:
         return "K1/K3 rounding pass (exact sums -> float32)", None
-    if "butterfly_windows_multiset_kernel" in name:
-        return "K2 fp32 SIMT", None
+    if "butterfly_windows_multiset_wgmma_kernel" in name:
+        return ("K2 wgmma (u8 limb operands, s32 accumulators folded into "
+                "64-bit totals, TMA, persistent; setmaxnreg: producer 40, "
+                "consumers 232)",
+                info.lib.butterfly_windows_multiset_wgmma_smem_bytes())
+    if "round_half_sums_kernel" in name:
+        return "K2 rounding pass (exact split sums -> float32, halved)", None
     return None
 
 
@@ -1676,9 +1759,13 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
          "replaces": ref + "112", "launches": k1_launches,
          "routes": k1_routes,
          **{k: kern1[k] for k in k1_keys}},
-        {"name": "butterfly_windows_multiset (K2)", "route": "cuda",
-         "source": src + "butterfly_windows_multiset.cu",
+        {"name": "butterfly_windows_multiset (K2: int8 wgmma tensor cores "
+                 "on u8 limb planes of the multiplicities fed by TMA, "
+                 "persistent triangle schedule, exact Grams and sums)",
+         "route": "cuda",
+         "source": src + "butterfly_windows_multiset_wgmma.cu",
          "replaces": ref + "191", "launches": k2_launches,
+         "routes": {"wgmma_limbs": k2_launches},
          **{k: kern2[k] for k in keys}},
         {"name": "butterfly_pairs (K3: K1's kernel at B = 1)",
          "route": "cuda", "source": src + "butterfly_windows_wgmma.cu",

@@ -54,6 +54,12 @@ __all__ = [
     "window_wedge_counts_np",
     "build_biadjacency",
     "build_biadjacency_multiset",
+    "build_biadjacency_limbs",
+    "limb_block_masks",
+    "MASK_ROWS",
+    "n_limbs",
+    "split_limbs",
+    "join_limbs",
     "count_butterflies_dense",
     "count_butterflies_dense_multiset",
     "count_butterflies_from_edges",
@@ -318,6 +324,130 @@ def build_biadjacency_multiset(
     buf.index_add_(0, flat.reshape(-1), w.reshape(-1))
     adj = buf[:-1].view(n_win, n_i, n_j)
     return adj[0] if single else adj
+
+
+def n_limbs(max_value: int) -> int:
+    """How many uint8 limbs (base-256 digits) hold every non-negative
+    integer up to ``max_value``: ``ceil(bits(max_value) / 8)``, 0 for 0."""
+    return -(-int(max_value).bit_length() // 8)
+
+
+def _limbs(m: torch.Tensor, lw: int, ls: int):
+    """``(plane, limb)`` for the limbs of the int64 multiplicities ``m``:
+    planes ``0 .. lw - 1`` hold the base-256 digits of ``m``, planes
+    ``lw .. lw + ls - 1`` those of ``m * m``; each limb is int64 in
+    ``[0, 256)``."""
+    x = m * m
+    for p in range(lw):
+        yield p, (m >> (8 * p)) & 255
+    for p in range(ls):
+        yield lw + p, (x >> (8 * p)) & 255
+
+
+def _row_bytes(n_j: int) -> int:
+    """Row length of a limb plane: ``n_j`` rounded up to 16 bytes, the row
+    stride TMA takes (the executor's capacities already are)."""
+    return -(-n_j // 16) * 16
+
+
+# rows per block of the limb masks: K2's TMA box height
+# (kBoxRows in kernels/butterfly/csrc/butterfly_windows_multiset_wgmma.cu)
+MASK_ROWS = 64
+
+
+def build_biadjacency_limbs(
+    edge_i: torch.Tensor,
+    edge_j: torch.Tensor,
+    mult: torch.Tensor,
+    valid: torch.Tensor,
+    n_i: int,
+    n_j: int,
+    lw: int,
+    ls: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter padded (edge, multiplicity) lanes straight into the uint8
+    limb planes of the weighted biadjacency and their block masks.
+
+    Planes: ``[B, lw + ls, n_i, k]`` (``[lw + ls, n_i, k]`` for one window),
+    ``k = n_j`` rounded up to 16, zero past ``n_j``.  Plane ``p < lw`` is
+    digit ``p`` (base 256) of ``A[u, j] = mult(u, j)``, plane ``lw + p``
+    digit ``p`` of ``A[u, j]^2``, so ``A = sum_p 256^p a_p`` exactly while
+    every multiplicity is below ``256^lw`` and its square below ``256^ls``
+    (:func:`n_limbs`).  Masks: ``[B, ceil(n_i / 64)]`` int32 (``[...]`` for
+    one window), bit ``P`` set where plane ``P`` holds a nonzero byte in
+    those 64 rows, as :func:`limb_block_masks` computes from the planes.
+
+    The lanes of a window must name distinct edges, as the engine resolves
+    them (net multiplicities at window close): each lane stores its limbs,
+    so a repeated lane is not added as :func:`build_biadjacency_multiset`
+    adds it.  Invalid lanes and ids out of range are dropped, as there.
+    """
+    single = edge_i.dim() == 1
+    _, ok, n_win, _ = _flat_slots(edge_i, edge_j, valid, n_i, n_j)
+    ei = edge_i.reshape(ok.shape).long()
+    ej = edge_j.reshape(ok.shape).long()
+    m = torch.where(ok, mult.reshape(ok.shape).long(),
+                    torch.zeros((), dtype=torch.long, device=ok.device))
+    k = _row_bytes(n_j)
+    plane = n_i * k
+    n_planes = lw + ls
+    size = n_win * n_planes * plane
+    win = torch.arange(n_win, device=ok.device).unsqueeze(1)
+    slot = torch.where(ok, win * (n_planes * plane) + ei * k + ej, size)
+    buf = torch.zeros(size + 1, dtype=torch.uint8, device=ok.device)
+    n_blocks = -(-n_i // MASK_ROWS)
+    flags_size = n_win * n_blocks * n_planes
+    block = (win * n_blocks + ei // MASK_ROWS) * n_planes
+    flags = torch.zeros(flags_size + 1, dtype=torch.int32, device=ok.device)
+    for p, limb in _limbs(m, lw, ls):
+        buf[torch.where(ok, slot + p * plane, size).reshape(-1)] = (
+            limb.reshape(-1).to(torch.uint8))
+        flags[torch.where(ok & (limb != 0), block + p, flags_size)] = 1
+    planes = buf[:-1].view(n_win, n_planes, n_i, k)
+    masks = _pack_bits(flags[:-1].view(n_win, n_blocks, n_planes))
+    return (planes[0], masks[0]) if single else (planes, masks)
+
+
+def _pack_bits(flags: torch.Tensor) -> torch.Tensor:
+    """``[..., P]`` 0/1 -> ``[...]`` int32 with bit ``p`` = ``flags[..., p]``."""
+    bits = torch.arange(flags.shape[-1], device=flags.device, dtype=torch.int32)
+    return (flags.to(torch.int32) << bits).sum(dim=-1).to(torch.int32)
+
+
+def limb_block_masks(planes: torch.Tensor) -> torch.Tensor:
+    """``[B, P, n, k]`` limb planes -> ``[B, ceil(n / 64)]`` int32 masks:
+    bit ``p`` set where plane ``p`` holds a nonzero byte in those 64
+    rows."""
+    b, n_planes, n, _ = planes.shape
+    n_blocks = -(-n // MASK_ROWS)
+    nz = torch.zeros((b, n_planes, n_blocks * MASK_ROWS), dtype=torch.int32,
+                     device=planes.device)
+    nz[..., :n] = planes.ne(0).any(dim=-1) if planes.shape[-1] else 0
+    flags = nz.view(b, n_planes, n_blocks, MASK_ROWS).amax(dim=-1)
+    return _pack_bits(flags.transpose(1, 2))
+
+
+def split_limbs(adjs: torch.Tensor, lw: int, ls: int) -> torch.Tensor:
+    """A ``[B, n, n_k]`` stack of non-negative integer multiplicities (any
+    dtype that holds them exactly) -> its ``[B, lw + ls, n, k]`` uint8 limb
+    planes, laid out as :func:`build_biadjacency_limbs` lays them out."""
+    b, n, n_k = adjs.shape
+    m = adjs.to(torch.int64)
+    out = torch.zeros((b, lw + ls, n, _row_bytes(n_k)), dtype=torch.uint8,
+                      device=adjs.device)
+    for p, limb in _limbs(m, lw, ls):
+        out[:, p, :, :n_k] = limb
+    return out
+
+
+def join_limbs(planes: torch.Tensor, lw: int) -> torch.Tensor:
+    """``[B, lw + ls, n, k]`` limb planes -> the ``[B, n, k]`` int64
+    multiplicities they hold (planes ``0 .. lw - 1``)."""
+    m = torch.zeros(planes.shape[:1] + planes.shape[2:], dtype=torch.int64,
+                    device=planes.device)
+    for p in range(lw):
+        m += planes[:, p].to(torch.int64) << (8 * p)
+    return m
 
 
 def _gram_side(adj: torch.Tensor) -> torch.Tensor:

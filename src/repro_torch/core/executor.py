@@ -24,9 +24,9 @@ butterfly count.  As in ``repro.core.executor``, the executor
    dense     torch scatter + batched ``torch.matmul`` Gram, float32
    tiled     the Gram in row-block pairs (``count_butterflies_tiled``)
    pallas    the hand-written CUDA kernels (``repro_torch.kernels.
-             butterfly``): K1, or K2 for multiset batches, one launch per
-             bucket chunk; the name is the reference's, so configs and
-             checkpoints map one to one
+             butterfly``): K1, or K2 on the lanes' uint8 limb planes for
+             multiset batches, one launch per bucket chunk; the name is
+             the reference's, so configs and checkpoints map one to one
    sparse    wedge sort + rank aggregation (``count_butterflies_sparse``);
              O(cap_e + cap_w) memory per window, no biadjacency
    auto      per-bucket cost model (:func:`route_tier`): ``sparse`` when
@@ -209,6 +209,26 @@ class PendingCounts:
         return self._out
 
 
+def _mult_range(batch: WindowBatch, b: Bucket) -> tuple[int, int]:
+    """A multiset bucket's bounds, read on the host so that the device
+    never waits: (its largest multiplicity, the largest sum of squared
+    multiplicities at one vertex of one of its windows, either side).  K2
+    sizes its limb planes from the first and refuses a bucket by the
+    second."""
+    cap, win = b.cap_e, b.windows
+    m = np.where(batch.valid[win, :cap], batch.edge_mult[win, :cap],
+                 0).astype(np.int64)
+    if m.size == 0:
+        return 0, 0
+    sq = (m * m).ravel().astype(np.float64)      # exact: sums stay below 2**53
+    rows = np.arange(len(win))[:, None]
+    top = 0.0
+    for ids, n in ((batch.edge_i, b.cap_i), (batch.edge_j, b.cap_j)):
+        key = rows * n + np.clip(ids[win, :cap], 0, n - 1)
+        top = max(top, np.bincount(key.ravel(), weights=sq).max())
+    return int(m.max()), int(top)
+
+
 class WindowExecutor:
     """Counts closed windows through one tier (see module doc).
 
@@ -360,10 +380,11 @@ class WindowExecutor:
     # -- counting -----------------------------------------------------------
 
     def _chunk_counts(self, b: Bucket, ei: torch.Tensor, ej: torch.Tensor,
-                      mm: torch.Tensor | None,
-                      v: torch.Tensor) -> torch.Tensor:
+                      mm: torch.Tensor | None, v: torch.Tensor,
+                      mult_range: tuple[int, int]) -> torch.Tensor:
         """``[c, cap_e]`` lanes of one chunk -> ``[c]`` float32 counts;
-        ``mm`` is the multiplicity lane of a multiset batch, else None."""
+        ``mm`` is the multiplicity lane of a multiset batch, else None, and
+        ``mult_range`` the bucket's :func:`_mult_range` (read by K2)."""
         tier = self.bucket_tier(b)
         ci, cj = b.cap_i, b.cap_j
         if tier == "sparse":
@@ -376,9 +397,10 @@ class WindowExecutor:
             from ..kernels.butterfly import ops
 
             if mm is not None:
-                return ops.butterfly_count_pallas_windows_multiset(
-                    ops.oriented_biadjacency_multiset(ei, ej, mm, v, ci, cj),
-                    block_i=self.block_i)
+                max_mult, max_vertex_sq = mult_range
+                return ops.butterfly_count_pallas_windows_multiset_lanes(
+                    ei, ej, mm, v, ci, cj, max_mult=max_mult,
+                    max_vertex_sq=max_vertex_sq, block_i=self.block_i)
             return ops.butterfly_count_pallas_windows(
                 ops.oriented_biadjacency(ei, ej, v, ci, cj),
                 block_i=self.block_i)
@@ -392,12 +414,13 @@ class WindowExecutor:
         return (count_butterflies_dense_multiset(adj) if mm is not None
                 else count_butterflies_dense(adj))
 
-    def _counter(self, b: Bucket):
+    def _counter(self, b: Bucket, mult_range: tuple[int, int] = (0, 0)):
         """The counter for one bucket: device lanes ``(edge_i, edge_j,
         [edge_mult,] valid)`` ``[n, cap_e]`` -> ``[n]`` float32 counts,
         counted ``chunk`` windows at a time in stream order.  A short last
         chunk simply runs short: nothing is padded, so nothing is sliced
-        off."""
+        off.  ``mult_range`` bounds a multiset bucket's multiplicities
+        (:func:`_mult_range`)."""
         def run(*lanes):
             ei, ej = lanes[0], lanes[1]
             mm = lanes[2] if len(lanes) == 4 else None
@@ -408,7 +431,8 @@ class WindowExecutor:
             for s in range(0, n, c):
                 outs.append(self._chunk_counts(
                     b, ei[s:s + c], ej[s:s + c],
-                    None if mm is None else mm[s:s + c], v[s:s + c]))
+                    None if mm is None else mm[s:s + c], v[s:s + c],
+                    mult_range))
                 self.chunks_dispatched += 1
             return torch.cat(outs)
         return run
@@ -473,7 +497,9 @@ class WindowExecutor:
                     e, batch.edge_mult[k][v]) if multiset
                     else count_butterflies_np(e))
             return PendingCounts(batch.n_windows, index, counts)
-        parts = [self._counter(b)(*self._staged_lanes(batch, b, multiset))
+        parts = [self._counter(
+                     b, _mult_range(batch, b) if multiset else (0, 0))(
+                     *self._staged_lanes(batch, b, multiset))
                  for b in buckets]
         dev = torch.cat(parts)
         if self.device.type != "cuda":

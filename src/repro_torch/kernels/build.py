@@ -9,7 +9,8 @@ interface and loads it with ``ctypes``.  The build happens at first use,
 into ``build/repro_torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``), or, for an installed package, into
 ``~/.cache/repro_torch_kernels/``; a library's file name carries a hash of
-its sources and flags, so an edited source never loads a stale library.
+its sources, headers and flags, so an edited source never loads a stale
+library.
 Nothing here runs at import: the CPU tests import this module on hosts
 without ``nvcc``.
 """
@@ -58,7 +59,7 @@ class KernelLibrary:
 
     def path(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in self.sources():
+        for src in self.sources() + sorted(self.csrc.glob("*.cuh")):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"

@@ -18,13 +18,16 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # butterfly_windows_wgmma_launch (K1 and K3: uint8 stack, uint64 scratch,
 # partials, n_windows, n_rows, row_bytes, block_i, stream) and
-# butterfly_windows_multiset_launch (K2: float32 stack, partials, n_windows,
-# n_rows, n_cols, block_i, stream) -> cudaError_t as int;
-# butterfly_windows_wgmma_smem_bytes () -> K1's dynamic shared memory
+# butterfly_windows_multiset_wgmma_launch (K2: uint8 limb planes, int32
+# per-window limb counts, 64-bit scratch, partials, n_windows, lw, ls,
+# n_rows, row_bytes, block_i, stream) -> cudaError_t as int; the two
+# *_smem_bytes () -> each Gram kernel's dynamic shared memory
 LIBRARY = KernelLibrary("butterfly", CSRC, (
     ("butterfly_windows_wgmma_launch", (_P, _P, _P, _I, _I, _I, _I, _P)),
     ("butterfly_windows_wgmma_smem_bytes", ()),
-    ("butterfly_windows_multiset_launch", (_P, _P, _I, _I, _I, _I, _P)),
+    ("butterfly_windows_multiset_wgmma_launch",
+     (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    ("butterfly_windows_multiset_wgmma_smem_bytes", ()),
 ))
 
 

@@ -6,7 +6,10 @@ reference's names, so the tier maps one to one: a ``[B, n_i, n_j]`` stack
 of same-capacity biadjacencies (one chunk of an executor bucket) is counted
 with a single launch of K1 (K2 for net multiplicities).  The wrappers orient
 every window so the smaller side is the Gram side, clamp the tile to the
-matrix and reduce each window's partials with :func:`window_sums`.
+matrix and reduce each window's partials with :func:`window_sums`.  The
+pallas tier's multiset path hands K2 its lanes' uint8 limb planes
+(:func:`butterfly_count_pallas_windows_multiset_lanes`), built by the
+scatter, not a float32 stack.
 ``butterfly_count_pallas`` and ``butterfly_count_tiles`` count one matrix
 through K3.
 """
@@ -15,19 +18,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...core.butterfly import build_biadjacency, build_biadjacency_multiset
+from ...core.butterfly import build_biadjacency, build_biadjacency_limbs
 from ...device import resolve_device
 from .butterfly_kernel import (
     butterfly_pairs_kernel_call,
     butterfly_pairs_windows_kernel_call,
     butterfly_pairs_windows_multiset_kernel_call,
+    butterfly_pairs_windows_multiset_limbs_call,
+    check_no_wrap,
+    stack_limbs,
 )
 
 __all__ = ["butterfly_count_pallas", "butterfly_count_pallas_batched",
            "butterfly_count_pallas_windows",
-           "butterfly_count_pallas_windows_multiset", "butterfly_count_tiles",
-           "clamp_block_i", "oriented", "oriented_biadjacency",
-           "oriented_biadjacency_multiset", "window_sums"]
+           "butterfly_count_pallas_windows_multiset",
+           "butterfly_count_pallas_windows_multiset_lanes",
+           "butterfly_count_pallas_windows_multiset_limbs",
+           "butterfly_count_tiles", "clamp_block_i", "oriented",
+           "oriented_biadjacency", "oriented_biadjacency_limbs",
+           "window_sums"]
 
 
 def clamp_block_i(block_i: int, n: int) -> int:
@@ -65,15 +74,20 @@ def oriented_biadjacency(edge_i: torch.Tensor, edge_j: torch.Tensor,
                              dtype=torch.uint8)
 
 
-def oriented_biadjacency_multiset(edge_i: torch.Tensor, edge_j: torch.Tensor,
-                                  mult: torch.Tensor, valid: torch.Tensor,
-                                  n_i: int, n_j: int) -> torch.Tensor:
-    """Multiset twin of :func:`oriented_biadjacency`: the weighted stack
-    K2 reads, oriented by the scatter (the multiset identity is symmetric
-    in the sides)."""
+def oriented_biadjacency_limbs(edge_i: torch.Tensor, edge_j: torch.Tensor,
+                               mult: torch.Tensor, valid: torch.Tensor,
+                               n_i: int, n_j: int, lw: int, ls: int
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multiset twin of :func:`oriented_biadjacency`: the uint8 limb planes
+    ``[c, lw + ls, n_g, k]`` of the lanes' net multiplicities that K2
+    reads, and their block masks, oriented by the scatter
+    (``core.butterfly.build_biadjacency_limbs``; the multiset identity is
+    symmetric in the sides)."""
     if n_i > n_j:
-        return build_biadjacency_multiset(edge_j, edge_i, mult, valid, n_j, n_i)
-    return build_biadjacency_multiset(edge_i, edge_j, mult, valid, n_i, n_j)
+        return build_biadjacency_limbs(edge_j, edge_i, mult, valid, n_j, n_i,
+                                       lw, ls)
+    return build_biadjacency_limbs(edge_i, edge_j, mult, valid, n_i, n_j,
+                                   lw, ls)
 
 
 def window_sums(partials: torch.Tensor) -> torch.Tensor:
@@ -110,12 +124,47 @@ def butterfly_count_pallas_windows_multiset(adjs: torch.Tensor, *,
                                             ) -> torch.Tensor:
     """Multiset twin of :func:`butterfly_count_pallas_windows`: a
     ``[B, n_i, n_j]`` stack of weighted biadjacencies (entries = net edge
-    multiplicities) -> ``[B]`` float32 counts with ONE launch of K2 (any
-    dtype is cast to float32)."""
+    multiplicities, non-negative integers) -> ``[B]`` float32 counts with
+    ONE launch of K2 on the stack's limb split (any dtype is cast to
+    float32 first)."""
     a = oriented(adjs).to(torch.float32)
     partials = butterfly_pairs_windows_multiset_kernel_call(
         a, block_i=clamp_block_i(block_i, a.shape[1]))
     return window_sums(partials)
+
+
+def butterfly_count_pallas_windows_multiset_limbs(planes: torch.Tensor,
+                                                  masks: torch.Tensor, *,
+                                                  lw: int,
+                                                  block_i: int = 256
+                                                  ) -> torch.Tensor:
+    """``[B, lw + ls, n_g, k]`` oriented limb planes and their block masks
+    -> ``[B]`` float32 counts with ONE launch of K2, at the tile clamped to
+    the Gram side."""
+    partials = butterfly_pairs_windows_multiset_limbs_call(
+        planes, masks, lw=lw, block_i=clamp_block_i(block_i, planes.shape[2]))
+    return window_sums(partials)
+
+
+def butterfly_count_pallas_windows_multiset_lanes(
+        edge_i: torch.Tensor, edge_j: torch.Tensor, mult: torch.Tensor,
+        valid: torch.Tensor, n_i: int, n_j: int, *, max_mult: int,
+        max_vertex_sq: int, block_i: int = 256) -> torch.Tensor:
+    """The pallas tier's multiset count: lanes ``[c, cap_e]`` of distinct
+    (edge, multiplicity) pairs per window -> ``[c]`` float32 counts.
+    ``max_mult`` (the largest multiplicity) and ``max_vertex_sq`` (the
+    largest sum of squared multiplicities at one vertex) are the caller's
+    bounds, known on the host, so nothing here waits for the device:
+    ``max_vertex_sq`` is held to :func:`check_no_wrap`, ``max_mult`` sizes
+    the limb planes, and the scatter marks which 64-row blocks of each
+    plane hold a nonzero byte, so K2 runs only the limb products each tile
+    needs."""
+    check_no_wrap(max_vertex_sq)
+    lw, ls = stack_limbs(max_mult)
+    planes, masks = oriented_biadjacency_limbs(edge_i, edge_j, mult, valid,
+                                               n_i, n_j, lw, ls)
+    return butterfly_count_pallas_windows_multiset_limbs(
+        planes, masks, lw=lw, block_i=block_i)
 
 
 def butterfly_count_pallas_batched(adjs: torch.Tensor, *,

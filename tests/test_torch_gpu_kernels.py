@@ -213,6 +213,9 @@ def test_k2_partials_equal_plain_at_small_multiplicities(cuda, b, n, k,
     got = k1.butterfly_pairs_windows_multiset_kernel_call(a, block_i=block_i)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.double(), want, rtol=0, atol=0)
+    # and bit for bit the plain version of its own arithmetic
+    assert torch.equal(got, k1.butterfly_pairs_windows_multiset_plain(
+        a, block_i=block_i))
 
 
 def test_k2_past_2_24_within_rtol(cuda):
@@ -224,6 +227,55 @@ def test_k2_past_2_24_within_rtol(cuda):
                                                      dtype=torch.float64)
     assert float(want.max()) > 2**24
     torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=0)
+
+
+def test_k2_equals_plain_bit_for_bit_past_2_24(cuda):
+    """Past 2**24 too, K2 and its plain version compute the same exact
+    Grams, float32 epilogue and exact sums: the same bits."""
+    a = weighted(2, 512, 2048, 0.05, 1000, seed=7).to(cuda)
+    got = k1.butterfly_pairs_windows_multiset_kernel_call(a, block_i=256)
+    torch.cuda.synchronize()
+    want = k1.butterfly_pairs_windows_multiset_plain(a, block_i=256)
+    assert float(want.max()) > 2**24
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("value,shape", [(16.0, (1, 32, 4096)),
+                                         (256.0, (1, 256, 32768)),
+                                         (255.0, (2, 300, 24576))])
+def test_k2_exact_sums_past_2_64(cuda, value, shape):
+    """Dense windows of equal multiplicities, up to every vertex at K2's
+    limit: partials up to about 2**76, the split sums rounded once."""
+    a = torch.full(shape, value, device=cuda)
+    got = k1.butterfly_pairs_windows_multiset_kernel_call(a, block_i=256)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k1.butterfly_pairs_windows_multiset_plain(
+        a, block_i=256))
+
+
+@pytest.mark.parametrize("n_i,n_j", [(300, 700), (700, 300)])
+def test_k2_limb_route_equals_copy_route_and_both_are_counted(cuda, n_i, n_j):
+    a = weighted(3, n_i, n_j, 0.05, 1352, seed=n_i)
+    a[1] = 0                                       # an all-zero window
+    nz = [torch.nonzero(a[w]) for w in range(3)]
+    cap = max(len(e) for e in nz)
+    lanes = [torch.zeros((3, cap), dtype=torch.int32) for _ in range(3)]
+    valid = torch.zeros((3, cap), dtype=torch.bool)
+    for w, e in enumerate(nz):
+        lanes[0][w, :len(e)], lanes[1][w, :len(e)] = e[:, 0], e[:, 1]
+        lanes[2][w, :len(e)] = a[w][e[:, 0], e[:, 1]].int()
+        valid[w, :len(e)] = True
+    k1.reset_launch_count()
+    got = ops.butterfly_count_pallas_windows_multiset_lanes(
+        *(x.to(cuda) for x in (*lanes, valid)), n_i, n_j,
+        max_mult=int(a.max()), max_vertex_sq=k1.vertex_sq(a), block_i=256)
+    want = ops.butterfly_count_pallas_windows_multiset(a.to(cuda),
+                                                       block_i=256)
+    assert torch.equal(got, want)
+    assert float(got[1]) == 0.0
+    assert (k1.launch_count("K2", "wgmma_limbs"),
+            k1.launch_count("K2", "wgmma_limbs_copy"),
+            k1.launch_count("K2")) == (1, 1, 2)
 
 
 def test_k2_window_counts_do_not_depend_on_the_stack(cuda):
