@@ -14,9 +14,11 @@ the same stream through the online engine ``StreamingSGrapp`` under the
 ``distinct`` and ``multiset`` duplicate policies (K1 and K2) across a
 ``state_dict`` / ``restore``, runs a dynamic stream with deletes, sweeps the
 ``tiled`` / ``sparse`` / ``auto`` tiers, counts single matrices through
-K3, and serves phi4-mini-3.8b at full width (prefill attention through
-K4).  Every check raises on failure, so the exit code is non-zero unless
-all phases pass.
+K3, drives the executor's entries (``run`` in sliding mode,
+``count_edges``, ``decrement_window_counts``), eight tenants through
+``MultiStreamSGrapp`` and the ``sampled`` tier and reservoir, and serves
+phi4-mini-3.8b at full width (prefill attention through K4).  Every check
+raises on failure, so the exit code is non-zero unless all phases pass.
 
 Phases (each path's launch counts are set to 0 just before it runs and read
 just after):
@@ -90,8 +92,40 @@ just after):
    memory); the profile of a
    prefill (K4's share) and of decode steps; the smoke config in float32 on
    the card against the CPU path; the sGrapp monitor's butterfly count of
-   the (request, token) graph against the numpy oracle.
+   the (request, token) graph against the numpy oracle;
+11. entries (K1): on a fresh pallas executor, ``run(mode="tumbling")``
+   equals phase 2, ``run(mode="sliding", span=s)`` for s in {1, 4, 32}
+   equals the prefix difference of those counts and, at 32, ``dense``'s
+   sliding run; a two-tenant batch in sliding mode raises before any
+   dispatch; ``count_edges`` on the raw, duplicated sgrs of every 10th
+   window equals the replay (K1 at B = 1, route ``wgmma``); and
+   ``decrement_window_counts`` over phase 5's windows (each window's
+   inserted edges less those fully retracted) at ``delta_frac`` 0 (all
+   recount, K1) and 1 (all delta, host) equals ``oracle_window_counts``;
+12. multi-tenant (K1, K2): eight ``bipartite_pa_stream(250_000,
+   n_unique=50_000, seed=3+s)`` tenants pushed interleaved at mb=256
+   through ``MultiStreamSGrapp`` on pallas under ``distinct`` and
+   ``multiset``, across a ``state_dict`` / ``restore`` at the midpoint:
+   every tenant bit-identical to a dedicated ``StreamingSGrapp``, the
+   fleet's counts equal to a ``dense`` fleet's (``distinct``) or within
+   ``RTOL_MULTISET`` of them (``multiset``), windows per tenant, launches,
+   wall time and the device's busy and idle share (profiled on the first
+   quarter of each tenant);
+13. sampled (no TPU kernel: threefry coins and the dense counter on the
+   survivors): ``WindowExecutor("sampled", capacity=2048)`` at seeds 0-3
+   on the smoke windows, the card equal to the CPU port bit for bit on the
+   first 20 windows (counts, and the seed-0 keep masks and rungs), the
+   mean relative error against phase 2's exact counts below 0.6, equal to
+   the exact counts at a capacity past every bucket's ``cap_e``;
+   ``reservoir_run`` over the whole stream at capacity 8,192 with equal
+   lanes, rung and estimate on the card and the CPU; and
+   ``StreamingSGrapp(tier="sampled", seed=0)`` at mb=256 equal to the
+   seed-0 sampled replay bit for bit; the profile of a sampled replay of
+   25 windows and of the reservoir over 200,000 sgrs.
 
+Phases 11-13 run after phase 8, before K4 and serving.  Each phase's wall
+time is logged (``[time]``).  Every profile also logs the host's CUDA
+runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
 power limit as ``nvidia-smi`` gives them, and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.  Without a CUDA device,
@@ -153,6 +187,18 @@ K4_ROUNDED = dict(rtol=2.0**-8 + 2e-5, atol=2e-5)
 
 # the LM that phase 10 serves at full width
 LM_ARCH = "phi4-mini-3.8b"
+
+# phase 12: tenants of one fleet, each an eighth of the smoke stream; the
+# records of each push (phases 12 and 13)
+N_TENANTS = 8
+MB = 256
+# phase 13: the sampled tier's gamma and seeds, the windows the CPU port
+# replays beside the card, and the reservoir's capacity (EngineConfig's
+# default)
+SAMPLED_GAMMA = 0.7
+SAMPLED_SEEDS = 4
+SAMPLED_CPU_WINDOWS = 20
+RES_CAPACITY = 8192
 
 # the adversarial window corpus of tests/test_tier_differential.py
 
@@ -946,10 +992,11 @@ def phase_multiset(stream, wins, nt_w, alpha0, device,
     return launches
 
 
-def phase_dynamic(device, *, n_records, nt_w, n_ids, seed, alpha0) -> dict:
+def phase_dynamic(device, *, n_records, nt_w, n_ids, seed, alpha0):
     """Phase 5: a dynamic stream with deletes and duplicates through the
     engine's windowizer and the engine under both policies on pallas,
-    against ``replay_dynamic`` and ``oracle_window_counts``."""
+    against ``replay_dynamic`` and ``oracle_window_counts``.  Returns the
+    windowizer's closed windows and the oracle's, for phase 11."""
     import torch
 
     from repro_torch.kernels.butterfly import butterfly_kernel as kk
@@ -1041,7 +1088,7 @@ def phase_dynamic(device, *, n_records, nt_w, n_ids, seed, alpha0) -> dict:
             f"on all {len(oracle)} windows (every W^2, S and pair sum below "
             f"2**24, so exact); counts {want.min():.6g}..{want.max():.6g}; "
             f"{n_records} records in {sec:.4f} s")
-    return launches
+    return closed, oracle
 
 
 def phase_tiers(wb, alpha0, device, dense_counts) -> None:
@@ -1195,6 +1242,366 @@ def phase_k3(wb, replay_counts, device) -> dict:
             "bound_by": bound_by}
 
 
+def k1_routes(kk) -> dict:
+    """K1's launches so far by route."""
+    return {r: kk.launch_count("K1", r) for r in kk.ROUTES}
+
+
+def phase_entries(stream, wb, nt_w, device, replay_counts, dyn_closed,
+                  dyn_oracle) -> tuple[int, dict]:
+    """Phase 11: the executor's entries on pallas (K1): ``run`` in tumbling
+    and sliding mode, the multi-stream refusal, ``count_edges`` on raw
+    windows and ``decrement_window_counts`` on phase 5's dynamic windows.
+    Returns K1's launches and routes over the phase."""
+    import dataclasses
+
+    from repro_torch.core import WindowExecutor, count_butterflies_np
+    from repro_torch.core.windows import window_bounds
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.streams import oracle_window_counts
+
+    ex = WindowExecutor("pallas", device=device)
+    kk.reset_launch_count()
+    t0 = time.perf_counter()
+    tumbling = ex.run(wb)
+    sync(device)
+    tsec = time.perf_counter() - t0
+    check(np.array_equal(tumbling.counts, replay_counts),
+          "run(mode='tumbling') differs from phase 2's counts")
+    check(tumbling.mode == "tumbling" and tumbling.n_shards == 1,
+          "tumbling result fields")
+    launches_run = kk.launch_count("K1")
+    check(launches_run > 0 or device.type != "cuda", "run() never launched K1")
+    prefix = np.concatenate([[0.0], np.cumsum(replay_counts)])
+    t0 = time.perf_counter()
+    dense = WindowExecutor("dense", device=device).run(
+        wb, mode="sliding", span=32)
+    sync(device)
+    dsec = time.perf_counter() - t0
+    secs = []
+    for span in (1, 4, 32):
+        t0 = time.perf_counter()
+        got = ex.run(wb, mode="sliding", span=span)
+        sync(device)
+        secs.append(time.perf_counter() - t0)
+        lo = np.maximum(np.arange(wb.n_windows) - span + 1, 0)
+        check(np.array_equal(got.counts, prefix[1:] - prefix[lo]),
+              f"sliding span {span} differs from the prefix difference")
+        check(got.span == span and got.mode == "sliding", "sliding fields")
+        if span == 32:
+            check(np.array_equal(got.counts, dense.counts),
+                  "pallas sliding span 32 differs from dense's")
+    log(f"[entries] run(): tumbling equals phase 2 on all {wb.n_windows} "
+        f"windows ({tsec:.4f} s); sliding spans 1, 4, 32 equal the prefix "
+        f"difference ({', '.join(f'{x:.4f}' for x in secs)} s) and span 32 "
+        f"equals dense's sliding run ({dsec:.4f} s); K1 launches "
+        f"{kk.launch_count('K1')}")
+    mixed = dataclasses.replace(
+        wb, stream_ids=(np.arange(wb.n_windows) % 2).astype(np.int32))
+    before = (kk.launch_count("K1"), ex.chunks_dispatched)
+    try:
+        ex.run(mixed, mode="sliding", span=4)
+    except ValueError as e:
+        check("sliding" in str(e), f"unexpected refusal: {e}")
+    else:
+        raise AssertionError("sliding mode took a multi-stream batch")
+    check((kk.launch_count("K1"), ex.chunks_dispatched) == before,
+          "the refused sliding run dispatched work")
+    log("[entries] a two-tenant batch in sliding mode raises before any "
+        "dispatch (no K1 launch, no chunk)")
+
+    bounds = window_bounds(stream.tau, nt_w)
+    picks = list(range(0, wb.n_windows, 10))
+    n0, r0 = kk.launch_count("K1"), k1_routes(kk)
+    t0 = time.perf_counter()
+    for k in picks:
+        a, b = bounds[k]
+        got = ex.count_edges(stream.edge_i[a:b], stream.edge_j[a:b])
+        check(got == replay_counts[k],
+              f"count_edges window {k}: {got} != replay {replay_counts[k]}")
+    sync(device)
+    csec = time.perf_counter() - t0
+    n_ce = kk.launch_count("K1") - n0
+    routes_ce = {r: kk.launch_count("K1", r) - r0[r] for r in kk.ROUTES}
+    check(n_ce == len(picks) or device.type != "cuda",
+          f"count_edges launched K1 {n_ce} times for {len(picks)} windows")
+    check(routes_ce["wgmma"] == n_ce,
+          f"count_edges K1 routes {routes_ce}: a stack went through a "
+          "padded copy")
+    log(f"[entries] count_edges on the raw, duplicated sgrs of every 10th "
+        f"window ({len(picks)} windows, {csec:.4f} s) equals the replay; "
+        f"K1 launches {n_ce} at B = 1, routes {routes_ce} (the [1, cap_i, "
+        f"cap_j] uint8 stack as it lies)")
+
+    per_edges, per_del, prior = [], [], []
+    for (_, wi, wj, ops, _, _), ow in zip(dyn_closed, dyn_oracle):
+        ins = np.stack([wi, wj], 1)
+        if ops is not None:
+            ins = ins[ops > 0]
+        ins = np.unique(ins.astype(np.int64), axis=0)
+        keep = np.isin(ins[:, 0] << 32 | ins[:, 1],
+                       ow.edges[:, 0] << 32 | ow.edges[:, 1])
+        per_edges.append(ins)
+        per_del.append(ins[~keep])
+        prior.append(count_butterflies_np(ins))
+    want = oracle_window_counts(dyn_oracle, "distinct")
+    n_del = sum(len(d) for d in per_del)
+    for frac in (0.0, 1.0):
+        n0 = kk.launch_count("K1")
+        t0 = time.perf_counter()
+        got = ex.decrement_window_counts(per_edges, per_del,
+                                         np.asarray(prior, np.float64),
+                                         delta_frac=frac)
+        sync(device)
+        sec = time.perf_counter() - t0
+        check(np.array_equal(got, want),
+              f"decrement_window_counts (delta_frac={frac}) differs from "
+              "oracle_window_counts")
+        n_dec = kk.launch_count("K1") - n0
+        if frac == 0.0:
+            check(n_dec > 0 or device.type != "cuda",
+                  "the recount route never launched K1")
+        else:
+            check(n_dec == 0, f"the delta route launched K1 {n_dec} times")
+        log(f"[entries] decrement_window_counts, delta_frac={frac} "
+            f"({'all recount' if frac == 0.0 else 'all delta'}): "
+            f"{n_del} deletions over {len(per_edges)} windows of phase 5 "
+            f"equal oracle_window_counts ({sec:.4f} s); K1 launches {n_dec}")
+    return kk.launch_count("K1"), k1_routes(kk)
+
+
+def push_fleet(fleet, tenants, mb, start, stop):
+    """Push each tenant's records [start, stop) interleaved at ``mb``."""
+    for a in range(start, stop, mb):
+        for sid, t in enumerate(tenants):
+            b = min(a + mb, stop)
+            fleet.push(sid, t.tau[a:b], t.edge_i[a:b], t.edge_j[a:b])
+
+
+def phase_multistream(device, *, n_sgrs, n_unique, nt_w, seed,
+                      alpha0) -> dict:
+    """Phase 12: ``N_TENANTS`` streams interleaved through one
+    ``MultiStreamSGrapp`` on pallas under both policies (K1, K2), across a
+    state_dict / restore at the midpoint; every tenant equals a dedicated
+    engine bit for bit, and the fleet equals a ``dense`` fleet: exactly
+    under distinct, within RTOL_MULTISET under multiset."""
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.streams import (
+        EngineConfig,
+        MultiStreamSGrapp,
+        bipartite_pa_stream,
+    )
+
+    t0 = time.perf_counter()
+    tenants = [bipartite_pa_stream(n_sgrs, temporal="uniform",
+                                   n_unique=n_unique, seed=seed + s)
+               for s in range(N_TENANTS)]
+    log(f"[multi] {N_TENANTS} tenants of bipartite_pa_stream({n_sgrs}, "
+        f"n_unique={n_unique}, seed={seed}+s) in "
+        f"{time.perf_counter() - t0:.4f} s")
+    half = (n_sgrs // 2 // MB) * MB
+    out = {}
+    for policy, kernel in (("distinct", "K1"), ("multiset", "K2")):
+        cfg = EngineConfig(tier="pallas", dup_policy=policy, flush_every=32,
+                           device=device)
+
+        def fleet_run(restore, stop=n_sgrs):
+            fleet = MultiStreamSGrapp(N_TENANTS, nt_w, alpha0, config=cfg)
+            push_fleet(fleet, tenants, MB, 0, half if restore else stop)
+            if restore:
+                sd = fleet.state_dict()
+                fleet = MultiStreamSGrapp(N_TENANTS, nt_w, alpha0,
+                                          config=cfg).restore(sd)
+                push_fleet(fleet, tenants, MB, half, n_sgrs)
+            return fleet.finalize()
+
+        kk.reset_launch_count()
+        t0 = time.perf_counter()
+        res = fleet_run(True)
+        sync(device)
+        sec = time.perf_counter() - t0
+        launches = kk.launch_count(kernel)
+        routes = (k1_routes(kk) if kernel == "K1" else
+                  {r: kk.launch_count("K2", r) for r in kk.K2_ROUTES})
+        other = "K2" if kernel == "K1" else "K1"
+        check(launches > 0 or device.type != "cuda",
+              f"the {policy} fleet never launched {kernel}")
+        check(kk.launch_count(other) == 0,
+              f"the {policy} fleet launched {other}")
+        check(routes["wgmma" if kernel == "K1" else "wgmma_limbs"]
+              == launches, f"{kernel} routes {routes}: a padded copy")
+        n_win = [len(r.window_counts) for r in res]
+        t0 = time.perf_counter()
+        for sid, t in enumerate(tenants):
+            _, ded, _, _ = push_engine(cfg, nt_w, alpha0, t.tau, t.edge_i,
+                                       t.edge_j, mb=MB)
+            check(np.array_equal(res[sid].window_counts, ded.window_counts)
+                  and np.array_equal(res[sid].estimates, ded.estimates)
+                  and np.array_equal(res[sid].cum_edges, ded.cum_edges),
+                  f"{policy} tenant {sid} differs from its dedicated engine")
+        sync(device)
+        dsec = time.perf_counter() - t0
+        log(f"[multi] {policy} on pallas, mb={MB}, flush_every=32, "
+            f"state_dict/restore after {half} sgrs per tenant: "
+            f"{N_TENANTS * n_sgrs} sgrs in {sec:.4f} s = "
+            f"{N_TENANTS * n_sgrs / sec:.4f} sgrs/s; windows per tenant "
+            f"{n_win}; {kernel} launches {launches}, routes {routes}; every "
+            f"tenant's counts and estimates bit-identical to a dedicated "
+            f"StreamingSGrapp ({dsec:.4f} s for the {N_TENANTS})")
+        # an independent counter on the same tenants: the dense tier
+        t0 = time.perf_counter()
+        dense_fleet = MultiStreamSGrapp(N_TENANTS, nt_w, alpha0,
+                                        config=cfg.replace(tier="dense"))
+        push_fleet(dense_fleet, tenants, n_sgrs, 0, n_sgrs)
+        dres = dense_fleet.finalize()
+        pc = np.concatenate([r.window_counts for r in res])
+        dc = np.concatenate([r.window_counts for r in dres])
+        dsec = time.perf_counter() - t0
+        if policy == "distinct":
+            # distinct counts stay below 2**24: both tiers are exact
+            check(np.array_equal(pc, dc),
+                  "distinct fleet pallas counts differ from dense")
+            log(f"[multi] distinct dense fleet ({dsec:.4f} s): pallas "
+                f"counts equal dense on all {len(pc)} windows")
+        else:
+            rel = float(np.max(np.abs(pc - dc) / np.maximum(np.abs(dc), 1)))
+            check(rel <= RTOL_MULTISET,
+                  f"multiset fleet pallas vs dense: {rel} > {RTOL_MULTISET}")
+            log(f"[multi] multiset dense fleet ({dsec:.4f} s): pallas vs "
+                f"dense max rel diff {rel:.6g} over {len(pc)} windows "
+                f"(bound {RTOL_MULTISET})")
+        # the profile runs on a quarter of each tenant: the profiler's event
+        # processing takes about 8 s for a whole fleet
+        profile(f"multi-tenant fleet, pallas tier, {policy}, "
+                f"{N_TENANTS} tenants x first {n_sgrs // 4} sgrs, mb={MB}",
+                lambda: fleet_run(False, n_sgrs // 4), device)
+        out[kernel] = (launches, routes)
+    return out
+
+
+def phase_sampled(stream, wb, nt_w, device, exact, alpha0, *,
+                  capacity=2048) -> None:
+    """Phase 13: the sampled tier (threefry coins, the dense counter on the
+    survivors; no TPU kernel) on the card against the CPU port, its error
+    against the exact counts, the degenerate capacity, the reservoir over
+    the whole stream, and the sampled engine against the replay."""
+    from repro_torch.core import WindowExecutor, reservoir_run, run_sgrapp
+    from repro_torch.core.fleet import sample_keep_mask
+    from repro_torch.streams import EngineConfig
+
+    import torch
+
+    cpu = torch.device("cpu")
+
+    def sampled(seed, dev):
+        return WindowExecutor("sampled", capacity=capacity,
+                              gamma=SAMPLED_GAMMA, seed=seed, device=dev)
+
+    res_kw = dict(capacity=RES_CAPACITY, gamma=SAMPLED_GAMMA, seed=0)
+    first = wb.take(np.arange(min(SAMPLED_CPU_WINDOWS, wb.n_windows)))
+    nz = exact > 0
+    errs, secs = [], []
+    card0 = None
+    t_cpu = 0.0
+    for seed in range(SAMPLED_SEEDS):
+        t0 = time.perf_counter()
+        got = sampled(seed, device).window_counts(wb)
+        sync(device)
+        secs.append(time.perf_counter() - t0)
+        if seed == 0:
+            card0 = got
+        check(np.isfinite(got).all() and (got >= 0).all(),
+              f"seed {seed}: sampled counts not finite and >= 0")
+        t0 = time.perf_counter()
+        want = sampled(seed, cpu).window_counts(first)
+        t_cpu += time.perf_counter() - t0
+        check(np.array_equal(got[:first.n_windows], want),
+              f"seed {seed}: card and CPU sampled counts differ on the "
+              f"first {first.n_windows} windows")
+        errs.append(float(np.mean(np.abs(got[nz] / exact[nz] - 1.0))))
+    uid = WindowExecutor._batch_uids(first)
+    lanes = [torch.as_tensor(x[:, :first.capacity]) for x in
+             (first.edge_i, first.edge_j, first.valid)]
+    mask_kw = dict(capacity=capacity, gamma=SAMPLED_GAMMA, seed=0)
+    keep_c, p_c = sample_keep_mask(*lanes, uid[:, 0], uid[:, 1], **mask_kw)
+    keep_g, p_g = sample_keep_mask(*(x.to(device) for x in lanes),
+                                   torch.as_tensor(uid[:, 0], device=device),
+                                   torch.as_tensor(uid[:, 1], device=device),
+                                   **mask_kw)
+    check(torch.equal(keep_g.cpu(), keep_c) and torch.equal(p_g.cpu(), p_c),
+          "the card's keep masks or rungs differ from the CPU's")
+    mean_err = float(np.mean(errs))
+    log(f"[sampled] WindowExecutor('sampled', capacity={capacity}, "
+        f"gamma={SAMPLED_GAMMA}), seeds 0..{SAMPLED_SEEDS - 1}: replays "
+        f"{', '.join(f'{x:.4f}' for x in secs)} s; the card's counts equal "
+        f"the CPU port's bit for bit on the first {first.n_windows} windows "
+        f"of every seed (CPU {t_cpu:.4f} s), and its seed-0 keep masks and "
+        f"p too (kept {int(keep_c.sum())} of {int(first.valid.sum())} "
+        f"lanes, p {float(p_c.min()):.6g}..{float(p_c.max()):.6g}); mean "
+        f"relative error against phase 2's exact counts per seed "
+        f"{', '.join(f'{x:.6f}' for x in errs)}, mean {mean_err:.6f} "
+        f"(band 0.6)")
+    check(mean_err < 0.6, f"sampled mean relative error {mean_err} >= 0.6")
+
+    big = max(capacity, int(max(b.cap_e for b in WindowExecutor(
+        "dense", device=device).plan(wb))))
+    t0 = time.perf_counter()
+    degenerate = WindowExecutor("sampled", capacity=big,
+                                device=device).window_counts(wb)
+    sync(device)
+    check(np.array_equal(degenerate, exact),
+          f"sampled at capacity {big} >= cap_e differs from dense")
+    log(f"[sampled] capacity {big} >= every bucket's cap_e: equal to the "
+        f"exact counts on all {wb.n_windows} windows "
+        f"({time.perf_counter() - t0:.4f} s)")
+
+    t0 = time.perf_counter()
+    est_g, res_g = reservoir_run(stream.edge_i, stream.edge_j, **res_kw,
+                                 device=device)
+    sync(device)
+    gsec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est_c, res_c = reservoir_run(stream.edge_i, stream.edge_j, **res_kw,
+                                 device=cpu)
+    csec = time.perf_counter() - t0
+    for name in ("edge_i", "edge_j", "u", "valid", "k"):
+        check(torch.equal(getattr(res_g, name).cpu(), getattr(res_c, name)),
+              f"reservoir {name} differs between the card and the CPU")
+    check(est_g == est_c, f"reservoir estimate {est_g} != CPU {est_c}")
+    log(f"[sampled] reservoir_run over the whole stream ({len(stream)} "
+        f"sgrs, capacity {RES_CAPACITY}): card {gsec:.4f} s, CPU "
+        f"{csec:.4f} s; final lanes, rung k={int(res_g.k)} and estimate "
+        f"{est_g:.6g} equal ({int(res_g.valid.sum())} survivors)")
+
+    cfg = EngineConfig(tier="sampled", capacity=capacity, gamma=SAMPLED_GAMMA,
+                       seed=0, flush_every=32, device=device)
+    t0 = time.perf_counter()
+    _, res, _, _ = push_engine(cfg, nt_w, alpha0, stream.tau, stream.edge_i,
+                               stream.edge_j, mb=MB)
+    sync(device)
+    esec = time.perf_counter() - t0
+    replay = run_sgrapp(wb, alpha0, executor=sampled(0, device))
+    check(np.array_equal(res.window_counts, card0),
+          "the sampled engine's counts differ from the seed-0 replay")
+    check(np.array_equal(res.window_counts, replay.window_counts)
+          and np.array_equal(res.estimates, replay.estimates),
+          "the sampled engine's estimates differ from the seed-0 replay")
+    log(f"[sampled] StreamingSGrapp(tier='sampled', seed=0) at mb={MB} "
+        f"({esec:.4f} s): counts and estimates bit-identical to the seed-0 "
+        f"replay on all {len(res.estimates)} windows")
+    # the profiles run on a tenth of the work each: the profiler's event
+    # processing takes about 20x the wall time of these many-launch paths
+    ex0 = sampled(0, device)
+    part = wb.take(np.arange(min(25, wb.n_windows)))
+    profile(f"sampled replay, capacity {capacity}, seed 0, first "
+            f"{part.n_windows} windows", lambda: ex0.window_counts(part),
+            device)
+    n_res = min(200_000, len(stream))
+    profile(f"reservoir_run, capacity {RES_CAPACITY}, first {n_res} sgrs",
+            lambda: reservoir_run(stream.edge_i[:n_res], stream.edge_j[:n_res],
+                                  **res_kw, device=device), device)
+
+
 def phase_profile(stream, wb, nt_w, alpha0, device, ex) -> None:
     """Phase 8: where the time goes in the replay (both tiers) and in the
     distinct and multiset streams, after the checks above have passed."""
@@ -1270,6 +1677,15 @@ def profile(label: str, fn, device, top: int = 8
                     reverse=True)[:top]:
         log(f"[profile]   {e.self_device_time_total / 1e3:12.4f} ms "
             f"{e.count:6d} x  {e.key[:90]}")
+    # the host side of the device work: kernel launches, copies (a copy
+    # from pageable host memory waits for the stream) and synchronizations
+    api = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.key.startswith("cuda")),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)[:3]
+    for e in api:
+        log(f"[profile]   host {e.self_cpu_time_total / 1e3:12.4f} ms "
+            f"{e.count:6d} x  {e.key[:80]}")
     by_kernel: dict[str, float] = {}
     for e in dev:
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
@@ -1678,11 +2094,23 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
     return {"launches": launches, "max_abs_err": err}
 
 
+class PhaseClock:
+    """Logs the wall time of each phase since the previous lap."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, label: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] phase {label}: {now - self.t:.4f} s")
+        self.t = now
+
+
 def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         n_truth: int, dyn_records: int, dyn_nt_w: int, dyn_ids: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
-        alpha0: float = 1.02) -> list[dict]:
-    """Phases 0-10 on ``device``; returns the kernels records."""
+        alpha0: float = 1.02, tenant_unique: int = 50_000) -> list[dict]:
+    """Phases 0-13 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -1724,28 +2152,56 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         f"repeat")
 
     ex = WindowExecutor("pallas", device=device)
+    clock = PhaseClock()
     kern1 = phase_kernel(wb, device, ex)
+    clock.lap("1 kernel (K1)")
     replay, k1_launches, k1_routes = phase_replay(stream, wb, nt_w, alpha0,
                                                   device, ex, n_truth)
+    clock.lap("2 replay")
     phase_stream(stream, nt_w, alpha0, device, replay)
+    clock.lap("3 stream")
     seen: dict = {}
     k2_launches = phase_multiset(stream, wins, nt_w, alpha0, device, seen)
+    clock.lap("4 multiset")
     del wins
     kern2 = phase_kernel_k2(seen, device)
+    clock.lap("1 kernel (K2)")
     del seen
-    phase_dynamic(device, n_records=dyn_records, nt_w=dyn_nt_w,
-                  n_ids=dyn_ids, seed=seed, alpha0=alpha0)
+    dyn_closed, dyn_oracle = phase_dynamic(
+        device, n_records=dyn_records, nt_w=dyn_nt_w, n_ids=dyn_ids,
+        seed=seed, alpha0=alpha0)
+    clock.lap("5 dynamic")
     phase_tiers(wb, alpha0, device, replay.window_counts)
+    clock.lap("6 tiers")
     kern3 = phase_k3(wb, replay.window_counts, device)
+    clock.lap("7 K3")
     phase_profile(stream, wb, nt_w, alpha0, device, ex)
-    del stream, wb, ex
+    clock.lap("8 profile")
+    n11, r11 = phase_entries(stream, wb, nt_w, device, replay.window_counts,
+                             dyn_closed, dyn_oracle)
+    clock.lap("11 executor entries")
+    fleets = phase_multistream(device, n_sgrs=n_sgrs // N_TENANTS,
+                               n_unique=tenant_unique, nt_w=nt_w, seed=seed,
+                               alpha0=alpha0)
+    clock.lap("12 multi-tenant")
+    phase_sampled(stream, wb, nt_w, device, replay.window_counts, alpha0)
+    clock.lap("13 sampled")
+    # K1's and K2's launches on their paths: the replay, the entries and
+    # the fleets for K1, the multiset stream and the fleets for K2
+    k1_launches += n11 + fleets["K1"][0]
+    k1_routes = {r: k1_routes[r] + r11[r] + fleets["K1"][1][r]
+                 for r in k1_routes}
+    k2_launches += fleets["K2"][0]
+    del stream, wb, ex, dyn_closed, dyn_oracle
     arch = get_arch(LM_ARCH)
     cfg = arch.smoke_config() if lm_smoke else arch.full_config()
     kern4 = phase_k4(device, seed, batch=lm_batch, seq=lm_prompt,
                      heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
                      head_dim=cfg.head_dim, chunk=cfg.attn_chunk_q)
+    clock.lap("9 K4")
     served = phase_serve(device, seed, arch=LM_ARCH, smoke=lm_smoke,
                          batch=lm_batch, prompt=lm_prompt, gen=lm_gen)
+    clock.lap("10 serve")
     src = "src/repro_torch/kernels/butterfly/csrc/"
     ref = "src/repro/kernels/butterfly/butterfly_kernel.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -51,6 +51,7 @@ import torch
 __all__ = [
     "count_butterflies_np",
     "count_butterflies_multiset_np",
+    "butterfly_delta_np",
     "window_wedge_counts_np",
     "build_biadjacency",
     "build_biadjacency_multiset",
@@ -64,6 +65,7 @@ __all__ = [
     "count_butterflies_dense_multiset",
     "count_butterflies_from_edges",
     "count_butterflies_from_edges_multiset",
+    "count_butterflies_sampled_from_edges",
     "snapshot_count",
     "count_butterflies_tiled",
     "count_butterflies_tiled_multiset",
@@ -211,6 +213,41 @@ def count_butterflies_multiset_np(edges: np.ndarray,
     np.add.at(s1, winv, w)
     np.add.at(s2, winv, w * w)
     return int(((s1 * s1 - s2) // 2).sum())
+
+
+def butterfly_delta_np(edges: np.ndarray, deleted: np.ndarray) -> int:
+    """Butterflies destroyed by deleting ``deleted`` edges from the distinct
+    graph ``edges`` (the decremental half of Abacus's insert/delete
+    symmetry).  Deletions process sequentially; each deleted edge (u, x)
+    destroys exactly the butterflies containing it in the *current* graph:
+
+        sum over v in N(x), v != u  of  (|N(u) ∩ N(v)| - 1)
+
+    Returns ``B(edges) - B(edges \\ deleted)`` as an exact int.  Each
+    deleted edge must be present and not already deleted; raises
+    ``ValueError`` otherwise.
+    """
+    e = _dedupe_edges_np(np.asarray(edges))
+    d = np.asarray(deleted, dtype=np.int64).reshape(-1, 2)
+    adj_i: dict[int, set[int]] = {}
+    adj_j: dict[int, set[int]] = {}
+    for u, x in e:
+        adj_i.setdefault(int(u), set()).add(int(x))
+        adj_j.setdefault(int(x), set()).add(int(u))
+    total = 0
+    for u, x in d:
+        u, x = int(u), int(x)
+        if x not in adj_i.get(u, ()):  # never inserted or already deleted
+            raise ValueError(
+                f"cannot delete absent edge ({u}, {x}); deletions must name "
+                "a present edge")
+        nu = adj_i[u]
+        for v in adj_j[x]:
+            if v != u:
+                total += len(nu & adj_i[v]) - 1
+        nu.remove(x)
+        adj_j[x].remove(u)
+    return total
 
 
 def window_wedge_counts_np(edge_i: np.ndarray, edge_j: np.ndarray,
@@ -520,6 +557,41 @@ def count_butterflies_from_edges_multiset(
     """Multiset count directly from padded (edge, multiplicity) lanes."""
     adj = build_biadjacency_multiset(edge_i, edge_j, mult, valid, n_i, n_j)
     return count_butterflies_dense_multiset(adj)
+
+
+def count_butterflies_sampled_from_edges(
+    edge_i: torch.Tensor,
+    edge_j: torch.Tensor,
+    valid: torch.Tensor,
+    uid_hi,
+    uid_lo,
+    n_i: int,
+    n_j: int,
+    *,
+    capacity: int,
+    gamma: float,
+    seed: int,
+) -> torch.Tensor:
+    """FLEET subsample-and-scale count of padded windows (one ``[cap_e]``
+    window with scalar uid halves, or ``[B, cap_e]`` with ``[B]`` halves):
+    keep each valid edge with the gamma-ladder probability p that leaves at
+    most ``capacity`` edges, count the survivors exactly with the dense
+    counter and scale by ``p**-4`` in float32 (``p = 0`` gives 0).  A
+    window that statically fits the reservoir (``cap_e <= capacity``) is
+    counted by the dense counter directly, bit-identical to the ``dense``
+    tier, with no threefry work.  ``uid_hi`` / ``uid_lo`` are the uint32
+    halves of each window's sampling uid (``fleet.sample_keep_mask``)."""
+    if edge_i.shape[-1] <= capacity:
+        return count_butterflies_from_edges(edge_i, edge_j, valid, n_i, n_j)
+    from .fleet import sample_keep_mask
+
+    keep, p = sample_keep_mask(edge_i, edge_j, valid, uid_hi, uid_lo,
+                               capacity=capacity, gamma=gamma, seed=seed)
+    count = count_butterflies_from_edges(edge_i, edge_j, keep, n_i, n_j)
+    inv = torch.where(p > 0, 1.0 / p, torch.zeros_like(p)).to(count.dtype)
+    # inv**4 as XLA's integer power computes it: (inv * inv) squared
+    sq = inv * inv
+    return count * (sq * sq)
 
 
 def snapshot_count(edge_i: torch.Tensor, edge_j: torch.Tensor,

@@ -32,14 +32,26 @@ butterfly count.  As in ``repro.core.executor``, the executor
    auto      per-bucket cost model (:func:`route_tier`): ``sparse`` when
              the wedge-sort work beats the dense Gram flops, ``dense``
              otherwise
+   sampled   FLEET subsample-and-scale (``count_butterflies_sampled_from_
+             edges``): jax's threefry coins per edge, the dense counter on
+             the survivors, ``p**-4`` scaling; windows that fit
+             ``capacity`` count exactly; the budget router
+             (:meth:`WindowExecutor.bucket_tier`) may send a bucket to
+             ``dense``
    ========  ==========================================================
 
    A batch that carries the multiplicity lane (``edge_mult``, the
    ``multiset`` duplicate policy) runs every tier's multiplicity-weighted
-   twin.  Every exact tier returns identical integer-valued counts while
-   partial sums stay below 2**24.  The ``sampled`` tier name is accepted by
-   the config but raises ``NotImplementedError`` until its ROADMAP item is
-   ported.
+   twin (``sampled`` refuses it).  Every exact tier returns identical
+   integer-valued counts while partial sums stay below 2**24.
+
+**Entries.**  :meth:`WindowExecutor.run` (and the module-level :func:`run`)
+counts a batch in ``tumbling`` mode, or in ``sliding`` mode as the prefix
+difference of the pane counts over ``span`` panes;
+:meth:`WindowExecutor.count_edges` counts one online window from raw edge
+ids; :meth:`WindowExecutor.decrement_window_counts` applies late deletions
+to counted windows, per window on the host (:func:`butterfly_delta_np`) or
+by one bucketed recount of the survivors (:func:`route_decrement`).
 
 **Submit / reap.**  :meth:`WindowExecutor.window_counts_submit` stages each
 bucket's lanes through pinned host buffers (a ring of two per bucket shape),
@@ -59,12 +71,15 @@ import torch
 
 from ..device import resolve_device
 from .butterfly import (
+    _check_id_range_np,
     build_biadjacency,
     build_biadjacency_multiset,
+    butterfly_delta_np,
     count_butterflies_dense,
     count_butterflies_dense_multiset,
     count_butterflies_multiset_np,
     count_butterflies_np,
+    count_butterflies_sampled_from_edges,
     count_butterflies_sparse,
     count_butterflies_sparse_multiset,
     count_butterflies_tiled,
@@ -72,15 +87,14 @@ from .butterfly import (
     window_wedge_counts_np,
 )
 from .fleet import check_sampling_knobs
-from .windows import WindowBatch
+from .windows import WindowBatch, pack_windows
 
-__all__ = ["TIERS", "PORTED_TIERS", "WindowExecutor", "ExecutorResult",
-           "Bucket", "PendingCounts", "bucket_capacity", "id_capacity",
-           "route_tier"]
+__all__ = ["TIERS", "MODES", "WindowExecutor", "ExecutorResult", "Bucket",
+           "PendingCounts", "run", "route_tier", "route_decrement",
+           "bucket_capacity", "id_capacity", "expected_mape"]
 
 TIERS = ("numpy", "dense", "tiled", "pallas", "sparse", "auto", "sampled")
-PORTED_TIERS = ("numpy", "dense", "tiled", "pallas", "sparse", "auto")
-_NOT_PORTED = {"sampled": "ROADMAP Queue 1 item 7 (sampling)"}
+MODES = ("tumbling", "sliding")
 
 # tiers that need a per-bucket wedge capacity (host-side wedge counting)
 _WEDGE_TIERS = ("sparse", "auto")
@@ -112,6 +126,32 @@ def route_tier(cap_e: int, cap_i: int, cap_j: int, cap_w: int,
     sort_ops = (cap_e * max(math.log2(max(cap_e, 2)), 1.0)
                 + cap_w * max(math.log2(max(cap_w, 2)), 1.0))
     return "sparse" if sort_cost * sort_ops < dense_flops else "dense"
+
+
+def expected_mape(cap_e: int, capacity: int, gamma: float,
+                  *, k_err: float = 8.0) -> float:
+    """The reference's surrogate for the sampled tier's expected relative
+    error at a bucket rung: each butterfly survives with probability
+    ``p**4`` (p the gamma rung a ``cap_e``-edge window settles at), so the
+    error scales like ``sqrt((p**-4 - 1) / capacity)``; ``k_err`` is the
+    reference's empirical calibration.  0.0 when the window fits the
+    reservoir (sampling is exact there)."""
+    if cap_e <= capacity:
+        return 0.0
+    k = max(0, math.ceil(math.log(capacity / cap_e) / math.log(gamma)))
+    p = float(gamma) ** k
+    return k_err * math.sqrt(max(p ** -4 - 1.0, 0.0) / max(capacity, 1))
+
+
+def route_decrement(n_edges: int, n_deleted: int,
+                    *, delta_frac: float = 0.25) -> str:
+    """Decremental router: patch a window's prior count per deletion on the
+    host (``"delta"``) while at most ``delta_frac`` of its edges retract,
+    else recount its survivors on the device (``"recount"``).  A static
+    host-side decision, as the reference's."""
+    if n_edges < 0 or n_deleted < 0:
+        raise ValueError("edge/delete counts must be non-negative")
+    return "delta" if n_deleted <= delta_frac * n_edges else "recount"
 
 
 def bucket_capacity(n: int, *, align: int = 128, growth: int = 2) -> int:
@@ -153,14 +193,20 @@ class Bucket:
 
 @dataclass
 class ExecutorResult:
-    """Per-window counts plus the stream bookkeeping the estimators consume
-    (tumbling mode: ``counts[k]`` is the exact in-window count of window k,
-    ``cum_sgrs[k]`` is |E_k|)."""
+    """Per-output-window counts plus the stream bookkeeping the estimators
+    consume.  Tumbling mode: ``counts[k]`` is the exact in-window count of
+    pane k.  Sliding mode: the prefix difference of pane counts over
+    ``span`` panes (butterflies straddling panes stay the estimator's
+    inter-window term).  ``cum_sgrs[k]`` is |E_k|; ``n_shards`` is the
+    number of devices the buckets were split over (always 1 in the port);
+    ``stream_ids`` the batch's provenance lane, if it had one."""
 
     counts: np.ndarray
     cum_sgrs: np.ndarray
     tier: str
     mode: str = "tumbling"
+    span: int = 1
+    n_shards: int = 1
     stream_ids: np.ndarray | None = None
 
     @property
@@ -234,8 +280,8 @@ class WindowExecutor:
 
     Parameters
     ----------
-    tier : "numpy" | "dense" | "tiled" | "pallas" | "sparse" | "auto"
-        (``"sampled"`` raises ``NotImplementedError``).
+    tier : "numpy" | "dense" | "tiled" | "pallas" | "sparse" | "auto" |
+        "sampled".
     align, growth : capacity-ladder geometry (edge lanes geometric, id
         spaces linear), as the reference.
     chunk : windows of a bucket counted together in one batched dispatch;
@@ -245,9 +291,13 @@ class WindowExecutor:
         uses).
     block_i : the kernels' tile edge (clamped per bucket, as the reference
         clamps).
-    capacity, gamma, seed, memory_budget, target_mape : the sampled tier's
-        knobs, validated as the reference validates them (the tier itself is
-        not ported yet).
+    capacity, gamma, seed : the ``sampled`` tier's FLEET reservoir capacity
+        (most edges counted per window), gamma schedule factor and threefry
+        seed.  Windows that fit ``capacity`` count exactly.
+    memory_budget, target_mape : the ``sampled`` tier's budget router
+        (:meth:`bucket_tier`): a bucket whose edge rung fits
+        ``memory_budget``, or whose modelled error (:func:`expected_mape`)
+        passes ``target_mape``, counts on ``dense``.
     device : where device tiers count and the estimators run; default
         ``cuda``.  Without a card, only an explicit ``device="cpu"`` runs
         (the plain torch path).
@@ -261,10 +311,6 @@ class WindowExecutor:
                  target_mape: float | None = None, device=None):
         if tier not in TIERS:
             raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
-        if tier not in PORTED_TIERS:
-            raise NotImplementedError(
-                f"tier {tier!r} is not ported to torch yet: "
-                f"{_NOT_PORTED[tier]}; ported tiers are {PORTED_TIERS}")
         if align < 1 or growth < 2:
             raise ValueError("align must be >= 1 and growth >= 2")
         if chunk < 1:
@@ -301,6 +347,10 @@ class WindowExecutor:
         # chunks dispatched to a device tier so far (one K1 or K2 launch
         # each on the pallas tier)
         self.chunks_dispatched = 0
+        # count_edges: its sampled windows' uid sequence, and the counter
+        # of its last capacity key
+        self._online_seq = 0
+        self._online_cache: tuple[tuple, object] | None = None
         self._plan_cache: tuple[weakref.ref, list[Bucket]] | None = None
         # pinned staging per (bucket shape, n windows): [slot_a, slot_b,
         # cursor], each slot [host lanes, event of its last copy]
@@ -368,13 +418,27 @@ class WindowExecutor:
         self._plan_cache = (weakref.ref(batch), buckets)
         return buckets
 
+    def _sampled_route(self, cap_e: int) -> str:
+        """The ``sampled`` tier's per-rung budget router: ``dense`` when the
+        rung fits ``memory_budget`` or its modelled error
+        (:func:`expected_mape`) passes ``target_mape``, else ``sampled``."""
+        if self.memory_budget is not None and cap_e <= self.memory_budget:
+            return "dense"
+        if self.target_mape is not None and expected_mape(
+                cap_e, self.capacity, self.gamma) > self.target_mape:
+            return "dense"
+        return "sampled"
+
     def bucket_tier(self, b: Bucket) -> str:
-        """The device tier a bucket runs: the configured tier, or under
-        ``auto`` the cost model's pick (:func:`route_tier`), which depends
+        """The device tier a bucket runs: the configured tier, the cost
+        model's pick (:func:`route_tier`) under ``auto``, or the budget
+        router's (:meth:`_sampled_route`) under ``sampled``; each depends
         only on the bucket's static capacities."""
         if self.tier == "auto":
             return route_tier(b.cap_e, b.cap_i, b.cap_j, b.cap_w,
                               sort_cost=_SORT_COST)
+        if self.tier == "sampled":
+            return self._sampled_route(b.cap_e)
         return self.tier
 
     # -- counting -----------------------------------------------------------
@@ -383,10 +447,15 @@ class WindowExecutor:
                       mm: torch.Tensor | None, v: torch.Tensor,
                       mult_range: tuple[int, int]) -> torch.Tensor:
         """``[c, cap_e]`` lanes of one chunk -> ``[c]`` float32 counts;
-        ``mm`` is the multiplicity lane of a multiset batch, else None, and
-        ``mult_range`` the bucket's :func:`_mult_range` (read by K2)."""
+        ``mm`` is the multiplicity lane of a multiset batch or the ``[c, 2]``
+        uid halves of a sampled bucket, else None, and ``mult_range`` the
+        bucket's :func:`_mult_range` (read by K2)."""
         tier = self.bucket_tier(b)
         ci, cj = b.cap_i, b.cap_j
+        if tier == "sampled":
+            return count_butterflies_sampled_from_edges(
+                ei, ej, v, mm[:, 0], mm[:, 1], ci, cj,
+                capacity=self.capacity, gamma=self.gamma, seed=self.seed)
         if tier == "sparse":
             cap_w = max(b.cap_w, 1)
             if mm is not None:
@@ -420,7 +489,8 @@ class WindowExecutor:
         counted ``chunk`` windows at a time in stream order.  A short last
         chunk simply runs short: nothing is padded, so nothing is sliced
         off.  ``mult_range`` bounds a multiset bucket's multiplicities
-        (:func:`_mult_range`)."""
+        (:func:`_mult_range`).  A sampled bucket takes ``(edge_i, edge_j,
+        uid, valid)`` with ``uid`` its ``[n, 2]`` uid halves."""
         def run(*lanes):
             ei, ej = lanes[0], lanes[1]
             mm = lanes[2] if len(lanes) == 4 else None
@@ -437,28 +507,34 @@ class WindowExecutor:
             return torch.cat(outs)
         return run
 
-    def _staged_lanes(self, batch: WindowBatch, b: Bucket,
-                      multiset: bool) -> tuple:
-        """Stage one bucket's ``(edge_i, edge_j, [edge_mult,] valid)``
-        lanes on the device.  On CUDA the lanes are gathered into pinned
-        host buffers and copied without blocking; an event recorded after
-        the copy guards the buffer, which is rewritten (by the submit after
-        next that shares the bucket shape) only once its event has
-        completed."""
+    def _staged_lanes(self, batch: WindowBatch, b: Bucket, multiset: bool,
+                      uids: np.ndarray | None) -> tuple:
+        """Stage one bucket's ``(edge_i, edge_j, [edge_mult | uid,] valid)``
+        lanes on the device (``uids``: the batch's ``[n_windows, 2]`` uid
+        halves, staged for a sampled bucket).  On CUDA the lanes are
+        gathered into pinned host buffers and copied without blocking; an
+        event recorded after the copy guards the buffer, which is rewritten
+        (by the submit after next that shares the bucket shape) only once
+        its event has completed."""
         cap, win = b.cap_e, b.windows
-        key = (b.cap_e, b.cap_i, b.cap_j, b.cap_w, len(win), multiset)
+        sampled = uids is not None and self.bucket_tier(b) == "sampled"
+        key = (b.cap_e, b.cap_i, b.cap_j, b.cap_w, len(win), multiset,
+               sampled)
         cuda = self.device.type == "cuda"
-        srcs = [batch.edge_i, batch.edge_j]
+        # (source rows, dtype) per lane
+        srcs = [(batch.edge_i[:, :cap], torch.int32),
+                (batch.edge_j[:, :cap], torch.int32)]
         if multiset:
-            srcs.append(batch.edge_mult)
-        srcs.append(batch.valid)
+            srcs.append((batch.edge_mult[:, :cap], torch.int32))
+        if sampled:
+            srcs.append((uids, torch.int64))
+        srcs.append((batch.valid[:, :cap], torch.bool))
         ring = self._staging.get(key)
         if ring is None:
             def make():
-                shape = (len(win), cap)
-                lanes = tuple(torch.empty(shape, dtype=(
-                    torch.bool if src is batch.valid else torch.int32),
-                    pin_memory=cuda) for src in srcs)
+                lanes = tuple(torch.empty((len(win), src.shape[1]),
+                                          dtype=dtype, pin_memory=cuda)
+                              for src, dtype in srcs)
                 return [lanes, None]
             ring = [make(), make(), 0]
             self._staging[key] = ring
@@ -467,8 +543,8 @@ class WindowExecutor:
         lanes, event = slot
         if event is not None:
             event.synchronize()
-        for src, dst in zip(srcs, lanes):
-            np.take(src[:, :cap], win, axis=0, out=dst.numpy())
+        for (src, _), dst in zip(srcs, lanes):
+            np.take(src, win, axis=0, out=dst.numpy())
         if not cuda:
             return lanes
         dev = tuple(h.to(self.device, non_blocking=True) for h in lanes)
@@ -476,16 +552,43 @@ class WindowExecutor:
         slot[1].record()
         return dev
 
+    @staticmethod
+    def _batch_uids(batch: WindowBatch) -> np.ndarray:
+        """Per-window sampling uids as ``[n_windows, 2]`` int64 (hi, lo)
+        uint32 halves.  The batch's own ``sample_uid`` lane wins (the
+        engines stamp ``(res_seed << 32) + cum_sgrs``); a lane-less batch
+        derives ``(stream_id << 32) + (cum_sgrs & 0xFFFFFFFF)`` (stream 0
+        for a single-stream batch), which is what a seed-0 engine stamps,
+        so streaming equals replay on the sampled tier too."""
+        uid = batch.sample_uid
+        if uid is None:
+            sid = (batch.stream_ids.astype(np.int64)
+                   if batch.stream_ids is not None
+                   else np.zeros(batch.n_windows, np.int64))
+            uid = (sid << np.int64(32)) + (
+                np.asarray(batch.cum_sgrs, np.int64) & np.int64(0xFFFFFFFF))
+        uid = np.asarray(uid, np.int64)
+        return np.stack([(uid >> np.int64(32)) & np.int64(0xFFFFFFFF),
+                         uid & np.int64(0xFFFFFFFF)], axis=1)
+
     def window_counts_submit(self, batch: WindowBatch) -> PendingCounts:
         """Stage and dispatch every bucket of ``batch`` and return a
         :class:`PendingCounts` handle without waiting for the device.  A
         batch carrying the multiplicity lane (``batch.edge_mult``) routes
-        every tier through its multiplicity-weighted twin.  The ``numpy``
-        tier counts on the host at submit."""
+        every tier through its multiplicity-weighted twin (the ``sampled``
+        tier refuses it).  The ``numpy`` tier counts on the host at
+        submit."""
         if batch.n_windows == 0:
             return PendingCounts(0, np.zeros(0, np.int64),
                                  np.zeros(0, np.float64))
         multiset = batch.edge_mult is not None
+        if multiset and self.tier == "sampled":
+            raise NotImplementedError(
+                "sampled tier does not support dup_policy='multiset': the "
+                "subsample-and-scale identity assumes distinct edges (a "
+                "multiplicity-weighted butterfly is not a p**4 event); use "
+                "an exact tier for multiset streams")
+        uids = self._batch_uids(batch) if self.tier == "sampled" else None
         buckets = self.plan(batch)
         index = np.concatenate([b.windows for b in buckets])
         if self.tier == "numpy":
@@ -499,7 +602,7 @@ class WindowExecutor:
             return PendingCounts(batch.n_windows, index, counts)
         parts = [self._counter(
                      b, _mult_range(batch, b) if multiset else (0, 0))(
-                     *self._staged_lanes(batch, b, multiset))
+                     *self._staged_lanes(batch, b, multiset, uids))
                  for b in buckets]
         dev = torch.cat(parts)
         if self.device.type != "cuda":
@@ -519,20 +622,184 @@ class WindowExecutor:
         """Run one all-invalid window through each ``(cap_e, cap_i, cap_j)``
         rung before the first push, so the first real flush pays no one-time
         cost (on the pallas tier: building and loading the kernels).
-        ``multiset`` runs the multiplicity-weighted counters.  Blocks until
-        done; returns the number of rungs run (0 for the ``numpy`` tier).
+        ``multiset`` runs the multiplicity-weighted counters; a sampled
+        rung runs with a zero uid.  Blocks until done; returns the number of
+        rungs run (0 for the ``numpy`` tier).
         Wedge-capacity buckets (``sparse``, and ``auto``'s sparse-routed
         groups) key additionally on ``cap_w`` and are not covered by
         3-tuple rungs."""
         if self.tier == "numpy":
             return 0
+        if multiset and self.tier == "sampled":
+            raise NotImplementedError(
+                "sampled tier does not support dup_policy='multiset'")
         done = 0
         for rung in rungs:
             cap_e, cap_i, cap_j = (int(x) for x in rung)
             b = Bucket(cap_e, cap_i, cap_j, np.arange(1, dtype=np.int64))
             z = torch.zeros((1, cap_e), dtype=torch.int32, device=self.device)
             v = torch.zeros((1, cap_e), dtype=torch.bool, device=self.device)
-            lanes = (z, z, z, v) if multiset else (z, z, v)
+            if multiset:
+                lanes = (z, z, z, v)
+            elif self.bucket_tier(b) == "sampled":
+                uid = torch.zeros((1, 2), dtype=torch.int64,
+                                  device=self.device)
+                lanes = (z, z, uid, v)
+            else:
+                lanes = (z, z, v)
             self._counter(b)(*lanes).cpu()
             done += 1
         return done
+
+    def decrement_window_counts(self, per_window_edges, per_window_deletes,
+                                prior_counts, *, delta_frac: float = 0.25
+                                ) -> np.ndarray:
+        """Late deletions in already-counted windows (sliding mode's
+        decremental path): from each window's distinct edge set, the edges
+        retracted from it and its prior exact count, the updated exact
+        counts.
+
+        :func:`route_decrement` picks each window's route: ``"delta"``
+        subtracts :func:`butterfly_delta_np` from the prior count on the
+        host; ``"recount"`` drops the deleted edges and recounts every
+        recount-routed window's survivors in ONE bucketed dispatch through
+        :meth:`window_counts` (K1 on the ``pallas`` tier).  Both routes
+        raise on a deletion of an edge absent from its window, the same
+        edge twice included."""
+        if self.tier == "sampled":
+            raise NotImplementedError(
+                "sampled tier cannot decrement prior counts: a subsampled "
+                "estimate has no per-edge ledger to patch and recounting "
+                "survivors would redraw the coins; use an exact tier for "
+                "streams with deletions")
+        prior = np.asarray(prior_counts, dtype=np.float64)
+        n = len(per_window_edges)
+        if len(per_window_deletes) != n or prior.shape[0] != n:
+            raise ValueError(
+                "per_window_edges, per_window_deletes and prior_counts must "
+                f"align: got {n}, {len(per_window_deletes)}, "
+                f"{prior.shape[0]}")
+        out = prior.copy()
+        recount_edges: list[np.ndarray] = []
+        recount_idx: list[int] = []
+        for k in range(n):
+            e = np.asarray(per_window_edges[k], dtype=np.int64).reshape(-1, 2)
+            d = np.asarray(per_window_deletes[k],
+                           dtype=np.int64).reshape(-1, 2)
+            if d.shape[0] == 0:
+                continue
+            if route_decrement(e.shape[0], d.shape[0],
+                               delta_frac=delta_frac) == "delta":
+                out[k] = prior[k] - butterfly_delta_np(e, d)
+                continue
+            _check_id_range_np(e)
+            _check_id_range_np(d)
+            ke = e[:, 0] << 32 | e[:, 1]
+            kd = d[:, 0] << 32 | d[:, 1]
+            if (np.unique(kd).shape[0] != kd.shape[0]
+                    or not np.isin(kd, ke).all()):
+                raise ValueError(
+                    f"window {k}: cannot delete an edge absent from the "
+                    "window (never inserted, or already deleted)")
+            recount_edges.append(e[~np.isin(ke, kd)])
+            recount_idx.append(k)
+        if recount_idx:
+            m = len(recount_idx)
+            nb = pack_windows(
+                recount_edges, n_sgrs=np.zeros(m, np.int64),
+                cum_sgrs=np.zeros(m, np.int64),
+                window_end_tau=np.zeros(m, np.float64),
+                align=self.align, dedupe=True)
+            out[np.asarray(recount_idx)] = self.window_counts(nb)
+        return out
+
+    def count_edges(self, edge_i, edge_j) -> float:
+        """Count one online window from raw, possibly duplicated, edge ids
+        of any int64 range.  Relabels to a compact id space (before the tier
+        branch, so every tier takes the same ids), picks the window's
+        bucket and dispatches it as a batch of one (on ``pallas``: K1 on a
+        ``[1, cap_i, cap_j]`` uint8 stack).  The counter is memoized on the
+        capacity key ``(cap_e, cap_i, cap_j, cap_w)``, so a run of same-rung
+        windows skips the routing.  On ``sampled`` each call draws its own
+        coins: a per-executor sequence number is the window's uid."""
+        ei = np.asarray(edge_i, dtype=np.int64)
+        ej = np.asarray(edge_j, dtype=np.int64)
+        if ei.size == 0:
+            return 0.0
+        ui, inv_i = np.unique(ei, return_inverse=True)
+        uj, inv_j = np.unique(ej, return_inverse=True)
+        if self.tier == "numpy":
+            return float(count_butterflies_np(np.stack([inv_i, inv_j],
+                                                       axis=1)))
+        cap_e = bucket_capacity(len(ei), align=self.align, growth=self.growth)
+        cap_i = id_capacity(len(ui), align=self.align)
+        cap_j = id_capacity(len(uj), align=self.align)
+        cap_w = 0
+        if self.tier in _WEDGE_TIERS:
+            d = np.bincount(
+                np.unique(inv_i * (len(uj) + 1) + inv_j) % (len(uj) + 1))
+            cap_w = bucket_capacity(int((d * (d - 1) // 2).sum()),
+                                    align=self.align, growth=self.growth)
+        key = (cap_e, cap_i, cap_j, cap_w)
+        if self._online_cache is not None and self._online_cache[0] == key:
+            b, counter = self._online_cache[1]
+        else:
+            b = Bucket(cap_e, cap_i, cap_j, np.arange(1, dtype=np.int64),
+                       cap_w=cap_w)
+            counter = self._counter(b)
+            self._online_cache = (key, (b, counter))
+        dev = self.device
+        pi = torch.zeros((1, cap_e), dtype=torch.int32)
+        pj = torch.zeros((1, cap_e), dtype=torch.int32)
+        pv = torch.zeros((1, cap_e), dtype=torch.bool)
+        pi[0, :len(ei)] = torch.from_numpy(inv_i.astype(np.int32))
+        pj[0, :len(ej)] = torch.from_numpy(inv_j.astype(np.int32))
+        pv[0, :len(ei)] = True
+        lanes = [pi.to(dev), pj.to(dev)]
+        if self.tier == "sampled":
+            uid = self._online_seq
+            self._online_seq += 1
+            if self.bucket_tier(b) == "sampled":
+                lanes.append(torch.tensor(
+                    [[(uid >> 32) & 0xFFFFFFFF, uid & 0xFFFFFFFF]],
+                    dtype=torch.int64, device=dev))
+        lanes.append(pv.to(dev))
+        return float(counter(*lanes)[0])
+
+    # -- the single entry point ---------------------------------------------
+
+    def run(self, batch: WindowBatch, *, mode: str = "tumbling",
+            span: int = 1) -> ExecutorResult:
+        """Count every window of ``batch`` through the configured tier.
+        ``mode="tumbling"`` gives the paper's disjoint pane counts;
+        ``mode="sliding"`` the counts of windows spanning ``span`` panes, by
+        prefix difference.  Sliding mode refuses a multi-stream batch
+        before any dispatch: a prefix over panes of different tenants would
+        mix their counts."""
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if mode == "sliding":
+            if span < 1:
+                raise ValueError("sliding span must be >= 1")
+            if batch.stream_ids is not None and len(
+                    np.unique(batch.stream_ids)) > 1:
+                raise ValueError(
+                    "sliding mode over a multi-stream batch is ambiguous; "
+                    "slide each tenant's panes separately")
+        counts = self.window_counts(batch)
+        cum = np.asarray(batch.cum_sgrs, dtype=np.float64)
+        if mode == "tumbling":
+            return ExecutorResult(counts, cum, self.tier, mode,
+                                  stream_ids=batch.stream_ids)
+        prefix = np.concatenate([[0.0], np.cumsum(counts)])
+        lo = np.maximum(np.arange(len(counts)) - span + 1, 0)
+        sliding = prefix[1:] - prefix[lo]
+        return ExecutorResult(sliding, cum, self.tier, mode, span,
+                              stream_ids=batch.stream_ids)
+
+
+def run(batch: WindowBatch, *, tier: str = "dense", mode: str = "tumbling",
+        span: int = 1, **kwargs) -> ExecutorResult:
+    """One-shot convenience: ``WindowExecutor(tier, **kwargs).run(batch,
+    mode=mode, span=span)``."""
+    return WindowExecutor(tier, **kwargs).run(batch, mode=mode, span=span)

@@ -34,6 +34,7 @@ __all__ = [
     "window_exact_counts",
     "estimator_init",
     "estimator_step",
+    "estimator_step_batched",
     "estimator_run",
     "sgrapp_estimate",
     "sgrapp_x_estimate",
@@ -128,6 +129,27 @@ def estimator_step(tol: float = 0.05, step: float = 0.005, device=None):
     """The shared step for ``(tol, step)`` on ``device``, built once and
     reused for every window of every stream."""
     return _make_estimator_body(tol, step, resolve_device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def estimator_step_batched(tol: float = 0.05, step: float = 0.005,
+                           device=None):
+    """The step of :func:`estimator_step` over N *independent* streams at
+    once: ``(carry, xs, active) -> (carry, B-hat)`` with every carry leaf
+    and xs lane a ``[N]`` tensor and ``active`` a bool ``[N]`` mask;
+    inactive lanes pass their carry through unchanged.  For fleet-scale
+    consumers that want one call per round: the multi-stream engine
+    advances each tenant with the scalar :func:`estimator_step`, whose
+    arithmetic is the single-stream engine's bit for bit (an elementwise
+    ``pow`` over a vector may round differently from the scalar one)."""
+    body = _make_estimator_body(tol, step, resolve_device(device))
+
+    def masked(carry, xs, active):
+        new_carry, est = body(carry, xs)
+        return tuple(torch.where(active, n, o)
+                     for n, o in zip(new_carry, carry)), est
+
+    return masked
 
 
 def estimator_run(step_fn, carry: tuple, window_counts, cum_edges, truths,

@@ -8,7 +8,14 @@ from .generators import (
     synthetic_rating_stream,
     assign_timestamps,
 )
-from .engine import StreamingSGrapp
+from .engine import (
+    StreamingSGrapp,
+    migrate_state_dict_to_latest,
+    migrate_state_dict_v1,
+    migrate_state_dict_v2,
+    migrate_state_dict_v3,
+)
+from .multi import MultiStreamSGrapp
 from .oracle import OracleWindow, oracle_window_counts, replay_dynamic
 from .state import (
     OP_DELETE,
@@ -32,6 +39,11 @@ __all__ = [
     "synthetic_rating_stream",
     "assign_timestamps",
     "StreamingSGrapp",
+    "MultiStreamSGrapp",
+    "migrate_state_dict_v1",
+    "migrate_state_dict_v2",
+    "migrate_state_dict_v3",
+    "migrate_state_dict_to_latest",
     "OracleWindow",
     "oracle_window_counts",
     "replay_dynamic",

@@ -4,9 +4,7 @@ The port's copy of ``repro.streams.config.EngineConfig``: the same knobs,
 validation, defaults and JSON form, so a checkpoint's embedded config reads
 the same in both packages.  Where the reference takes ``devices`` / ``mesh``
 the port takes ``device`` (default ``cuda``); like them it is a deployment
-property and never serialized.  The one tier name the port has not ported
-yet, ``sampled``, is accepted here, so such a checkpoint still parses, and
-raises ``NotImplementedError`` when an engine builds its executor.
+property and never serialized.
 """
 from __future__ import annotations
 
@@ -45,8 +43,7 @@ class EngineConfig:
     Parameters
     ----------
     tier : counting tier the engine builds its executor with (``numpy |
-        dense | tiled | pallas | sparse | auto`` run; ``sampled`` parses
-        and raises at engine construction).
+        dense | tiled | pallas | sparse | auto | sampled``).
     tol, step : Algorithm 5 error band and alpha adaptation step.
     flush_every : closed windows to accumulate before one bucketed count.
     drop_partial : whether ``finalize()`` drops a trailing unfilled window.

@@ -22,8 +22,10 @@ duplicate policy, inserts and deletes)::
 * **Checkpoints that carry across.**  :meth:`StreamingSGrapp.state_dict` is
   the reference's schema v4, a flat dict of numpy leaves with the
   :class:`EngineConfig` as JSON bytes: a dict written by either package
-  restores into the other and continues to the same counts.  The reference's
-  v1 -> v3 migrations are not ported; :meth:`restore` takes v4 only.
+  restores into the other and continues to the same counts.  Older dicts
+  (v1-v3) migrate forward on restore through the reference's chain
+  (:func:`migrate_state_dict_to_latest`), shared with
+  :class:`repro_torch.streams.multi.MultiStreamSGrapp`.
 """
 from __future__ import annotations
 
@@ -41,24 +43,37 @@ from .config import (
     resolve_sync_dispatch,
 )
 from .state import (
+    OP_DELETE,
     StreamState,
+    estimator_carry,
     resolve_window,
+    set_estimator_carry,
     stream_state_init,
     windowizer_close_tail,
     windowizer_push,
 )
 
 __all__ = ["StreamingSGrapp", "STATE_DICT_VERSION", "DUP_POLICIES",
-           "EngineConfig", "config_to_bytes", "config_from_bytes"]
+           "EngineConfig", "config_to_bytes", "config_from_bytes",
+           "advance_estimator", "check_state_dict_keys",
+           "migrate_state_dict_v1", "migrate_state_dict_v2",
+           "migrate_state_dict_v3", "migrate_state_dict_to_latest"]
 
+# the reference's schema versions: v1 insert-only; v2 adds the open
+# window's op lane "buf_op"; v3 the reservoir seed "res_seed"; v4 the
+# engine identity "config" (EngineConfig JSON as uint8) and "alpha0"
 STATE_DICT_VERSION = 4
 
-_STATE_DICT_KEYS = frozenset({
-    "version", "nt_w", "buf_i", "buf_j", "buf_op", "buf_last_tau", "buf_len",
-    "uniq", "last_tau", "total_sgrs", "finalized", "counts", "estimates",
-    "cum_sgrs", "end_tau", "carry_cum", "carry_alpha", "carry_err",
-    "carry_sup", "res_seed", "config", "alpha0",
+_STATE_DICT_KEYS_V1 = frozenset({
+    "version", "nt_w", "buf_i", "buf_j", "buf_last_tau", "buf_len", "uniq",
+    "last_tau", "total_sgrs", "finalized", "counts", "estimates", "cum_sgrs",
+    "end_tau", "carry_cum", "carry_alpha", "carry_err", "carry_sup",
 })
+_STATE_DICT_KEYS_V2 = _STATE_DICT_KEYS_V1 | {"buf_op"}
+_STATE_DICT_KEYS_V3 = _STATE_DICT_KEYS_V2 | {"res_seed"}
+_STATE_DICT_KEYS = _STATE_DICT_KEYS_V3 | {"config", "alpha0"}
+_STATE_DICT_SCHEMAS = {1: _STATE_DICT_KEYS_V1, 2: _STATE_DICT_KEYS_V2,
+                       3: _STATE_DICT_KEYS_V3, 4: _STATE_DICT_KEYS}
 
 
 def config_to_bytes(config: EngineConfig) -> np.ndarray:
@@ -74,22 +89,113 @@ def config_from_bytes(lane) -> str:
     return bytes(lane.tobytes()).decode("utf-8") if lane.size else ""
 
 
-def check_state_dict_keys(state: dict) -> None:
-    """Strict schema check: a v4 dict with exactly the v4 keys, or raise."""
+def advance_estimator(step_fn, carry, truths, new_counts, new_cums,
+                      new_end_taus, counts, estimates, cum_sgrs, end_tau,
+                      *, device) -> tuple:
+    """Advance ONE stream's estimator over its newly counted windows in
+    close order on ``device``, appending to its history lists in place;
+    returns the new carry as host scalars.  ``carry`` is the stream's
+    :func:`~repro_torch.streams.state.estimator_carry`; window k is
+    supervised while ``k < len(truths)``.  Both engines' reaps call it, so
+    a tenant of a fleet runs the single-stream engine's arithmetic."""
+    n = len(new_counts)
+    k0 = len(counts)
+    ks = np.arange(k0, k0 + n)
+    truth = np.zeros(n, dtype=np.float64)
+    has_truth = np.zeros(n, dtype=bool)
+    if truths is not None:
+        has_truth = ks < len(truths)
+        truth[has_truth] = truths[ks[has_truth]]
+    dev_carry = tuple(torch.tensor(c, device=device) for c in carry)
+    dev_carry, est = estimator_run(step_fn, dev_carry, new_counts, new_cums,
+                                   truth, has_truth, k0)
+    counts.extend(float(c) for c in new_counts)
+    estimates.extend(est.cpu().numpy())
+    cum_sgrs.extend(int(c) for c in new_cums)
+    end_tau.extend(float(t) for t in new_end_taus)
+    return tuple(c.cpu().numpy() for c in dev_carry)
+
+
+def check_state_dict_keys(state: dict, expected: dict,
+                          *, schema: str) -> int:
+    """Strict schema check shared by both engines' ``restore``: the dict's
+    key set must equal its own version's schema (``expected`` maps each
+    supported version to its key set); returns the version, for the
+    migrations.  A dict with no ``version`` reports its drift against the
+    newest schema."""
     got = set(state)
-    if "version" in got:
-        version = int(np.asarray(state["version"]))
-        if version != STATE_DICT_VERSION:
-            raise ValueError(
-                f"StreamingSGrapp state_dict version {version} != supported "
-                f"[{STATE_DICT_VERSION}] (the v1-v3 migrations are not "
-                "ported; migrate with the reference engine first)")
-    missing = sorted(_STATE_DICT_KEYS - got)
-    unknown = sorted(got - _STATE_DICT_KEYS)
+    latest = expected[max(expected)]
+    if "version" not in got:
+        raise ValueError(
+            f"{schema} state_dict key mismatch: "
+            f"missing={sorted(latest - got)} "
+            f"unknown={sorted(got - latest)}")
+    version = int(np.asarray(state["version"]))
+    if version not in expected:
+        raise ValueError(
+            f"{schema} state_dict version {version} != supported "
+            f"{sorted(expected)}")
+    keys = expected[version]
+    missing = sorted(keys - got)
+    unknown = sorted(got - keys)
     if missing or unknown:
         raise ValueError(
-            f"StreamingSGrapp state_dict key mismatch (version "
-            f"{STATE_DICT_VERSION}): missing={missing} unknown={unknown}")
+            f"{schema} state_dict key mismatch (version {version}): "
+            f"missing={missing} unknown={unknown}")
+    return version
+
+
+def migrate_state_dict_v1(state: dict) -> dict:
+    """v1 -> v2, both engines: a v1 engine was insert-only, so the open
+    window's op lane is all ones, aligned with ``buf_i``.  Returns a new
+    dict; the input is not mutated."""
+    out = dict(state)
+    out["buf_op"] = np.ones(np.asarray(state["buf_i"]).shape[0],
+                            dtype=np.int8)
+    out["version"] = np.int64(2)
+    return out
+
+
+def migrate_state_dict_v2(state: dict) -> dict:
+    """v2 -> v3, both engines: v2 engines behaved as ``seed=0`` ones, so
+    ``res_seed`` is 0 for the single-stream schema and ``arange`` for the
+    fleet's (told apart by its ``n_streams`` key).  Returns a new dict."""
+    out = dict(state)
+    if "n_streams" in state:
+        out["res_seed"] = np.arange(int(np.asarray(state["n_streams"])),
+                                    dtype=np.int64)
+    else:
+        out["res_seed"] = np.int64(0)
+    out["version"] = np.int64(3)
+    return out
+
+
+def migrate_state_dict_v3(state: dict) -> dict:
+    """v3 -> v4, both engines: ``config`` becomes the empty byte lane
+    (knobs unknown: the restoring constructor supplies them) and ``alpha0``
+    is back-filled from the adapted ``carry_alpha``.  Returns a new dict."""
+    out = dict(state)
+    out["config"] = np.zeros(0, dtype=np.uint8)
+    if "n_streams" in state:
+        out["alpha0"] = np.asarray(state["carry_alpha"], dtype=np.float64)
+    else:
+        out["alpha0"] = np.float64(np.asarray(state["carry_alpha"]))
+    out["version"] = np.int64(4)
+    return out
+
+
+def migrate_state_dict_to_latest(state: dict, version: int) -> dict:
+    """The forward migration chain from ``version`` to
+    :data:`STATE_DICT_VERSION`, shared by both engines."""
+    if version == 1:
+        state = migrate_state_dict_v1(state)
+        version = 2
+    if version == 2:
+        state = migrate_state_dict_v2(state)
+        version = 3
+    if version == 3:
+        state = migrate_state_dict_v3(state)
+    return state
 
 
 def resolve_pending_window(ei: np.ndarray, ej: np.ndarray,
@@ -208,6 +314,13 @@ class StreamingSGrapp:
         inserts).  Timestamps must be non-decreasing across the stream."""
         if self._state.finalized[0]:
             raise RuntimeError("push after finalize(); stream already ended")
+        if op is not None and self.tier == "sampled":
+            if np.any(np.atleast_1d(np.asarray(op)) == OP_DELETE):
+                # before windowizer_push: the batch must not mutate state
+                raise NotImplementedError(
+                    "sampled tier does not support delete ops: a subsampled "
+                    "window has no retraction semantics; use an exact tier "
+                    "for dynamic streams")
         closed = windowizer_push(self._state, 0, tau, edge_i, edge_j,
                                  self.nt_w, op=op,
                                  on_missing_delete=self.on_missing_delete)
@@ -265,31 +378,12 @@ class StreamingSGrapp:
         n, handle, cum, end_tau = self._inflight
         counts = handle.reap()
         self._inflight = None
-        st = self._state
-        k0 = len(self._counts)
-        ks = np.arange(k0, k0 + n)
-        truth = np.zeros(n, dtype=np.float64)
-        has_truth = np.zeros(n, dtype=bool)
-        if self.truths is not None:
-            has_truth = ks < len(self.truths)
-            truth[has_truth] = self.truths[ks[has_truth]]
-        dev = self.device
-        carry = (torch.tensor(st.carry_cum[0], device=dev),
-                 torch.tensor(st.carry_alpha[0], device=dev),
-                 torch.tensor(st.carry_err[0], device=dev),
-                 torch.tensor(st.carry_sup[0], device=dev))
-        carry, est = estimator_run(self._step_fn, carry, counts, cum, truth,
-                                   has_truth, k0)
-        c_cum, c_alpha, c_err, c_sup = (c.item() for c in carry)
-        st.carry_cum[0] = c_cum
-        st.carry_alpha[0] = c_alpha
-        st.carry_err[0] = c_err
-        st.carry_sup[0] = c_sup
-        st.total_sgrs[0] = int(cum[-1])
-        self._counts.extend(float(c) for c in counts)
-        self._estimates.extend(est.cpu().numpy())
-        self._cum_sgrs.extend(int(c) for c in cum)
-        self._end_tau.extend(float(t) for t in end_tau)
+        carry = advance_estimator(
+            self._step_fn, estimator_carry(self._state, 0), self.truths,
+            counts, cum, end_tau, self._counts, self._estimates,
+            self._cum_sgrs, self._end_tau, device=self.device)
+        set_estimator_carry(self._state, 0, carry)
+        self._state.total_sgrs[0] = int(cum[-1])
         return n
 
     def flush(self) -> int:
@@ -356,10 +450,13 @@ class StreamingSGrapp:
         }
 
     def restore(self, state: dict) -> "StreamingSGrapp":
-        """Load a v4 :meth:`state_dict` (from either package); the engine's
-        own config stays.  Strict: a key-set drift or another version
-        raises.  Returns ``self``."""
-        check_state_dict_keys(state)
+        """Load a :meth:`state_dict` of any supported version (from either
+        package; v1-v3 migrate forward); the engine's own config stays.
+        Strict: a key-set drift or an unknown version raises.  Returns
+        ``self``."""
+        version = check_state_dict_keys(state, _STATE_DICT_SCHEMAS,
+                                        schema="StreamingSGrapp")
+        state = migrate_state_dict_to_latest(state, version)
         if int(state["nt_w"]) != self.nt_w:
             raise ValueError(
                 f"checkpoint nt_w={int(state['nt_w'])} != engine nt_w={self.nt_w}")
@@ -395,17 +492,21 @@ class StreamingSGrapp:
                         config: EngineConfig | None = None,
                         executor: WindowExecutor | None = None,
                         device=None) -> "StreamingSGrapp":
-        """Rebuild an engine from a v4 :meth:`state_dict` alone: ``nt_w``,
-        ``alpha0`` and the embedded config come from the dict.  ``config=``
-        overrides the embedded config; ``device=`` says where the rebuilt
-        engine runs (it is never serialized)."""
-        check_state_dict_keys(state)
+        """Rebuild an engine from a self-describing (v4) :meth:`state_dict`
+        alone: ``nt_w``, ``alpha0`` and the embedded config come from the
+        dict.  ``config=`` overrides the embedded config; ``device=`` says
+        where the rebuilt engine runs (it is never serialized).  A pre-v4
+        dict carries no config and raises unless ``config=`` is given."""
+        version = check_state_dict_keys(state, _STATE_DICT_SCHEMAS,
+                                        schema="StreamingSGrapp")
+        state = migrate_state_dict_to_latest(state, version)
         if config is None:
             payload = config_from_bytes(state["config"])
             if not payload:
                 raise ValueError(
-                    "checkpoint carries no EngineConfig: construct the "
-                    "engine explicitly and call restore(), or pass config=")
+                    "checkpoint carries no EngineConfig (pre-v4 schema "
+                    "migrated forward): construct the engine explicitly "
+                    "and call restore(), or pass config=")
             config = EngineConfig.from_json(payload, device=device)
         elif device is not None:
             config = config.replace(device=device)

@@ -165,9 +165,14 @@ def test_config_json_equals_reference():
 
 @pytest.mark.parametrize("tier", ("sampled",))
 def test_unported_tier_parses_then_raises(tier):
+    """The reference's ``sampled`` config parses, and the engine built from
+    it runs now; only a delete op raises, as the reference's does."""
     c = EngineConfig.from_json(JConfig(tier=tier).to_json(), device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StreamingSGrapp(NT_W, 0.9, config=c)
+    eng = StreamingSGrapp(NT_W, 0.9, config=c)
+    assert eng.tier == "sampled"
+    with pytest.raises(NotImplementedError, match="delete"):
+        eng.push([0.0], [1], [1], op=[1])
+    assert eng.n_windows == 0 and eng.cum_sgrs == 0
 
 
 def test_legacy_kwargs_shim():

@@ -71,7 +71,7 @@ def test_capacity_ladders_equal_reference():
                 n, align=align)
 
 
-@pytest.mark.parametrize("tier", tex.PORTED_TIERS)
+@pytest.mark.parametrize("tier", tex.TIERS)
 @pytest.mark.parametrize("align", [8, 128])
 def test_counts_equal_reference_on_adversarial(tier, align):
     batch = corpus_batch(align)
@@ -111,7 +111,7 @@ def test_chunk_sweep_identical(tier):
         assert ex.chunks_dispatched == want
 
 
-@pytest.mark.parametrize("tier", tex.PORTED_TIERS)
+@pytest.mark.parametrize("tier", tex.TIERS)
 def test_empty_windows_count_zero(tier):
     got = tex.WindowExecutor(tier, device=CPU).window_counts(empty_batch())
     np.testing.assert_array_equal(got, np.zeros(2))
@@ -120,7 +120,7 @@ def test_empty_windows_count_zero(tier):
                                       np.zeros(0, np.int64), 3)).shape == (0,)
 
 
-@pytest.mark.parametrize("tier", tex.PORTED_TIERS)
+@pytest.mark.parametrize("tier", tex.TIERS)
 def test_reap_is_idempotent(tier):
     ex = tex.WindowExecutor(tier, device=CPU)
     handle = ex.window_counts_submit(corpus_batch())
@@ -142,8 +142,12 @@ def test_staging_ring_reuses_buffers_without_changing_counts():
 
 @pytest.mark.parametrize("tier", ("sampled",))
 def test_unported_tiers_name_their_roadmap_item(tier):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tex.WindowExecutor(tier, device=CPU)
+    """Every tier is ported now: ``sampled`` builds, and on windows that fit
+    its reservoir it counts exactly what ``dense`` counts."""
+    batch = corpus_batch()
+    got = tex.WindowExecutor(tier, device=CPU).window_counts(batch)
+    want = tex.WindowExecutor("dense", device=CPU).window_counts(batch)
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -162,7 +166,7 @@ def test_constructor_validates(kw, match):
         tex.WindowExecutor(**{"device": CPU, **kw})
 
 
-@pytest.mark.parametrize("tier", tex.PORTED_TIERS)
+@pytest.mark.parametrize("tier", tex.TIERS)
 def test_warmup_runs_each_rung(tier):
     ex = tex.WindowExecutor(tier, device=CPU)
     k1.reset_launch_count()

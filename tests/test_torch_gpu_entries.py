@@ -1,0 +1,165 @@
+"""The executor entries, the multi-tenant engine and the sampled tier on the
+card against the CPU port (marked ``gpu``).
+
+Run on a machine with a CUDA device:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu_entries.py -q
+
+Elsewhere every test skips; whether a card is present is decided inside the
+``cuda`` fixture.  The sampled tier's coins are integer threefry and its
+ladder reads a host table, so the card equals the CPU bit for bit; counts
+are exact; estimates agree within rtol 1e-6 (float32 ``pow`` on the card
+and on the CPU may differ in the last ulp).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import fleet  # noqa: E402
+from repro_torch.core.butterfly import count_butterflies_np  # noqa: E402
+from repro_torch.core.executor import WindowExecutor  # noqa: E402
+from repro_torch.core.windows import windowize  # noqa: E402
+from repro_torch.kernels.butterfly import butterfly_kernel as kk  # noqa: E402
+from repro_torch.streams import (  # noqa: E402
+    EngineConfig,
+    MultiStreamSGrapp,
+    StreamingSGrapp,
+    bipartite_pa_stream,
+    synthetic_rating_stream,
+)
+
+pytestmark = pytest.mark.gpu
+CPU = "cpu"
+NT_W = 40
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 and K2 are CUDA kernels with no "
+                    "CPU mode, and the card's coins are held to the CPU's")
+    return torch.device("cuda")
+
+
+def pa_batch(n=20000, nt_w=100):
+    s = bipartite_pa_stream(n, n_unique=n // 10, seed=2)
+    return windowize(s.tau, s.edge_i, s.edge_j, nt_w)
+
+
+def test_coins_and_ladder_on_the_card_equal_the_cpu(cuda):
+    rng = np.random.default_rng(0)
+    ei = torch.from_numpy(rng.integers(0, 2**31, 50000))
+    ej = torch.from_numpy(rng.integers(0, 2**31, 50000))
+    key = fleet.window_keys(7, 123, 3, CPU)
+    u_cpu = fleet.edge_uniforms(key, ei, ej)
+    u_gpu = fleet.edge_uniforms(fleet.window_keys(7, 123, 3, cuda),
+                                ei.to(cuda), ej.to(cuda))
+    assert torch.equal(u_gpu.cpu(), u_cpu)
+    with pytest.raises(ValueError, match="one device"):
+        fleet.edge_uniforms(key, ei.to(cuda), ej.to(cuda))
+    t = torch.from_numpy(rng.random(100000).astype(np.float32))
+    for gamma in (0.5, 0.7, 0.99):
+        k_cpu, p_cpu = fleet.gamma_ladder(t, gamma)
+        k_gpu, p_gpu = fleet.gamma_ladder(t.to(cuda), gamma)
+        assert torch.equal(k_gpu.cpu(), k_cpu)
+        assert torch.equal(p_gpu.cpu(), p_cpu)
+
+
+@pytest.mark.parametrize("capacity", (64, 300))
+def test_sampled_counts_on_the_card_equal_the_cpu(cuda, capacity):
+    batch = pa_batch()
+    got = WindowExecutor("sampled", capacity=capacity, seed=1,
+                         device=cuda).window_counts(batch)
+    want = WindowExecutor("sampled", capacity=capacity, seed=1,
+                          device=CPU).window_counts(batch)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_reservoir_on_the_card_equals_the_cpu(cuda):
+    s = bipartite_pa_stream(30000, n_unique=5000, seed=4)
+    est_g, res_g = fleet.reservoir_run(s.edge_i, s.edge_j, capacity=512,
+                                       chunk=2048, device=cuda)
+    est_c, res_c = fleet.reservoir_run(s.edge_i, s.edge_j, capacity=512,
+                                       chunk=2048, device=CPU)
+    assert est_g == est_c
+    for name in ("edge_i", "edge_j", "u", "valid", "k"):
+        assert torch.equal(getattr(res_g, name).cpu(), getattr(res_c, name))
+
+
+def test_count_edges_on_pallas_launches_k1_as_the_stack_lies(cuda):
+    rng = np.random.default_rng(1)
+    ex = WindowExecutor("pallas", device=cuda)
+    kk.reset_launch_count()
+    for _ in range(5):
+        ei = rng.integers(-2**40, 2**40, 60)[rng.integers(0, 60, 900)]
+        ej = rng.integers(0, 2**50, 45)[rng.integers(0, 45, 900)]
+        _, ci = np.unique(ei, return_inverse=True)
+        _, cj = np.unique(ej, return_inverse=True)
+        assert ex.count_edges(ei, ej) == count_butterflies_np(
+            np.stack([ci, cj], 1))
+    assert kk.launch_count("K1") == 5
+    assert kk.launch_count("K1", "wgmma") == 5
+
+
+def test_sliding_run_and_decrement_recount_on_pallas(cuda):
+    batch = pa_batch()
+    ex = WindowExecutor("pallas", device=cuda)
+    dense = WindowExecutor("dense", device=CPU)
+    for span in (1, 4):
+        np.testing.assert_array_equal(
+            ex.run(batch, mode="sliding", span=span).counts,
+            dense.run(batch, mode="sliding", span=span).counts)
+    rng = np.random.default_rng(2)
+    per_edges, per_del, prior, want = [], [], [], []
+    for _ in range(6):
+        e = np.unique(rng.integers(0, 30, (200, 2)), axis=0)
+        d = e[rng.choice(len(e), len(e) // 3, replace=False)]
+        keep = ~np.isin(e[:, 0] << 32 | e[:, 1], d[:, 0] << 32 | d[:, 1])
+        per_edges.append(e)
+        per_del.append(d)
+        prior.append(count_butterflies_np(e))
+        want.append(count_butterflies_np(e[keep]))
+    kk.reset_launch_count()
+    got = ex.decrement_window_counts(per_edges, per_del,
+                                     np.array(prior, float), delta_frac=0.0)
+    np.testing.assert_array_equal(got, want)
+    assert kk.launch_count("K1") >= 1
+
+
+@pytest.mark.parametrize("policy,kernel", (("distinct", "K1"),
+                                           ("multiset", "K2")))
+def test_multistream_on_pallas_equals_dedicated_engines(cuda, policy,
+                                                        kernel):
+    streams = [synthetic_rating_stream(n_users=80, n_items=60, n_edges=n,
+                                       seed=seed, temporal="uniform",
+                                       n_unique=n // 5)
+               for n, seed in ((1500, 6), (900, 9), (1200, 12))]
+    card = EngineConfig(tier="pallas", dup_policy=policy, flush_every=3,
+                        device=cuda)
+    kk.reset_launch_count()
+    fleet_eng = MultiStreamSGrapp(len(streams), NT_W, 0.95, config=card)
+    for a in range(0, 1500, 33):
+        for sid, s in enumerate(streams):
+            if a < len(s):
+                fleet_eng.push(sid, s.tau[a:a + 33], s.edge_i[a:a + 33],
+                               s.edge_j[a:a + 33])
+    sd = fleet_eng.state_dict()
+    res = MultiStreamSGrapp(len(streams), NT_W, 0.95,
+                            config=card).restore(sd).finalize()
+    assert kk.launch_count(kernel) > 0
+    for sid, s in enumerate(streams):
+        for dev in (cuda, CPU):
+            eng = StreamingSGrapp(NT_W, 0.95, config=card.replace(device=dev))
+            for a in range(0, len(s), 33):
+                eng.push(s.tau[a:a + 33], s.edge_i[a:a + 33],
+                         s.edge_j[a:a + 33])
+            ref = eng.finalize()
+            np.testing.assert_array_equal(res[sid].window_counts,
+                                          ref.window_counts)
+            if dev is cuda:
+                np.testing.assert_array_equal(res[sid].estimates,
+                                              ref.estimates)
+            else:
+                np.testing.assert_allclose(res[sid].estimates, ref.estimates,
+                                           rtol=1e-6)
