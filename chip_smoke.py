@@ -16,8 +16,10 @@ the same stream through the online engine ``StreamingSGrapp`` under the
 ``tiled`` / ``sparse`` / ``auto`` tiers, counts single matrices through
 K3, drives the executor's entries (``run`` in sliding mode,
 ``count_edges``, ``decrement_window_counts``), eight tenants through
-``MultiStreamSGrapp`` and the ``sampled`` tier and reservoir, and serves
-phi4-mini-3.8b at full width (prefill attention through K4).  Every check
+``MultiStreamSGrapp`` and the ``sampled`` tier and reservoir, serves those
+tenants over TCP through the port's ``StreamServer`` (a server subprocess
+SIGKILLed and recovered, WAL and checkpoints), and serves phi4-mini-3.8b at
+full width (prefill attention through K4).  Every check
 raises on failure, so the exit code is non-zero unless all phases pass.
 
 Phases (each path's launch counts are set to 0 just before it runs and read
@@ -63,8 +65,9 @@ just after):
    both policies on ``pallas``: its windows equal ``replay_dynamic``'s and
    its counts ``oracle_window_counts``';
 6. tiers: one distinct replay on ``tiled``, ``sparse`` and ``auto`` equals
-   ``dense`` on every window; their wall and device times, the buckets
-   ``auto`` sent to ``sparse``, and the card's ``route_tier`` crossover;
+   ``dense`` on every window; their wall times, their device times on
+   every fourth window, the buckets ``auto`` sent to ``sparse``, and the
+   card's ``route_tier`` crossover on every third bucket;
 7. K3: every 25th replay window through ``butterfly_count_pallas`` and
    ``butterfly_count_tiles`` equals the replay, K3 against its plain version
    on the largest window, its route (a float32 matrix: the padded copy),
@@ -121,9 +124,23 @@ just after):
    lanes, rung and estimate on the card and the CPU; and
    ``StreamingSGrapp(tier="sampled", seed=0)`` at mb=256 equal to the
    seed-0 sampled replay bit for bit; the profile of a sampled replay of
-   25 windows and of the reservoir over 200,000 sgrs.
+   25 windows and of the reservoir over 200,000 sgrs;
+14. serving (K1, K2): phase 12's tenants pushed over TCP in batches of
+   2,048 records through the port's ``StreamServer`` on pallas: (a) a
+   server subprocess (``python -m repro_torch.launch.serve_streams
+   --device cuda``, WAL on, checkpoints every 2 s, a 5 ms latency budget)
+   SIGKILLed at ``pre_ack`` midway and restarted on its state directory
+   while ``DurableClient``s retry, running on the card by its own account;
+   (b) an in-process server, K1's launches all on route ``wgmma``, its
+   edges/s with the WAL on and off, ``/metrics``'s p50/p99 push ms,
+   ``dispatch_count`` and coalesced windows per dispatch, and the device's
+   idle share under the profiler on a quarter of the pushes; (c) multiset
+   tenants, stopped after a third (checkpoint) and after two thirds (WAL
+   only) and restarted from checkpoint + WAL, K2's launches all on route
+   ``wgmma_limbs``; (d) that restart's time to ready and its replayed WAL
+   records.  Every served tenant equals phase 12's fleet bit for bit.
 
-Phases 11-13 run after phase 8, before K4 and serving.  Each phase's wall
+Phases 11-14 run after phase 8, before K4 and serving.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -199,6 +216,12 @@ SAMPLED_GAMMA = 0.7
 SAMPLED_SEEDS = 4
 SAMPLED_CPU_WINDOWS = 20
 RES_CAPACITY = 8192
+# phase 14: records per push, the server's coalescing window and latency
+# budget (ms), and its periodic checkpoint (s)
+SERVE_BATCH = 2048
+SERVE_FLUSH_MS = 1.0
+SERVE_BUDGET_MS = 5.0
+SERVE_CKPT_S = 2.0
 
 # the adversarial window corpus of tests/test_tier_differential.py
 
@@ -1093,8 +1116,9 @@ def phase_dynamic(device, *, n_records, nt_w, n_ids, seed, alpha0):
 
 def phase_tiers(wb, alpha0, device, dense_counts) -> None:
     """Phase 6: one distinct replay on tiled, sparse and auto, exact against
-    dense; wall and device time; auto's sparse buckets; and the card's
-    crossover for route_tier."""
+    dense; wall time, and device time on every fourth window; auto's sparse
+    buckets; and the card's crossover for route_tier on every third
+    bucket."""
     import torch
 
     from repro_torch.core import (
@@ -1106,6 +1130,9 @@ def phase_tiers(wb, alpha0, device, dense_counts) -> None:
         run_sgrapp,
     )
 
+    # the profiles replay every fourth window: the profiler's processing of
+    # the whole replays' 15,000-26,000 launches took most of the phase
+    sub = wb.take(np.arange(0, wb.n_windows, 4))
     for tier in ("tiled", "sparse", "auto"):
         ex = WindowExecutor(tier, device=device)
         t0 = time.perf_counter()
@@ -1114,8 +1141,9 @@ def phase_tiers(wb, alpha0, device, dense_counts) -> None:
         wall = time.perf_counter() - t0
         bad = np.flatnonzero(res.window_counts != dense_counts)
         check(bad.size == 0, f"{tier} != dense on windows {bad[:10]}")
-        _, busy, _ = profile(f"tiers, replay on {tier}", lambda: run_sgrapp(
-            wb, alpha0, executor=ex), device, top=3)
+        _, busy, _ = profile(
+            f"tiers, replay on {tier}, every 4th window ({sub.n_windows})",
+            lambda: run_sgrapp(sub, alpha0, executor=ex), device, top=3)
         plan = ex.plan(wb)
         extra = ""
         if tier == "auto":
@@ -1126,14 +1154,15 @@ def phase_tiers(wb, alpha0, device, dense_counts) -> None:
                      + ", ".join(f"{b.cap_e}x{b.cap_i}x{b.cap_j} w{b.cap_w}"
                                  for b in sp[-3:]))
         log(f"[tiers] {tier}: {wb.n_windows} windows equal dense exactly; "
-            f"wall {wall:.4f} s, device busy {busy:.4f} ms under the "
-            f"profiler; {len(plan)} buckets{extra}")
+            f"wall {wall:.4f} s; device busy {busy:.4f} ms under the "
+            f"profiler on every 4th window; {len(plan)} buckets{extra}")
 
-    # the crossover: per bucket of auto's plan, one chunk on dense and on
-    # sparse, against the cost model's two terms
+    # the crossover: on every third bucket of auto's plan (all 91 took
+    # about 50 s), one chunk on dense and on sparse, against the cost
+    # model's two terms
     ex = WindowExecutor("auto", device=device)
     rows = []
-    for b in ex.plan(wb):
+    for b in ex.plan(wb)[::3]:
         win = b.windows[:ex.chunk]
         ei, ej, v = (torch.as_tensor(x[win, :b.cap_e], device=device)
                      for x in (wb.edge_i, wb.edge_j, wb.valid))
@@ -1384,7 +1413,9 @@ def phase_multistream(device, *, n_sgrs, n_unique, nt_w, seed,
     ``MultiStreamSGrapp`` on pallas under both policies (K1, K2), across a
     state_dict / restore at the midpoint; every tenant equals a dedicated
     engine bit for bit, and the fleet equals a ``dense`` fleet: exactly
-    under distinct, within RTOL_MULTISET under multiset."""
+    under distinct, within RTOL_MULTISET under multiset.  Returns each
+    kernel's launches and routes, each policy's fleet results and the
+    tenants' streams (phase 14 serves them)."""
     from repro_torch.kernels.butterfly import butterfly_kernel as kk
     from repro_torch.streams import (
         EngineConfig,
@@ -1476,6 +1507,8 @@ def phase_multistream(device, *, n_sgrs, n_unique, nt_w, seed,
                 f"{N_TENANTS} tenants x first {n_sgrs // 4} sgrs, mb={MB}",
                 lambda: fleet_run(False, n_sgrs // 4), device)
         out[kernel] = (launches, routes)
+        out[policy] = res
+    out["tenants"] = tenants
     return out
 
 
@@ -1600,6 +1633,352 @@ def phase_sampled(stream, wb, nt_w, device, exact, alpha0, *,
     profile(f"reservoir_run, capacity {RES_CAPACITY}, first {n_res} sgrs",
             lambda: reservoir_run(stream.edge_i[:n_res], stream.edge_j[:n_res],
                                   **res_kw, device=device), device)
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _ndjson(obj: dict) -> bytes:
+    return (json.dumps(obj, separators=(",", ":")) + "\n").encode()
+
+
+def _records(t, a: int, b: int) -> dict:
+    from repro_torch.streams.wire import normalize_records, records_to_json
+
+    return records_to_json(normalize_records(t.tau[a:b], t.edge_i[a:b],
+                                             t.edge_j[a:b]))
+
+
+def push_lines(tenants, batch: int) -> list[list[bytes]]:
+    """Each tenant's push messages of ``batch`` records as NDJSON lines,
+    with ``seq`` = batch index + 1 (so a restarted server sees the same
+    seqs)."""
+    return [[_ndjson({"type": "push", "seq": k + 1,
+                      "records": _records(t, a, a + batch)})
+             for k, a in enumerate(range(0, len(t), batch))]
+            for t in tenants]
+
+
+async def ndjson_tenant(host, port, token, lines, lat_ms, finalize):
+    """One tenant's connection: ``hello``, each pre-encoded push line (its
+    round trip in ms appended to ``lat_ms``) and, if asked, ``finalize``,
+    whose reply it returns."""
+    import asyncio
+
+    r, w = await asyncio.open_connection(host, port)
+
+    async def call(line: bytes) -> dict:
+        w.write(line)
+        await w.drain()
+        while True:
+            reply = json.loads(await r.readline())
+            if reply.get("type") != "estimate":
+                return reply
+
+    hello = await call(_ndjson({"type": "hello", "token": token}))
+    check(hello["type"] == "hello_ok", f"hello {token}: {hello}")
+    for line in lines:
+        t0 = time.perf_counter()
+        reply = await call(line)
+        lat_ms.append((time.perf_counter() - t0) * 1e3)
+        check(reply["type"] == "ack" and not reply.get("duplicate"),
+              f"push of {token}: {reply}")
+    out = await call(_ndjson({"type": "finalize"})) if finalize else None
+    w.close()
+    return out
+
+
+async def http_json(host, port, path: str) -> dict:
+    import asyncio
+
+    r, w = await asyncio.open_connection(host, port)
+    w.write(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+    data = await r.read()
+    w.close()
+    return json.loads(data.split(b"\r\n\r\n", 1)[1])
+
+
+def check_served(finals, refs, label: str) -> None:
+    """Every served tenant's finalized estimates, counts and |E| equal the
+    dedicated fleet's bit for bit (float32 estimates travel as JSON
+    floats, which round-trip exactly)."""
+    for sid, (msg, ref) in enumerate(zip(finals, refs)):
+        check(msg["type"] == "finalized", f"{label} tenant {sid}: {msg}")
+        check(np.array_equal(np.asarray(msg["estimates"], np.float32),
+                             ref.estimates)
+              and np.array_equal(msg["counts"], ref.window_counts)
+              and np.array_equal(msg["cum_sgrs"], ref.cum_edges),
+              f"{label}: tenant {sid} differs from the dedicated fleet")
+
+
+def serve_in_process(device, tenants, lines, *, nt_w, alpha0, policy,
+                     state_dir=None, wal=True, fsync=True, part=None,
+                     checkpoint=True, finalize=True):
+    """Drive an in-process ``StreamServer`` on ``device`` (pallas, latency
+    budget ``SERVE_BUDGET_MS``): every tenant pushes its lines (``part`` =
+    a slice of them) concurrently.  Returns the finalize replies, the
+    wall seconds of the pushes, client round trips (ms), ``/metrics``,
+    the seconds from construction to ready, and the server."""
+    import asyncio
+
+    from repro_torch.streams.config import EngineConfig, ServingConfig
+    from repro_torch.streams.server import StreamServer
+
+    cfg = EngineConfig(tier="pallas", dup_policy=policy, device=device)
+    part = part or slice(None)
+
+    async def scenario():
+        t0 = time.perf_counter()
+        server = await StreamServer(
+            nt_w=nt_w, alpha0=alpha0,
+            tenants={f"t{s}": s for s in range(len(tenants))}, config=cfg,
+            flush_ms=SERVE_FLUSH_MS, latency_budget_ms=SERVE_BUDGET_MS,
+            checkpoint_dir=None if state_dir is None else str(state_dir),
+            serving=ServingConfig(wal=wal, wal_fsync=fsync)).start()
+        ready = time.perf_counter() - t0
+        lat: list[float] = []
+        t0 = time.perf_counter()
+        finals = await asyncio.gather(*[
+            ndjson_tenant(server.host, server.port, f"t{s}", ls[part], lat,
+                          False) for s, ls in enumerate(lines)])
+        push_s = time.perf_counter() - t0
+        metrics = await http_json(server.host, server.http_port, "/metrics")
+        if finalize:
+            finals = await asyncio.gather(*[
+                ndjson_tenant(server.host, server.port, f"t{s}", [], lat,
+                              True) for s in range(len(lines))])
+        await server.stop(checkpoint=checkpoint)
+        return finals, push_s, lat, metrics, ready, server
+
+    return asyncio.run(scenario())
+
+
+def phase_serving(device, tenants, refs, *, nt_w, alpha0,
+                  batch: int = SERVE_BATCH) -> dict:
+    """Phase 14: phase 12's tenants served over TCP by the port's
+    ``StreamServer`` on pallas, in four legs: (a) a server subprocess on
+    ``device`` (WAL, checkpoints every ``SERVE_CKPT_S`` s, latency budget)
+    SIGKILLed at ``pre_ack`` midway and restarted on its state directory
+    while ``DurableClient``s retry; (b) an in-process server with K1's
+    launches counted, its edges/s with the WAL on and off, ``/metrics``'s
+    push latency and dispatch coalescing, and the device's idle share on a
+    quarter of the records; (c) multiset tenants (K2) across a stop and a
+    restart from checkpoint plus WAL; (d) that restart's time to ready and
+    its replayed WAL records.  Every push carries ``batch`` records, and
+    every served tenant equals phase 12's fleet bit for bit.  Returns K1's
+    and K2's launches and routes."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.streams.faults import (
+        DurableClient,
+        FaultPlan,
+        ServerProcess,
+    )
+
+    n_sgrs = len(tenants[0])
+    n_batches = -(-n_sgrs // batch)
+    total = sum(len(t) for t in tenants)
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="serving_", dir=ROOT / "build"))
+    out = {}
+    try:
+        # (a) a server subprocess on the card, SIGKILLed at pre_ack midway
+        t_leg = time.perf_counter()
+        port, http_port = _free_port(), _free_port()
+        kill_at = n_batches // 2
+        kw = dict(nt_w=nt_w, alpha0=alpha0,
+                  tenants={f"t{s}": s for s in range(len(tenants))},
+                  checkpoint_dir=str(work / "a"), tier="pallas",
+                  device=device.type, checkpoint_every_s=SERVE_CKPT_S,
+                  flush_ms=SERVE_FLUSH_MS,
+                  extra_args=["--port", str(port), "--http-port",
+                              str(http_port), "--latency-budget-ms",
+                              str(SERVE_BUDGET_MS)],
+                  log_path=str(work / "a.log"))
+
+        async def crash_leg():
+            clients = [DurableClient("127.0.0.1", port, f"t{s}")
+                       for s in range(len(tenants))]
+            acked = [0] * len(tenants)
+
+            async def push_all(sid):
+                t = tenants[sid]
+                for a in range(0, n_sgrs, batch):
+                    await clients[sid].push(_records(t, a, a + batch))
+                    acked[sid] += 1
+
+            with ServerProcess(plan=FaultPlan(
+                    {"pre_ack": {"action": "kill", "at": kill_at}}),
+                    **kw) as first:
+                t0 = time.perf_counter()
+                first.wait_ready(timeout_s=300)
+                first_ready = time.perf_counter() - t0
+                check(first.device.startswith(device.type),
+                      f"the server subprocess reports {first.device}")
+                for c in clients:
+                    await c.connect()
+                pushers = [asyncio.create_task(push_all(s))
+                           for s in range(len(tenants))]
+                code = await asyncio.to_thread(first.wait_dead, 300)
+                check(code == -9, f"the server exited {code}, not SIGKILL")
+                at_kill = sum(acked)
+                steps = sorted(p.name for p in (work / "a").glob("step_*"))
+                t0 = time.perf_counter()
+                with ServerProcess(plan=None, **kw) as second:
+                    second.wait_ready(timeout_s=300)
+                    restart = time.perf_counter() - t0
+                    m = await http_json("127.0.0.1", http_port, "/metrics")
+                    await asyncio.wait_for(asyncio.gather(*pushers), 600)
+                    finals = [await c.call({"type": "finalize"})
+                              for c in clients]
+                    for c in clients:
+                        c.close()
+            return (first_ready, at_kill, steps, restart, m, finals,
+                    first.device)
+
+        (first_ready, at_kill, steps, restart, m, finals,
+         served_on) = asyncio.run(crash_leg())
+        check_served(finals, refs["distinct"], "(a) after SIGKILL")
+        log_text = (work / "a.log").read_text()
+        check(f"SIGKILL at pre_ack (traversal {kill_at})" in log_text,
+              f"the planned kill is not in the server's log: {log_text}")
+        log(f"[serve] (a) subprocess `python -m repro_torch.launch."
+            f"serve_streams --device {device.type} --tier pallas` on "
+            f"{served_on}: ready in {first_ready:.4f} s; SIGKILL at pre_ack "
+            f"cycle {kill_at} after {at_kill} of {len(tenants) * n_batches} "
+            f"pushes acked; checkpoints on disk at the kill {steps or 'none'}"
+            f"; restart to ready {restart:.4f} s (interpreter, torch, card "
+            f"and recovery), {m['wal']['replayed']} WAL records replayed, "
+            f"watermarks {m['watermarks']}; every tenant's estimates after "
+            f"recovery bit-identical to phase 12's fleet")
+        log(f"[time] phase 14 (a) subprocess crash: "
+            f"{time.perf_counter() - t_leg:.4f} s")
+
+        # (b) in-process, distinct (K1): WAL on, WAL off, a profiled quarter
+        t_leg = time.perf_counter()
+        lines = push_lines(tenants, batch)
+        log(f"[serve] {len(tenants)} x {n_batches} push lines of "
+            f"{batch} records encoded in "
+            f"{time.perf_counter() - t_leg:.4f} s")
+        rates = {}
+        for wal in (True, False):
+            kk.reset_launch_count()
+            finals, push_s, lat, m, _, server = serve_in_process(
+                device, tenants, lines, nt_w=nt_w, alpha0=alpha0,
+                policy="distinct", state_dir=work / f"b_{wal}" if wal
+                else None, wal=wal, checkpoint=False)
+            sync(device)
+            launches = kk.launch_count("K1")
+            routes = k1_routes(kk)
+            check(launches > 0 or device.type != "cuda",
+                  "the server never launched K1")
+            check(kk.launch_count("K2") == 0, "the server launched K2")
+            check(routes["wgmma"] == launches, f"K1 routes {routes}")
+            check_served(finals, refs["distinct"], f"(b) wal={wal}")
+            agg = m["aggregate"]
+            rates[wal] = total / push_s
+            lat_np = np.asarray(lat)
+            log(f"[serve] (b) in-process, distinct, WAL "
+                f"{'on (fsync per cycle)' if wal else 'off'}: {total} "
+                f"edges in {push_s:.4f} s = {total / push_s:.4f} edges/s; "
+                f"/metrics push ms p50 {agg['push_latency_ms']['p50']:.4f} "
+                f"p99 {agg['push_latency_ms']['p99']:.4f} over "
+                f"{agg['pushes']} cycles ({agg['coalesced_items']} pushes); "
+                f"client round trip ms p50 "
+                f"{np.percentile(lat_np, 50):.4f} p99 "
+                f"{np.percentile(lat_np, 99):.4f}; dispatch_count "
+                f"{agg['dispatch_count']}, coalesced_windows_per_dispatch "
+                f"{agg['coalesced_windows_per_dispatch']:.4f}, reap wait ms "
+                f"p50 {agg['reap_wait_ms']['p50']:.4f}; WAL "
+                f"{m['wal'].get('bytes', 0)} bytes; K1 launches "
+                f"{launches}, routes {routes}; every tenant bit-identical")
+            if wal:
+                out["K1"] = (launches, routes)
+        log(f"[serve] (b) edges/s WAL on / off: {rates[True]:.4f} / "
+            f"{rates[False]:.4f} ({rates[True] / rates[False]:.4f})")
+        # where the WAL's cost lies, on the first quarter of the pushes:
+        # with its fsync per cycle, without it, and without the WAL
+        quarter = slice(0, n_batches // 4)
+        n_q = sum(min(len(t), (n_batches // 4) * batch) for t in tenants)
+        parts = []
+        for label, wal, fsync in (("WAL with fsync", True, True),
+                                  ("WAL without fsync", True, False),
+                                  ("no WAL", False, True)):
+            _, push_s, _, m, _, _ = serve_in_process(
+                device, tenants, lines, nt_w=nt_w, alpha0=alpha0,
+                policy="distinct", state_dir=work / f"q_{wal}_{fsync}"
+                if wal else None, wal=wal, fsync=fsync, part=quarter,
+                checkpoint=False, finalize=False)
+            p = m["aggregate"]["push_latency_ms"]
+            parts.append(f"{label} {n_q / push_s:.4f} edges/s (push ms "
+                         f"p50 {p['p50']:.4f}, p99 {p['p99']:.4f})")
+        log(f"[serve] (b) the WAL's cost on the first {n_batches // 4} "
+            f"pushes of each tenant ({n_q} edges): " + "; ".join(parts))
+        profile(f"server, pallas tier, distinct, {len(tenants)} tenants x "
+                f"first {n_batches // 4} pushes of {batch}, WAL on",
+                lambda: serve_in_process(
+                    device, tenants, lines, nt_w=nt_w, alpha0=alpha0,
+                    policy="distinct", state_dir=work / "b_profile",
+                    part=quarter, checkpoint=False, finalize=False),
+                device)
+        log(f"[time] phase 14 (b) in-process distinct: "
+            f"{time.perf_counter() - t_leg:.4f} s")
+
+        # (c) multiset (K2) across a stop and a restart from checkpoint +
+        # WAL; (d) that restart's time to ready
+        t_leg = time.perf_counter()
+        kk.reset_launch_count()
+        third = n_batches // 3
+        state = work / "c"
+        serve_in_process(device, tenants, lines, nt_w=nt_w, alpha0=alpha0,
+                         policy="multiset", state_dir=state,
+                         part=slice(0, third), finalize=False)
+        # the second third rides the WAL only: no checkpoint at this stop
+        serve_in_process(device, tenants, lines, nt_w=nt_w, alpha0=alpha0,
+                         policy="multiset", state_dir=state,
+                         part=slice(third, 2 * third), checkpoint=False,
+                         finalize=False)
+        finals, _, _, m, ready, server = serve_in_process(
+            device, tenants, lines, nt_w=nt_w, alpha0=alpha0,
+            policy="multiset", state_dir=state,
+            part=slice(2 * third, None), checkpoint=False)
+        sync(device)
+        launches = kk.launch_count("K2")
+        routes = {r: kk.launch_count("K2", r) for r in kk.K2_ROUTES}
+        check(launches > 0 or device.type != "cuda",
+              "the multiset server never launched K2")
+        check(kk.launch_count("K1") == 0, "the multiset server launched K1")
+        check(routes["wgmma_limbs"] == launches, f"K2 routes {routes}")
+        check(server._recovered, "the restarted server did not recover")
+        replayed = m["wal"]["replayed"]
+        check(replayed == len(tenants) * third,
+              f"{replayed} WAL records replayed, expected "
+              f"{len(tenants) * third}")
+        check_served(finals, refs["multiset"], "(c) multiset")
+        out["K2"] = (launches, routes)
+        log(f"[serve] (c) in-process, multiset, stopped after a third "
+            f"(checkpoint) and after two thirds (WAL only), restarted from "
+            f"checkpoint + WAL: K2 launches {launches}, routes {routes}; "
+            f"every tenant bit-identical to phase 12's multiset fleet")
+        log(f"[serve] (d) restart to ready {ready:.4f} s in-process "
+            f"(fleet construction, checkpoint restore and the replay of "
+            f"{replayed} WAL records, {replayed * batch} edges), "
+            f"watermarks {m['watermarks']}")
+        log(f"[time] phase 14 (c, d) multiset restart: "
+            f"{time.perf_counter() - t_leg:.4f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
 
 
 def phase_profile(stream, wb, nt_w, alpha0, device, ex) -> None:
@@ -2109,8 +2488,9 @@ class PhaseClock:
 def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         n_truth: int, dyn_records: int, dyn_nt_w: int, dyn_ids: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
-        alpha0: float = 1.02, tenant_unique: int = 50_000) -> list[dict]:
-    """Phases 0-13 on ``device``; returns the kernels records."""
+        alpha0: float = 1.02, tenant_unique: int = 50_000,
+        serve_batch: int = SERVE_BATCH) -> list[dict]:
+    """Phases 0-14 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -2186,12 +2566,16 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     clock.lap("12 multi-tenant")
     phase_sampled(stream, wb, nt_w, device, replay.window_counts, alpha0)
     clock.lap("13 sampled")
-    # K1's and K2's launches on their paths: the replay, the entries and
-    # the fleets for K1, the multiset stream and the fleets for K2
-    k1_launches += n11 + fleets["K1"][0]
+    serving = phase_serving(device, fleets["tenants"], fleets, nt_w=nt_w,
+                            alpha0=alpha0, batch=serve_batch)
+    clock.lap("14 serving")
+    # K1's and K2's launches on their paths: the replay, the entries, the
+    # fleets and the server for K1; the multiset stream, the fleets and the
+    # server for K2
+    k1_launches += n11 + fleets["K1"][0] + serving["K1"][0]
     k1_routes = {r: k1_routes[r] + r11[r] + fleets["K1"][1][r]
-                 for r in k1_routes}
-    k2_launches += fleets["K2"][0]
+                 + serving["K1"][1][r] for r in k1_routes}
+    k2_launches += fleets["K2"][0] + serving["K2"][0]
     del stream, wb, ex, dyn_closed, dyn_oracle
     arch = get_arch(LM_ARCH)
     cfg = arch.smoke_config() if lm_smoke else arch.full_config()

@@ -1,5 +1,11 @@
 from .config import DUP_POLICIES, EngineConfig
-from .wire import RecordBatch, normalize_records
+from .wire import (
+    RecordBatch,
+    WIRE_COLUMNS,
+    normalize_records,
+    records_from_json,
+    records_to_json,
+)
 from .stream import SgrStream, dedupe_stream, stream_chunks
 from .generators import (
     ba_bipartite_stream,
@@ -25,11 +31,17 @@ from .state import (
     stream_state_init,
 )
 
+# the serving front end (repro_torch.streams.server) is imported explicitly
+# by consumers: it drags in asyncio/logging machinery no library user needs
+
 __all__ = [
     "DUP_POLICIES",
     "EngineConfig",
     "RecordBatch",
+    "WIRE_COLUMNS",
     "normalize_records",
+    "records_from_json",
+    "records_to_json",
     "SgrStream",
     "dedupe_stream",
     "stream_chunks",

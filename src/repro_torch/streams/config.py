@@ -16,8 +16,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["EngineConfig", "DUP_POLICIES", "resolve_engine_config",
-           "resolve_sync_dispatch", "SYNC_DISPATCH_ENV"]
+__all__ = ["EngineConfig", "ServingConfig", "DUP_POLICIES",
+           "resolve_engine_config", "resolve_sync_dispatch",
+           "SYNC_DISPATCH_ENV"]
 
 # escape hatch forcing the engine's blocking flush path (submit + reap in
 # one call) without touching code: SGRAPP_SYNC_DISPATCH=1
@@ -190,6 +191,74 @@ class EngineConfig:
 
     def replace(self, **changes) -> "EngineConfig":
         """A copy with ``changes`` applied (re-validated)."""
+        return dataclasses.replace(self, **changes)
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """Durability and supervision knobs of the serving front end
+    (:class:`repro_torch.streams.server.StreamServer`), the reference's.
+    Separate from :class:`EngineConfig`: they govern the server process
+    (WAL, watchdog restarts, checkpoint retry), not the stream's
+    semantics, so they never serialize into engine checkpoints and may
+    differ across restarts of the same stream.
+
+    Parameters
+    ----------
+    wal : write every admitted push to the per-tenant WAL before acking
+        (needs the server's ``checkpoint_dir``); ``False`` leaves
+        checkpoint-only durability.
+    wal_segment_bytes : WAL segment rotation size.
+    wal_fsync : fsync the WAL once per coalesce cycle (group commit);
+        ``False`` survives a process crash (SIGKILL) but not power loss.
+    restart_backoff : supervisor backoff for crashed internal loops
+        (coalescer, checkpoint loop); restarts are unbounded, the delay is
+        bounded by ``restart_backoff.max_s``.
+    checkpoint_retry : backoff between retries of a failed periodic
+        checkpoint (e.g. disk full).
+    degraded_checkpoint_age_factor : report degraded health when the last
+        successful checkpoint is older than ``factor *
+        checkpoint_every_s``.
+    drain_timeout_s : ``stop()`` waits this long for the coalescer to
+        drain before resolving queued pushes with ``draining``.
+    """
+
+    wal: bool = True
+    wal_segment_bytes: int = 4 << 20
+    wal_fsync: bool = True
+    restart_backoff: object = None
+    checkpoint_retry: object = None
+    degraded_checkpoint_age_factor: float = 3.0
+    drain_timeout_s: float = 10.0
+
+    def __post_init__(self):
+        from ..train.fault import BackoffPolicy
+
+        def pin(name, value):
+            object.__setattr__(self, name, value)
+
+        pin("wal", bool(self.wal))
+        if int(self.wal_segment_bytes) < 1:
+            raise ValueError("wal_segment_bytes must be >= 1")
+        pin("wal_segment_bytes", int(self.wal_segment_bytes))
+        pin("wal_fsync", bool(self.wal_fsync))
+        if self.restart_backoff is None:
+            pin("restart_backoff", BackoffPolicy(initial_s=0.05, max_s=5.0))
+        elif not isinstance(self.restart_backoff, BackoffPolicy):
+            raise TypeError("restart_backoff must be a BackoffPolicy")
+        if self.checkpoint_retry is None:
+            pin("checkpoint_retry", BackoffPolicy(initial_s=0.5, max_s=30.0))
+        elif not isinstance(self.checkpoint_retry, BackoffPolicy):
+            raise TypeError("checkpoint_retry must be a BackoffPolicy")
+        if not (float(self.degraded_checkpoint_age_factor) > 0.0):
+            raise ValueError("degraded_checkpoint_age_factor must be > 0")
+        pin("degraded_checkpoint_age_factor",
+            float(self.degraded_checkpoint_age_factor))
+        if not (float(self.drain_timeout_s) > 0.0):
+            raise ValueError("drain_timeout_s must be > 0")
+        pin("drain_timeout_s", float(self.drain_timeout_s))
+
+    def replace(self, **changes) -> "ServingConfig":
         return dataclasses.replace(self, **changes)
 
 

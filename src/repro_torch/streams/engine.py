@@ -261,6 +261,12 @@ class StreamingSGrapp:
         self.device = self.executor.device
         self._step_fn = estimator_step(cfg.tol, cfg.step, self.device)
         self.sync_dispatch = resolve_sync_dispatch(cfg)
+        # owner-driven dispatch: when True, push() never self-submits at the
+        # flush_every threshold; the engine's owner (the server's deadline
+        # coalescer) schedules _submit_flush / _reap_flush itself.  Runtime
+        # attribute, never serialized; flush()/finalize()/state_dict()
+        # settle everything regardless.
+        self.defer_dispatch = False
         if cfg.warmup:
             self.executor.warmup(cfg.warmup,
                                  multiset=(cfg.dup_policy == "multiset"))
@@ -326,7 +332,7 @@ class StreamingSGrapp:
                                  on_missing_delete=self.on_missing_delete)
         for _, ei, ej, ops, m, end_tau in closed:
             self._pending.append((ei, ej, ops, m, end_tau))
-        if len(self._pending) >= self.flush_every:
+        if len(self._pending) >= self.flush_every and not self.defer_dispatch:
             if self.sync_dispatch:
                 self.flush()
             else:

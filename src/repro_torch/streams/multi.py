@@ -160,6 +160,9 @@ class MultiStreamSGrapp:
         self.device = self.executor.device
         self._step_fn = estimator_step(cfg.tol, cfg.step, self.device)
         self.sync_dispatch = resolve_sync_dispatch(cfg)
+        # owner-driven dispatch, as the single-stream engine: push() skips
+        # the flush_every self-submit so the owner schedules submit/reap
+        self.defer_dispatch = False
         if cfg.warmup:
             self.executor.warmup(
                 cfg.warmup, multiset=(cfg.dup_policy == "multiset"))
@@ -273,7 +276,8 @@ class MultiStreamSGrapp:
             self._pending[s].append((ei, ej, ops, m, end_tau))
             self._pending_streams.add(s)
         self._n_pending_total += len(closed)
-        if self._n_pending_total >= self.flush_every:
+        if (self._n_pending_total >= self.flush_every
+                and not self.defer_dispatch):
             if self.sync_dispatch:
                 self.flush()
             else:

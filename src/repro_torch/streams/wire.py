@@ -17,8 +17,15 @@ i          int64    i-vertex (user) id, ``0 <= i < 2**32``
 j          int64    j-vertex (item) id, ``0 <= j < 2**32``
 ========== ======== =======================================================
 
-The socket framing and the durability sequence numbers of the serving front
-end are not part of this slice of the port.
+On the socket (:mod:`repro_torch.streams.server`) a batch is the JSON object
+``{"tau": [...], "i": [...], "j": [...], "op": [...]?}``; ``stream_id``
+never travels on the wire (the server derives it from the connection's
+token).  :func:`records_from_json` / :func:`records_to_json` are that
+mapping, and a push message's optional ``"seq"`` (a client-assigned,
+1-based, contiguous per-tenant sequence number keying the write-ahead log
+and duplicate detection) is validated by :func:`normalize_seq`.  The codec
+is the reference's: the same objects, the same ``ValueError`` messages, and
+float64 timestamps that round-trip through JSON exactly.
 """
 from __future__ import annotations
 
@@ -32,10 +39,17 @@ __all__ = [
     "RecordBatch",
     "normalize_records",
     "as_columns",
+    "WIRE_COLUMNS",
+    "records_from_json",
+    "records_to_json",
+    "normalize_seq",
 ]
 
 OP_INSERT = 0
 OP_DELETE = 1
+
+# canonical column order of the tagged dynamic wire format
+WIRE_COLUMNS = ("op", "stream_id", "tau", "i", "j")
 
 
 @dataclass(frozen=True)
@@ -110,3 +124,52 @@ def as_columns(tau, edge_i, edge_j, op=None
     ops = (np.zeros(rb.n, dtype=np.int64) if rb.op is None
            else rb.op)
     return rb.tau, rb.edge_i, rb.edge_j, ops
+
+
+def records_from_json(obj, *, stream_id: int = 0) -> RecordBatch:
+    """Parse the socket framing's batch object (``{"tau": [...], "i": [...],
+    "j": [...], "op": [...]?}``) into a normalized :class:`RecordBatch`
+    owned by ``stream_id``.  Raises ``ValueError`` on a malformed object;
+    the server turns that into a ``bad_records`` rejection."""
+    if not isinstance(obj, dict):
+        raise ValueError("records must be an object with tau/i/j columns")
+    missing = [c for c in ("tau", "i", "j") if c not in obj]
+    if missing:
+        raise ValueError(f"records object missing columns {missing}")
+    unknown = sorted(set(obj) - {"tau", "i", "j", "op"})
+    if unknown:
+        raise ValueError(f"records object has unknown columns {unknown}")
+    try:
+        return normalize_records(obj["tau"], obj["i"], obj["j"],
+                                 op=obj.get("op"), stream_id=stream_id)
+    except TypeError as e:  # ragged / non-numeric JSON payloads
+        raise ValueError(f"records columns must be numeric arrays: {e}")
+
+
+def normalize_seq(value) -> int | None:
+    """Validate a push message's durability sequence number: a positive
+    integer (1-based) or ``None`` (absent: the server assigns one).  Bools,
+    floats, strings and non-positive values raise ``ValueError``; the
+    server turns that into a ``bad_seq`` rejection."""
+    if value is None:
+        return None
+    if isinstance(value, bool) or not isinstance(value, (int, np.integer)):
+        raise ValueError(
+            f"seq must be a positive integer, got {type(value).__name__}")
+    if value < 1:
+        raise ValueError(f"seq must be >= 1, got {value}")
+    return int(value)
+
+
+def records_to_json(batch: RecordBatch) -> dict:
+    """Inverse of :func:`records_from_json`: the JSON-serializable batch
+    object a client puts on the socket.  ``stream_id`` is dropped: on the
+    wire, tenancy comes from the connection's token."""
+    obj = {
+        "tau": [float(t) for t in batch.tau],
+        "i": [int(v) for v in batch.edge_i],
+        "j": [int(v) for v in batch.edge_j],
+    }
+    if batch.op is not None:
+        obj["op"] = [int(o) for o in batch.op]
+    return obj

@@ -1,5 +1,5 @@
-"""The executor entries, the multi-tenant engine and the sampled tier on the
-card against the CPU port (marked ``gpu``).
+"""The executor entries, the multi-tenant engine, its serving front end and
+the sampled tier on the card against the CPU port (marked ``gpu``).
 
 Run on a machine with a CUDA device:
 
@@ -11,6 +11,9 @@ ladder reads a host table, so the card equals the CPU bit for bit; counts
 are exact; estimates agree within rtol 1e-6 (float32 ``pow`` on the card
 and on the CPU may differ in the last ulp).
 """
+import asyncio
+import json
+
 import numpy as np
 import pytest
 
@@ -27,6 +30,11 @@ from repro_torch.streams import (  # noqa: E402
     StreamingSGrapp,
     bipartite_pa_stream,
     synthetic_rating_stream,
+)
+from repro_torch.streams.server import StreamServer  # noqa: E402
+from repro_torch.streams.wire import (  # noqa: E402
+    normalize_records,
+    records_to_json,
 )
 
 pytestmark = pytest.mark.gpu
@@ -163,3 +171,57 @@ def test_multistream_on_pallas_equals_dedicated_engines(cuda, policy,
             else:
                 np.testing.assert_allclose(res[sid].estimates, ref.estimates,
                                            rtol=1e-6)
+
+
+@pytest.mark.parametrize("policy,kernel", (("distinct", "K1"),
+                                           ("multiset", "K2")))
+def test_server_on_the_card_equals_a_dedicated_fleet(cuda, tmp_path, policy,
+                                                     kernel):
+    """Three tenants over TCP into an in-process server on the card (WAL,
+    latency budget), stopped and restarted from its checkpoint halfway:
+    every tenant equals a dedicated fleet on the card bit for bit, and the
+    server's engine launched the policy's kernel."""
+    streams = [synthetic_rating_stream(n_users=80, n_items=60, n_edges=1200,
+                                       seed=seed, temporal="uniform",
+                                       n_unique=240) for seed in (6, 9, 12)]
+    card = EngineConfig(tier="pallas", dup_policy=policy, device=cuda)
+    kw = dict(nt_w=NT_W, alpha0=0.95, tenants={f"t{s}": s for s in range(3)},
+              config=card, flush_ms=1.0, latency_budget_ms=5.0,
+              checkpoint_dir=str(tmp_path / "ckpt"))
+
+    async def leg(lo, hi, finalize):
+        server = await StreamServer(**kw).start()
+        finals = []
+        for sid, s in enumerate(streams):
+            r, w = await asyncio.open_connection(server.host, server.port)
+
+            async def call(msg):
+                w.write((json.dumps(msg) + "\n").encode())
+                await w.drain()
+                return json.loads(await r.readline())
+
+            assert (await call({"type": "hello", "token": f"t{sid}"}))[
+                "type"] == "hello_ok"
+            for a in range(lo, hi, 100):
+                rec = records_to_json(normalize_records(
+                    s.tau[a:a + 100], s.edge_i[a:a + 100],
+                    s.edge_j[a:a + 100]))
+                assert (await call({"type": "push", "records": rec}))[
+                    "type"] == "ack"
+            if finalize:
+                finals.append(await call({"type": "finalize"}))
+            w.close()
+        await server.stop()
+        return finals
+
+    kk.reset_launch_count()
+    asyncio.run(leg(0, 600, False))
+    finals = asyncio.run(leg(600, 1200, True))
+    assert kk.launch_count(kernel) > 0
+    fleet_eng = MultiStreamSGrapp(3, NT_W, 0.95, config=card)
+    for sid, s in enumerate(streams):
+        fleet_eng.push(sid, s.tau, s.edge_i, s.edge_j)
+    for msg, ref in zip(finals, fleet_eng.finalize()):
+        np.testing.assert_array_equal(msg["counts"], ref.window_counts)
+        np.testing.assert_array_equal(
+            np.asarray(msg["estimates"], np.float32), ref.estimates)

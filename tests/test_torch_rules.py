@@ -12,6 +12,7 @@ from repro_torch.core import WindowExecutor, run_sgrapp, run_sgrapp_x  # noqa: E
 from repro_torch.core.sgrapp import sgrapp_estimate  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
+from repro_torch.launch import serve_streams  # noqa: E402
 from repro_torch.launch.serve import load_model, monitor_butterflies  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     init_cache,
@@ -23,6 +24,7 @@ from repro_torch.streams import (  # noqa: E402
     StreamingSGrapp,
     bipartite_pa_stream,
 )
+from repro_torch.streams.server import StreamServer  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
@@ -52,11 +54,20 @@ def test_scan_sees_every_module():
     assert {"executor.py", "sgrapp.py", "engine.py", "butterfly_kernel.py",
             "ops.py", "build.py", "chip_smoke.py", "flash_kernel.py",
             "attention.py", "model.py", "convert.py", "serve.py",
-            "registry.py", "common.py", "rope.py"} <= names
+            "registry.py", "common.py", "rope.py", "server.py", "wal.py",
+            "faults.py", "checkpoint.py", "fault.py", "serve_streams.py",
+            "datasets.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/kernels/build.py",
             "src/repro_torch/kernels/butterfly/build.py",
-            "src/repro_torch/kernels/flash_attention/build.py"} <= rel
+            "src/repro_torch/kernels/flash_attention/build.py",
+            "src/repro_torch/streams/server.py",
+            "src/repro_torch/streams/wal.py",
+            "src/repro_torch/streams/faults.py",
+            "src/repro_torch/streams/datasets.py",
+            "src/repro_torch/train/checkpoint.py",
+            "src/repro_torch/train/fault.py",
+            "src/repro_torch/launch/serve_streams.py"} <= rel
     assert imported_roots(ROOT / "tests" / "test_torch_engine.py") >= {
         "repro", "repro_torch"}
 
@@ -100,10 +111,17 @@ def small_batch():
     lambda: load_model("phi4-mini-3.8b", smoke=True),
     lambda: params_from_reference({}, get_arch("phi4-mini-3.8b").smoke_config()),
     lambda: monitor_butterflies(np.zeros((1, 2), int), np.zeros((1, 1), int)),
+    lambda: StreamServer(nt_w=20, alpha0=1.0, tenants={"a": 0}),
+    lambda: StreamServer(nt_w=20, alpha0=1.0, tenants={"a": 0},
+                         config=EngineConfig(tier="pallas")),
+    lambda: serve_streams.main(["--nt-w", "20", "--tenant", "a:0",
+                                "--tier", "pallas"]),
 ], ids=["run_sgrapp_pallas", "run_sgrapp_default", "run_sgrapp_x",
         "executor_pallas", "executor_numpy", "engine", "estimator",
         "resolve_cuda", "init_lm_params", "init_cache", "serve_load_model",
-        "params_from_reference", "monitor_butterflies"])
+        "params_from_reference", "monitor_butterflies",
+        "stream_server_default", "stream_server_pallas",
+        "serve_streams_main"])
 def test_without_a_card_entry_points_raise(no_card, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
