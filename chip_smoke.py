@@ -18,8 +18,10 @@ K3, drives the executor's entries (``run`` in sliding mode,
 ``count_edges``, ``decrement_window_counts``), eight tenants through
 ``MultiStreamSGrapp`` and the ``sampled`` tier and reservoir, serves those
 tenants over TCP through the port's ``StreamServer`` (a server subprocess
-SIGKILLed and recovered, WAL and checkpoints), and serves phi4-mini-3.8b at
-full width (prefill attention through K4).  Every check
+SIGKILLed and recovered, WAL and checkpoints), runs the paper's SS3
+analysis, shards the executor's windows and the ring counter's Gram over
+several devices, and serves phi4-mini-3.8b at full width (prefill
+attention through K4).  Every check
 raises on failure, so the exit code is non-zero unless all phases pass.
 
 Phases (each path's launch counts are set to 0 just before it runs and read
@@ -138,9 +140,30 @@ just after):
    tenants, stopped after a third (checkpoint) and after two thirds (WAL
    only) and restarted from checkpoint + WAL, K2's launches all on route
    ``wgmma_limbs``; (d) that restart's time to ready and its replayed WAL
-   records.  Every served tenant equals phase 12's fleet bit for bit.
+   records.  Every served tenant equals phase 12's fleet bit for bit;
+15. analysis and sharding (K1, K2): (a) the paper's SS3 analysis
+   (``core.analysis``: growth curve, power-law and polynomial fits, hubs,
+   degree/support correlation, young/old hubs, inter-arrival gaps, alpha =
+   P(t)) on the first 5,000 sgrs, with the fitted eta and the run time;
+   ``butterfly_support_dense`` on the card equal to
+   ``butterfly_support_np`` on the largest window, and ``Snapshot.count()``
+   to the oracle; (b) the executor's ``devices=`` under each layout (one
+   shard per card where there are several, and ``[cuda:0] * 2``,
+   ``[cuda:0] * 3``): the pallas replay and ``run_sgrapp`` equal phase 2
+   bit for bit with every K1 launch on ``wgmma``, the multiset engine
+   equal to phase 4 with every K2 launch on ``wgmma_limbs``, dense /
+   tiled / sparse / auto / sampled (seed 0) on every 10th window equal to
+   their unsharded counts, ``StreamingSGrapp(devices=)`` at mb=256 equal
+   to phase 3's replay, and each layout's wall time with the number of
+   distinct cards it used; (c) the Gram-sharded ring counter
+   (``core.distributed``) on (2, 2) and (1, 3) grids over every 10th
+   window under both schedules, and ``distributed_count_dense`` on the
+   largest window, equal to phase 2.
 
-Phases 11-14 run after phase 8, before K4 and serving.  Each phase's wall
+On a machine with several cards phase 15 also shards over the distinct
+cards (up to 4); the script needs one card.
+
+Phases 11-15 run after phase 8, before K4 and serving.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -910,13 +933,14 @@ def max_vertex_sq(wins) -> int:
     return top
 
 
-def phase_multiset(stream, wins, nt_w, alpha0, device,
-                   seen: dict) -> int:
+def phase_multiset(stream, wins, nt_w, alpha0, device, seen: dict):
     """Phase 4: the multiset engine on pallas (K2) and dense, held to
     itself bit for bit across micro-batch sizes and a restore, and to the
     int64 oracle on ``wins`` (``replay_dynamic``'s windows) within
     RTOL_MULTISET.  The largest stack K2 receives in the counted run is
-    kept in ``seen`` for phase 1's K2 check."""
+    kept in ``seen`` for phase 1's K2 check.  Returns K2's launches, its
+    routes and the pallas counts (phase 15 holds the sharded engine to
+    them)."""
     import torch
 
     from repro_torch.core import count_butterflies_multiset_np
@@ -935,7 +959,7 @@ def phase_multiset(stream, wins, nt_w, alpha0, device,
                                          restore_at=n // 2)
         sync(device)
     sec = time.perf_counter() - t0
-    launches = kk.launch_count("K2")
+    launches, routes = kk.launch_count("K2"), k2_routes(kk)
     check(launches > 0 or device.type != "cuda",
           "the multiset engine never launched K2")
     check(kk.launch_count("K2", "wgmma_limbs") == launches,
@@ -1012,7 +1036,7 @@ def phase_multiset(stream, wins, nt_w, alpha0, device,
         f"{RTOL_MULTISET}); {n_exact} of them keep W^2, S and the pair sum "
         f"below 2**24 and are exact; largest W^2 {top[1]:.6g} and S "
         f"{max(x[2] for x in envelope):.6g} (window {top[0]})")
-    return launches
+    return launches, routes, res.window_counts
 
 
 def phase_dynamic(device, *, n_records, nt_w, n_ids, seed, alpha0):
@@ -1276,6 +1300,16 @@ def k1_routes(kk) -> dict:
     return {r: kk.launch_count("K1", r) for r in kk.ROUTES}
 
 
+def k2_routes(kk) -> dict:
+    """K2's launches so far by route."""
+    return {r: kk.launch_count("K2", r) for r in kk.K2_ROUTES}
+
+
+def add_routes(*routes: dict) -> dict:
+    """The sum of route counts, route by route."""
+    return {r: sum(d[r] for d in routes) for r in routes[0]}
+
+
 def phase_entries(stream, wb, nt_w, device, replay_counts, dyn_closed,
                   dyn_oracle) -> tuple[int, dict]:
     """Phase 11: the executor's entries on pallas (K1): ``run`` in tumbling
@@ -1452,8 +1486,7 @@ def phase_multistream(device, *, n_sgrs, n_unique, nt_w, seed,
         sync(device)
         sec = time.perf_counter() - t0
         launches = kk.launch_count(kernel)
-        routes = (k1_routes(kk) if kernel == "K1" else
-                  {r: kk.launch_count("K2", r) for r in kk.K2_ROUTES})
+        routes = k1_routes(kk) if kernel == "K1" else k2_routes(kk)
         other = "K2" if kernel == "K1" else "K1"
         check(launches > 0 or device.type != "cuda",
               f"the {policy} fleet never launched {kernel}")
@@ -1953,8 +1986,7 @@ def phase_serving(device, tenants, refs, *, nt_w, alpha0,
             policy="multiset", state_dir=state,
             part=slice(2 * third, None), checkpoint=False)
         sync(device)
-        launches = kk.launch_count("K2")
-        routes = {r: kk.launch_count("K2", r) for r in kk.K2_ROUTES}
+        launches, routes = kk.launch_count("K2"), k2_routes(kk)
         check(launches > 0 or device.type != "cuda",
               "the multiset server never launched K2")
         check(kk.launch_count("K1") == 0, "the multiset server launched K1")
@@ -2473,6 +2505,330 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
     return {"launches": launches, "max_abs_err": err}
 
 
+def sync_all(devices) -> None:
+    """Wait for every CUDA device among ``devices`` (a sharded run may
+    queue work on several)."""
+    import torch
+
+    for d in {d for d in devices if d.type == "cuda"}:
+        torch.cuda.synchronize(d)
+
+
+def phase_analysis(stream, wb, device, replay_counts, max_edges=5000):
+    """Phase 15 (a): the paper's SS3 analysis on the first ``max_edges``
+    sgrs (the reference's cap), and the dense per-vertex support on the
+    card against the int64 oracle on the largest smoke window."""
+    import torch
+
+    from repro_torch.core import analysis as an
+    from repro_torch.core.butterfly import (
+        Snapshot,
+        butterfly_support_dense,
+        butterfly_support_np,
+        count_butterflies_np,
+    )
+
+    n = min(max_edges, len(stream))
+    ei, ej, tau = stream.edge_i[:n], stream.edge_j[:n], stream.tau[:n]
+    t0 = time.perf_counter()
+    ts, curve = an.butterfly_growth_curve(stream.edge_i, stream.edge_j,
+                                          max_edges=n, stride=50)
+    eta, c, r2 = an.fit_power_law(ts, curve)
+    fits = an.fit_polynomials(ts, curve)
+    di = np.bincount(ei, minlength=stream.n_i)
+    hubs = an.hub_mask(di)
+    frac = an.butterfly_hub_fractions(ei, ej, stream.n_i, stream.n_j)
+    corr = an.degree_support_correlation(ei, ej, stream.n_i, stream.n_j)
+    conn = an.hub_connection_fraction(di, n)
+    first = np.full(stream.n_i, np.inf)
+    for t in range(n - 1, -1, -1):
+        first[ei[t]] = tau[t]
+    young, old = an.young_old_hubs(di, first, np.unique(tau))
+    gaps = an.interarrival_distribution(stream.tau, stream.edge_i,
+                                        stream.edge_j, max_edges=n)
+    alpha = an.hub_probability_exponent(stream.edge_i, stream.edge_j,
+                                        stream.n_i, stream.n_j, n)
+    sec = time.perf_counter() - t0
+    b_n = count_butterflies_np(stream.edges()[:n])
+    check(len(curve) == n // 50 and np.all(np.diff(curve) >= 0)
+          and curve[-1] == b_n, "growth curve not monotone or off the oracle")
+    check(len(fits) == 10 and all(np.isfinite(f.rmse) for f in fits),
+          "polynomial fits")
+    check(hubs.dtype == bool and hubs.sum() > 0, "no hub in the prefix")
+    if frac["n_butterflies"]:
+        check(frac["n_butterflies"] == b_n, "hub fractions count another "
+              "number of butterflies than the oracle")
+        for k in ("hubs_0_4", "i_hubs_0_2", "j_hubs_0_2"):
+            check(abs(frac[k].sum() - 1.0) < 1e-9, f"{k} does not sum to 1")
+        check(gaps.size == 6 * b_n and np.all(gaps >= 0),
+              "inter-arrival sample: 6 edge pairs per butterfly")
+        check(0.0 <= alpha <= 2.0, f"hub probability exponent {alpha}")
+    check(0.0 <= conn <= 1.0 and young >= 0 and old >= 0, "hub statistics")
+    log(f"[analysis] first {n} sgrs in {sec:.4f} s: {b_n} butterflies; "
+        f"B(t) ~ |E(t)|^eta with eta {eta:.6f} (c {c:.6g}, R^2 {r2:.6f}) "
+        f"over {len(curve)} points; best polynomial R^2 "
+        f"{max(f.r2 for f in fits):.6f}; {int(hubs.sum())} i-hubs; hub "
+        f"fractions 0-4 {np.round(frac['hubs_0_4'], 4).tolist()}; "
+        f"degree/support Pearson i {corr[0]:.4f}, j {corr[1]:.4f}; hub "
+        f"connection fraction {conn:.6g}; young/old hubs {young}/{old}; "
+        f"{gaps.size} inter-arrival gaps (median "
+        f"{np.median(gaps) if gaps.size else float('nan'):.6g}); alpha = "
+        f"P(t) {alpha:.6f}")
+
+    k = int(np.argmax(wb.n_i_per_window.astype(np.int64)
+                      * wb.n_j_per_window))
+    n_i, n_j = int(wb.n_i_per_window[k]), int(wb.n_j_per_window[k])
+    v = wb.valid[k]
+    edges = np.stack([wb.edge_i[k][v], wb.edge_j[k][v]], 1)
+    lanes = [torch.as_tensor(x[k], device=device)
+             for x in (wb.edge_i, wb.edge_j, wb.valid)]
+    snap = Snapshot(*lanes, n_i, n_j)
+    adj = torch.zeros((n_i, n_j), dtype=torch.float32, device=device)
+    adj[lanes[0][lanes[2]].long(), lanes[1][lanes[2]].long()] = 1.0
+    t0 = time.perf_counter()
+    sup = butterfly_support_dense(adj)
+    sync(device)
+    dsec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = butterfly_support_np(edges, n_i, n_j)
+    nsec = time.perf_counter() - t0
+    for side, got, w in zip("ij", sup, want):
+        check(got.device.type == device.type, "support left the device")
+        check(w.sum() < 2**24 and np.array_equal(got.cpu().numpy(), w),
+              f"butterfly_support_dense ({side}) differs from the oracle")
+    count = float(snap.count())
+    check(count == count_butterflies_np(edges) == replay_counts[k],
+          f"Snapshot.count() {count} differs from the oracle")
+    log(f"[analysis] window {k} ({n_i} x {n_j} ids, {len(edges)} edges, "
+        f"{int(count)} butterflies): butterfly_support_dense on the card "
+        f"({dsec * 1e3:.4f} ms, both Grams) equals butterfly_support_np "
+        f"({nsec * 1e3:.4f} ms) on every vertex; largest support i "
+        f"{int(want[0].max())}, j {int(want[1].max())}; Snapshot.count() "
+        f"equals count_butterflies_np")
+
+
+def shard_layouts(device) -> list[list]:
+    """The shard layouts of phase 15: one shard per card (up to 4) where
+    the machine has more than one, then two and three shards on the first
+    card (three never divides the window count: the pad windows are
+    live)."""
+    import torch
+
+    first = torch.device(device.type, 0) if device.type == "cuda" else device
+    layouts = []
+    n = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n > 1:
+        layouts.append([torch.device("cuda", k) for k in range(min(n, 4))])
+    return layouts + [[first] * 2, [first] * 3]
+
+
+def phase_sharded(stream, wb, nt_w, alpha0, device, replay,
+                  multiset_counts, mb: int = 256):
+    """Phase 15 (b): the executor's window sharding (``devices=``) under
+    each layout: the pallas replay (K1) and run_sgrapp equal phase 2 bit
+    for bit, the multiset engine (K2) equals phase 4, dense / tiled /
+    sparse / auto / sampled on every 10th window equal their unsharded
+    counts, and the pallas engine at mb=256 equals phase 3's replay.  The
+    replay's yardstick is an unsharded replay with a fresh executor, as
+    each layout's is; each layout first runs one window per shard, so that
+    no time holds a card's first launches.  Returns K1's and K2's launches
+    over the phase, each with its routes as read after each run."""
+    from repro_torch.core import WindowExecutor, run_sgrapp
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.streams import EngineConfig
+
+    n = len(stream)
+    cols = (stream.tau, stream.edge_i, stream.edge_j)
+    sub = wb.take(np.arange(0, wb.n_windows, 10))
+    tiers = {"dense": {}, "tiled": {}, "sparse": {}, "auto": {},
+             "sampled": dict(capacity=2048, seed=0)}
+    one = {t: WindowExecutor(t, device=device, **kw).window_counts(sub)
+           for t, kw in tiers.items()}
+    kk.reset_launch_count()
+    t0 = time.perf_counter()
+    run_sgrapp(wb, alpha0, executor=WindowExecutor("pallas", device=device))
+    sync(device)
+    replay_sec = time.perf_counter() - t0
+    k1_total, k1_seen = kk.launch_count("K1"), [k1_routes(kk)]
+    k2_total, k2_seen = kk.launch_count("K2"), [k2_routes(kk)]
+    for devs in shard_layouts(device):
+        cards = len({d for d in devs if d.type == "cuda"})
+        label = f"[{', '.join(str(d) for d in devs)}]"
+        lap = time.perf_counter()
+        ex = WindowExecutor("pallas", devices=devs)
+        check(ex.n_shards == len(devs) and ex.device == devs[0],
+              f"{label}: {ex.n_shards} shards on {ex.device}")
+        # a card's first launches (context, kernel modules) stay out of
+        # the times: one all-invalid window of the largest rung per shard
+        kk.reset_launch_count()
+        top = ex.plan(wb)[-1]
+        rung = [(top.cap_e, top.cap_i, top.cap_j)]
+        ex.warmup(rung)
+        ex.warmup(rung, multiset=True)
+        sync_all(devs)
+        k1_total += kk.launch_count("K1")
+        k2_total += kk.launch_count("K2")
+        k1_seen.append(k1_routes(kk))
+        k2_seen.append(k2_routes(kk))
+        kk.reset_launch_count()
+        t0 = time.perf_counter()
+        res = run_sgrapp(wb, alpha0, executor=ex)
+        sync_all(devs)
+        sec = time.perf_counter() - t0
+        k1 = kk.launch_count("K1")
+        check(k1 > 0 or device.type != "cuda",
+              f"{label}: the sharded replay never launched K1")
+        check(kk.launch_count("K1", "wgmma") == k1,
+              f"{label}: a sharded K1 launch was not on route wgmma")
+        check(np.array_equal(res.window_counts, replay.window_counts),
+              f"{label}: sharded pallas counts differ from phase 2")
+        check(np.array_equal(res.estimates, replay.estimates),
+              f"{label}: sharded estimates differ from phase 2")
+        k1_total += k1
+        k1_seen.append(k1_routes(kk))
+
+        kk.reset_launch_count()
+        t0 = time.perf_counter()
+        _, ms, _, _ = push_engine(EngineConfig(
+            tier="pallas", dup_policy="multiset", flush_every=32,
+            devices=devs), nt_w, alpha0, *cols, mb=n)
+        sync_all(devs)
+        ms_sec = time.perf_counter() - t0
+        k2 = kk.launch_count("K2")
+        check(k2 > 0 or device.type != "cuda",
+              f"{label}: the sharded multiset engine never launched K2")
+        check(kk.launch_count("K2", "wgmma_limbs") == k2,
+              f"{label}: a sharded K2 launch was not on route wgmma_limbs")
+        check(kk.launch_count("K1") == 0,
+              f"{label}: the multiset engine launched K1")
+        check(np.array_equal(ms.window_counts, multiset_counts),
+              f"{label}: sharded multiset counts differ from phase 4")
+        k2_total += k2
+        k2_seen.append(k2_routes(kk))
+
+        t0 = time.perf_counter()
+        for t, kw in tiers.items():
+            got = WindowExecutor(t, devices=devs, **kw).window_counts(sub)
+            check(np.array_equal(got, one[t]),
+                  f"{label}: sharded {t} differs from unsharded on every "
+                  "10th window")
+        tier_sec = time.perf_counter() - t0
+
+        kk.reset_launch_count()
+        t0 = time.perf_counter()
+        _, st, _, _ = push_engine(EngineConfig(
+            tier="pallas", flush_every=32, devices=devs), nt_w, alpha0,
+            *cols, mb=mb)
+        sync_all(devs)
+        st_sec = time.perf_counter() - t0
+        check(np.array_equal(st.window_counts, replay.window_counts)
+              and np.array_equal(st.estimates, replay.estimates),
+              f"{label}: the sharded engine differs from phase 3's replay")
+        k1_stream = kk.launch_count("K1")
+        check(kk.launch_count("K1", "wgmma") == k1_stream,
+              f"{label}: a sharded engine K1 launch was not on route wgmma")
+        k1_total += k1_stream
+        k1_seen.append(k1_routes(kk))
+        wall = time.perf_counter() - lap
+        log(f"[sharded] {label}: {len(devs)} shards on {cards} distinct "
+            f"card(s); pallas replay {sec:.4f} s (unsharded "
+            f"{replay_sec:.4f} s), counts and run_sgrapp estimates equal "
+            f"phase 2 bit for bit, K1 launches {k1}, all on route wgmma; "
+            f"multiset engine (mb={n}, {ms_sec:.4f} s) equals phase 4 bit "
+            f"for bit, K2 launches {k2}, all on route wgmma_limbs; dense, "
+            f"tiled, sparse, auto and sampled (capacity 2048, seed 0) equal "
+            f"their unsharded counts on every 10th window ({sub.n_windows}; "
+            f"{tier_sec:.4f} s); StreamingSGrapp(devices=) at mb={mb} "
+            f"({st_sec:.4f} s) equals phase 3's replay, K1 launches "
+            f"{k1_stream}; layout wall {wall:.4f} s"
+            + ("" if cards > 1 else
+               " (one card: the shards run one after another, so this time "
+               "says nothing about scale-out)"))
+    return ((k1_total, add_routes(*k1_seen)),
+            (k2_total, add_routes(*k2_seen)))
+
+
+def grid_devices(device, n: int) -> list:
+    """``n`` devices for a grid: distinct cards where the machine has
+    that many, else the first card ``n`` times."""
+    import torch
+
+    if device.type == "cuda" and torch.cuda.device_count() >= n:
+        return [torch.device("cuda", k) for k in range(n)]
+    first = torch.device(device.type, 0) if device.type == "cuda" else device
+    return [first] * n
+
+
+def phase_ring(wb, device, replay_counts):
+    """Phase 15 (c): the Gram-sharded ring counter on (2, 2) and (1, 3)
+    grids (of distinct cards where there are enough, else of the first
+    card) over every 10th window, under both schedules, and
+    ``distributed_count_dense`` on the largest window, against phase 2's
+    counts (exact below 2**24, rtol 1e-6 past it)."""
+    import torch
+
+    from repro_torch.core.butterfly import build_biadjacency
+    from repro_torch.core.distributed import (
+        distributed_count_dense,
+        make_distributed_window_counter,
+    )
+    from repro_torch.core.executor import _pad_window_axis
+    from repro_torch.launch.mesh import make_mesh
+
+    idx = np.arange(0, wb.n_windows, 10)
+    want = replay_counts[idx]
+
+    def held(got, want, what):
+        exact = want < 2**24
+        check(np.array_equal(got[exact], want[exact]),
+              f"{what}: counts below 2**24 differ from phase 2")
+        rel = np.abs(got[~exact] - want[~exact]) / want[~exact]
+        check(np.all(rel <= 1e-6), f"{what}: counts past 2**24 off by "
+              f"{rel.max() if rel.size else 0}")
+
+    for shape in ((2, 2), (1, 3)):
+        devs = grid_devices(device, shape[0] * shape[1])
+        first = devs[0]
+        mesh = make_mesh(shape, ("data", "model"), devs)
+        lanes = _pad_window_axis(wb.edge_i[idx], wb.edge_j[idx],
+                                 wb.valid[idx], multiple=shape[0])
+        for half, wire in ((False, None), (True, torch.int8)):
+            fn = make_distributed_window_counter(
+                wb.n_i, wb.n_j, mesh, half_ring=half, wire_dtype=wire)
+            t0 = time.perf_counter()
+            got = fn(*lanes)
+            sync_all(devs)
+            sec = time.perf_counter() - t0
+            check(got.device == first, "ring counts left the home device")
+            got = got.cpu().numpy().astype(np.float64)
+            held(got[:len(idx)], want, f"ring {shape}")
+            check(np.all(got[len(idx):] == 0), "pad windows counted")
+            log(f"[ring] grid {shape} (data, model) on "
+                f"{len(set(devs))} distinct device(s) ({first} first), "
+                f"{'half ring, int8 wire' if half else 'full ring, fp32 wire'}"
+                f": {len(idx)} windows (every 10th) at {wb.n_i} x {wb.n_j} "
+                f"in {sec:.4f} s, equal to phase 2")
+    k = int(np.argmax(wb.n_i_per_window.astype(np.int64)
+                      * wb.n_j_per_window))
+    n_i = -(-int(wb.n_i_per_window[k]) // 3) * 3
+    adj = build_biadjacency(*(torch.as_tensor(x[k], device=device)
+                              for x in (wb.edge_i, wb.edge_j, wb.valid)),
+                            n_i, int(wb.n_j_per_window[k]))
+    devs = grid_devices(device, 3)
+    adj = adj.to(devs[0])
+    mesh = make_mesh((1, 3), ("data", "model"), devs)
+    t0 = time.perf_counter()
+    total = distributed_count_dense(adj, mesh)
+    sync_all(devs)
+    sec = time.perf_counter() - t0
+    held(np.array([float(total)]), replay_counts[k:k + 1],
+         "distributed_count_dense")
+    log(f"[ring] distributed_count_dense on window {k} ({n_i} x "
+        f"{adj.shape[1]}, 3 row-blocks, half ring, int8 wire): "
+        f"{float(total):.0f} butterflies in {sec * 1e3:.4f} ms, equal to "
+        f"phase 2")
+
+
 class PhaseClock:
     """Logs the wall time of each phase since the previous lap."""
 
@@ -2490,7 +2846,7 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
         alpha0: float = 1.02, tenant_unique: int = 50_000,
         serve_batch: int = SERVE_BATCH) -> list[dict]:
-    """Phases 0-14 on ``device``; returns the kernels records."""
+    """Phases 0-15 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -2541,7 +2897,8 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     phase_stream(stream, nt_w, alpha0, device, replay)
     clock.lap("3 stream")
     seen: dict = {}
-    k2_launches = phase_multiset(stream, wins, nt_w, alpha0, device, seen)
+    k2_launches, k2_routes, multiset_counts = phase_multiset(
+        stream, wins, nt_w, alpha0, device, seen)
     clock.lap("4 multiset")
     del wins
     kern2 = phase_kernel_k2(seen, device)
@@ -2569,13 +2926,23 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     serving = phase_serving(device, fleets["tenants"], fleets, nt_w=nt_w,
                             alpha0=alpha0, batch=serve_batch)
     clock.lap("14 serving")
-    # K1's and K2's launches on their paths: the replay, the entries, the
-    # fleets and the server for K1; the multiset stream, the fleets and the
-    # server for K2
-    k1_launches += n11 + fleets["K1"][0] + serving["K1"][0]
-    k1_routes = {r: k1_routes[r] + r11[r] + fleets["K1"][1][r]
-                 + serving["K1"][1][r] for r in k1_routes}
-    k2_launches += fleets["K2"][0] + serving["K2"][0]
+    phase_analysis(stream, wb, device, replay.window_counts)
+    clock.lap("15 (a) analysis")
+    k1_15, k2_15 = phase_sharded(stream, wb, nt_w, alpha0, device, replay,
+                                 multiset_counts)
+    clock.lap("15 (b) sharded executor")
+    phase_ring(wb, device, replay.window_counts)
+    clock.lap("15 (c) ring counter")
+    # K1's and K2's launches on their paths, each with its routes as read
+    # after its run: the replay, the entries, the fleets, the server and
+    # the sharded executor for K1; the multiset stream, the fleets, the
+    # server and the sharded executor for K2
+    k1_launches += n11 + fleets["K1"][0] + serving["K1"][0] + k1_15[0]
+    k1_routes = add_routes(k1_routes, r11, fleets["K1"][1], serving["K1"][1],
+                           k1_15[1])
+    k2_launches += fleets["K2"][0] + serving["K2"][0] + k2_15[0]
+    k2_routes = add_routes(k2_routes, fleets["K2"][1], serving["K2"][1],
+                           k2_15[1])
     del stream, wb, ex, dyn_closed, dyn_oracle
     arch = get_arch(LM_ARCH)
     cfg = arch.smoke_config() if lm_smoke else arch.full_config()
@@ -2605,7 +2972,7 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
          "route": "cuda",
          "source": src + "butterfly_windows_multiset_wgmma.cu",
          "replaces": ref + "191", "launches": k2_launches,
-         "routes": {"wgmma_limbs": k2_launches},
+         "routes": k2_routes,
          **{k: kern2[k] for k in keys}},
         {"name": "butterfly_pairs (K3: K1's kernel at B = 1)",
          "route": "cuda", "source": src + "butterfly_windows_wgmma.cu",

@@ -44,6 +44,7 @@ materializing ``W``.
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,6 +68,12 @@ __all__ = [
     "count_butterflies_from_edges_multiset",
     "count_butterflies_sampled_from_edges",
     "snapshot_count",
+    "Snapshot",
+    "enumerate_butterflies_np",
+    "butterfly_support_np",
+    "count_caterpillars_np",
+    "butterfly_support_dense",
+    "full_fp32_matmul",
     "count_butterflies_tiled",
     "count_butterflies_tiled_multiset",
     "count_butterflies_sparse",
@@ -272,6 +279,65 @@ def window_wedge_counts_np(edge_i: np.ndarray, edge_j: np.ndarray,
         d = np.bincount(keys % span)
         out[k] = int((d * (d - 1) // 2).sum())
     return out
+
+
+def enumerate_butterflies_np(edges: np.ndarray) -> np.ndarray:
+    """Enumerate distinct butterflies as (i1, i2, j1, j2) rows (i1<i2, j1<j2).
+
+    Used by the SS3 analysis (hub membership, inter-arrival).  Only meant
+    for small snapshots (the paper itself caps at 5000 sgrs).
+    """
+    e = _dedupe_edges_np(np.asarray(edges))
+    if e.shape[0] < 4:
+        return np.zeros((0, 4), dtype=np.int64)
+    order = np.lexsort((e[:, 0], e[:, 1]))
+    i_sorted, j_sorted = e[order, 0], e[order, 1]
+    _, starts = np.unique(j_sorted, return_index=True)
+    counts = np.diff(np.append(starts, j_sorted.shape[0]))
+    # wedges (i1 < i2, hub j)
+    p, t = _group_pairs_np(starts, counts)
+    if p.size == 0:
+        return np.zeros((0, 4), dtype=np.int64)
+    w1, w2, wj = i_sorted[p], i_sorted[t], j_sorted[t]
+    # butterflies: pairs of wedges sharing (i1, i2); sorting by (key, j)
+    # keeps each key group's hubs ascending, so j1 < j2
+    key = w1 << 32 | w2
+    order2 = np.lexsort((wj, key))
+    key_s, wj_s = key[order2], wj[order2]
+    w1_s, w2_s = w1[order2], w2[order2]
+    _, kstarts = np.unique(key_s, return_index=True)
+    kcounts = np.diff(np.append(kstarts, key_s.shape[0]))
+    p2, t2 = _group_pairs_np(kstarts, kcounts)
+    if p2.size == 0:
+        return np.zeros((0, 4), dtype=np.int64)
+    return np.stack([w1_s[t2], w2_s[t2], wj_s[p2], wj_s[t2]], axis=1)
+
+
+def butterfly_support_np(edges: np.ndarray, n_i: int,
+                         n_j: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-vertex butterfly support (Algorithm 2 semantics), int64 numpy
+    oracle: how many butterflies each i- and j-vertex belongs to."""
+    quads = enumerate_butterflies_np(edges)
+    sup_i = np.zeros(n_i, dtype=np.int64)
+    sup_j = np.zeros(n_j, dtype=np.int64)
+    if quads.shape[0]:
+        np.add.at(sup_i, quads[:, 0], 1)
+        np.add.at(sup_i, quads[:, 1], 1)
+        np.add.at(sup_j, quads[:, 2], 1)
+        np.add.at(sup_j, quads[:, 3], 1)
+    return sup_i, sup_j
+
+
+def count_caterpillars_np(edges: np.ndarray) -> int:
+    """Three-paths (caterpillars): sum over distinct edges of (deg_i - 1)
+    (deg_j - 1), for the bipartite clustering coefficient 4B /
+    caterpillars (SS1)."""
+    e = _dedupe_edges_np(np.asarray(edges))
+    if e.shape[0] == 0:
+        return 0
+    di = np.bincount(e[:, 0])
+    dj = np.bincount(e[:, 1])
+    return int(((di[e[:, 0]] - 1) * (dj[e[:, 1]] - 1)).sum())
 
 
 # ---------------------------------------------------------------------------
@@ -533,6 +599,23 @@ def count_butterflies_dense_multiset(adj: torch.Tensor) -> torch.Tensor:
     return _off_diagonal_half(_pairs_multiset(w, s))
 
 
+def butterfly_support_dense(adj: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-vertex butterfly support (Algorithm 2) from both Grams, float32
+    on ``adj``'s device: ``support_i[u] = sum_{v != u} C(W_uv, 2)`` with
+    ``W = A A^T`` and ``support_j[x] = sum_{y != x} C(W'_xy, 2)`` with
+    ``W' = A^T A``.  Exact while the sums stay below 2**24."""
+    a = adj.to(torch.float32)
+
+    def side(m):
+        with full_fp32_matmul():
+            w = torch.matmul(m, m.transpose(-2, -1))
+        pairs = w * (w - 1.0) * 0.5
+        return pairs.sum(dim=-1) - torch.diagonal(pairs, dim1=-2, dim2=-1)
+
+    return side(a), side(a.transpose(-2, -1))
+
+
 def count_butterflies_from_edges(
     edge_i: torch.Tensor,
     edge_j: torch.Tensor,
@@ -599,6 +682,25 @@ def snapshot_count(edge_i: torch.Tensor, edge_j: torch.Tensor,
     """Butterflies of one graph snapshot given as padded edge lanes (the
     serving monitor's call): :func:`count_butterflies_from_edges`."""
     return count_butterflies_from_edges(edge_i, edge_j, valid, n_i, n_j)
+
+
+class Snapshot(NamedTuple):
+    """A padded, compactly relabelled window snapshot on a device.
+
+    edge_i / edge_j : int ``[capacity]`` compact per-window vertex ids
+    valid           : bool ``[capacity]``
+    n_i / n_j       : ints, the compact id-space sizes (padded)
+    """
+
+    edge_i: torch.Tensor
+    edge_j: torch.Tensor
+    valid: torch.Tensor
+    n_i: int
+    n_j: int
+
+    def count(self) -> torch.Tensor:
+        return count_butterflies_from_edges(self.edge_i, self.edge_j,
+                                            self.valid, self.n_i, self.n_j)
 
 
 def _tiled(adj: torch.Tensor, tile: int, multiset: bool) -> torch.Tensor:

@@ -59,6 +59,24 @@ copies them to the device without blocking, dispatches every chunk, and
 queues one non-blocking copy of all counts back into pinned host memory
 behind a CUDA event.  :meth:`PendingCounts.reap` waits on that event, so the
 host can windowize the next flush while the card counts this one.
+
+**Sharding.**  ``devices=`` / ``mesh=`` split each bucket's window axis over
+the devices of a mesh's data-parallel axes (``launch.mesh``,
+``distributed.sharding.batch_partition_axes``), as the reference's
+``shard_map`` does: the bucket is staged once, padded with all-invalid
+windows to a multiple of the shard count, and each shard's contiguous slice
+goes to its device, where the same chunk loop counts it (K1 or K2 per shard
+on ``pallas``); a shard whose slice holds only pad windows (a bucket of
+fewer windows than shards) is not dispatched, so a bucket of one window
+launches once however many shards there are.  Every shard is dispatched
+before anything is read back, so
+distinct cards count concurrently; :meth:`PendingCounts.reap` gathers the
+shards' counts in window order and drops the pad windows.  A mesh may name
+one device more than once (the CPU tests, one card): shards are keyed by
+their index.  Counts equal the unsharded ones bit for bit on every tier,
+``sampled`` included (its coins are keyed by window).  The mesh's first
+device is the executor's home ``device``, where ``count_edges`` counts and
+the estimators run.
 """
 from __future__ import annotations
 
@@ -69,7 +87,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import on_device, resolve_device, same_device
 from .butterfly import (
     _check_id_range_np,
     build_biadjacency,
@@ -198,8 +216,9 @@ class ExecutorResult:
     pane k.  Sliding mode: the prefix difference of pane counts over
     ``span`` panes (butterflies straddling panes stay the estimator's
     inter-window term).  ``cum_sgrs[k]`` is |E_k|; ``n_shards`` is the
-    number of devices the buckets were split over (always 1 in the port);
-    ``stream_ids`` the batch's provenance lane, if it had one."""
+    number of shards each bucket's windows were split over (1 unsharded and
+    on the ``numpy`` tier); ``stream_ids`` the batch's provenance lane, if
+    it had one."""
 
     counts: np.ndarray
     cum_sgrs: np.ndarray
@@ -217,21 +236,22 @@ class ExecutorResult:
 class PendingCounts:
     """Handle for an in-flight bucketed window count.
 
-    Holds the window indices of every dispatched bucket, in dispatch order,
-    and a host tensor that the counts are being copied into (pinned memory
-    behind ``event`` on CUDA; already filled on the CPU and for the
-    ``numpy`` tier).  :meth:`reap` waits on the event, scatters the counts
-    back into window order as float64 and caches the result, so it is
-    idempotent.  The host tensor is allocated per submit and never reused,
-    so a handle never reads a buffer that a later submit rewrites.
+    Holds one host tensor per shard that its counts are being copied into
+    (pinned memory behind one CUDA event each; already filled on the CPU
+    and for the ``numpy`` tier), and ``index``: the window of each count
+    of the shards' concatenation, -1 for a pad window.  :meth:`reap` waits
+    on the events, scatters the counts back into window order as float64
+    and caches the result, so it is idempotent.  The host tensors are
+    allocated per submit and never reused, so a handle never reads a buffer
+    that a later submit rewrites.
     """
 
-    def __init__(self, n_windows: int, index: np.ndarray, host,
-                 event: torch.cuda.Event | None = None):
+    def __init__(self, n_windows: int, index: np.ndarray, hosts: list,
+                 events: list | tuple = ()):
         self._n = int(n_windows)
         self._index = index
-        self._host = host
-        self._event = event
+        self._hosts = hosts
+        self._events = events
         self._out: np.ndarray | None = None
 
     @property
@@ -243,16 +263,53 @@ class PendingCounts:
         """Block until the counts are on the host; return the window-ordered
         ``[n_windows] float64`` counts (cached)."""
         if self._out is None:
-            if self._event is not None:
-                self._event.synchronize()
+            for event in self._events:
+                event.synchronize()
             out = np.zeros(self._n, dtype=np.float64)
-            host = self._host
-            if isinstance(host, torch.Tensor):
-                host = host.numpy()
-            out[self._index] = np.asarray(host, dtype=np.float64)
-            self._host = self._event = None
+            counts = np.concatenate([
+                np.asarray(h.numpy() if isinstance(h, torch.Tensor) else h,
+                           dtype=np.float64) for h in self._hosts])
+            real = self._index >= 0
+            out[self._index[real]] = counts[real]
+            self._hosts = self._events = None
             self._out = out
         return self._out
+
+
+def _resolve_window_mesh(devices, mesh) -> tuple:
+    """Normalize the ``devices=`` / ``mesh=`` knobs (mutually exclusive) to
+    ``(mesh | None, shard devices)``: one device per shard, in the mesh's
+    order over its data-parallel axes (``batch_partition_axes``), at index
+    0 of every other axis (the reference replicates over those).
+    ``devices`` is an int (the first N cards) or a device sequence
+    (``launch.mesh.make_window_mesh``)."""
+    if devices is not None and mesh is not None:
+        raise ValueError("pass devices= or mesh=, not both")
+    if mesh is None:
+        if devices is None:
+            return None, ()
+        from ..launch.mesh import make_window_mesh
+
+        mesh = make_window_mesh(devices)
+    from ..distributed.sharding import batch_partition_axes
+
+    axes = batch_partition_axes(mesh)
+    grid = np.moveaxis(mesh.devices,
+                       [mesh.axis_names.index(a) for a in axes],
+                       list(range(len(axes))))
+    n_shards = math.prod(grid.shape[:len(axes)])
+    return mesh, tuple(grid.reshape(n_shards, -1)[:, 0])
+
+
+def _pad_window_axis(*arrays: np.ndarray, multiple: int) -> tuple:
+    """Pad the leading (window) axis to a multiple of the shard count with
+    all-invalid windows, which every tier counts as 0; their counts are
+    dropped on the host.  Variadic over the per-window lanes."""
+    pad = (-arrays[0].shape[0]) % multiple
+    if pad == 0:
+        return arrays
+    return tuple(np.concatenate(
+        [a, np.zeros((pad,) + a.shape[1:], dtype=a.dtype)]) for a in arrays)
 
 
 def _mult_range(batch: WindowBatch, b: Bucket) -> tuple[int, int]:
@@ -301,6 +358,15 @@ class WindowExecutor:
     device : where device tiers count and the estimators run; default
         ``cuda``.  Without a card, only an explicit ``device="cpu"`` runs
         (the plain torch path).
+    devices : an int (the first N cards) or a device sequence, which may
+        repeat a device: shard each bucket's window axis over a 1-D
+        "data" mesh of those devices (module doc).  Counts stay equal to
+        the unsharded ones bit for bit.
+    mesh : a prebuilt ``launch.mesh.Mesh`` (not with ``devices``); windows
+        shard over its data-parallel axes.  With either knob the home
+        ``device`` is the mesh's first device, and a ``device=`` that names
+        another raises.  The ``numpy`` tier counts on the host, shards
+        nothing and reports ``n_shards == 1``.
     """
 
     def __init__(self, tier: str = "dense", *, align: int = 64,
@@ -308,7 +374,8 @@ class WindowExecutor:
                  block_i: int = 256, capacity: int = 8192,
                  gamma: float = 0.7, seed: int = 0,
                  memory_budget: int | None = None,
-                 target_mape: float | None = None, device=None):
+                 target_mape: float | None = None, device=None,
+                 devices=None, mesh=None):
         if tier not in TIERS:
             raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
         if align < 1 or growth < 2:
@@ -330,7 +397,21 @@ class WindowExecutor:
         if target_mape is not None and not (float(target_mape) > 0.0):
             raise ValueError(
                 f"target_mape must be positive or None, got {target_mape!r}")
-        self.device = resolve_device(device)
+        self.mesh, shards = _resolve_window_mesh(devices, mesh)
+        if self.mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = self.mesh.devices.flat[0]
+            if device is not None and not same_device(device, self.device):
+                raise ValueError(
+                    f"device={device!r} conflicts with the mesh's first "
+                    f"device {self.device}")
+        if tier == "numpy" or not shards:
+            shards = (self.device,)
+        # the devices each bucket's windows split over, one per shard
+        self.shard_devices: tuple[torch.device, ...] = shards
+        self.n_shards = len(shards)
+        self._pinned = any(d.type == "cuda" for d in shards)
         self.tier = tier
         self.align = align
         self.growth = growth
@@ -353,7 +434,7 @@ class WindowExecutor:
         self._online_cache: tuple[tuple, object] | None = None
         self._plan_cache: tuple[weakref.ref, list[Bucket]] | None = None
         # pinned staging per (bucket shape, n windows): [slot_a, slot_b,
-        # cursor], each slot [host lanes, event of its last copy]
+        # cursor], each slot [host lanes, events of its last copies]
         self._staging: dict[tuple, list] = {}
 
     # -- planning -----------------------------------------------------------
@@ -508,19 +589,24 @@ class WindowExecutor:
         return run
 
     def _staged_lanes(self, batch: WindowBatch, b: Bucket, multiset: bool,
-                      uids: np.ndarray | None) -> tuple:
+                      uids: np.ndarray | None) -> list[tuple]:
         """Stage one bucket's ``(edge_i, edge_j, [edge_mult | uid,] valid)``
-        lanes on the device (``uids``: the batch's ``[n_windows, 2]`` uid
-        halves, staged for a sampled bucket).  On CUDA the lanes are
-        gathered into pinned host buffers and copied without blocking; an
-        event recorded after the copy guards the buffer, which is rewritten
-        (by the submit after next that shares the bucket shape) only once
-        its event has completed."""
+        lanes once and return one lane tuple per shard that holds a window
+        of the bucket, on its device (``uids``: the batch's
+        ``[n_windows, 2]`` uid halves, staged for a sampled bucket).  The
+        lanes are gathered into host buffers of ``n_shards`` equal slices,
+        padded with all-invalid windows (zeros, never written), and each
+        slice goes to its shard's device; a trailing slice of pad windows
+        only stays on the host (nothing would count in it).  With a
+        card the buffers are pinned and copied without blocking; an event
+        recorded after each copy guards the buffer, which is rewritten (by
+        the submit after next that shares the bucket shape) only once its
+        events have completed."""
         cap, win = b.cap_e, b.windows
         sampled = uids is not None and self.bucket_tier(b) == "sampled"
         key = (b.cap_e, b.cap_i, b.cap_j, b.cap_w, len(win), multiset,
                sampled)
-        cuda = self.device.type == "cuda"
+        per = -(-len(win) // self.n_shards)
         # (source rows, dtype) per lane
         srcs = [(batch.edge_i[:, :cap], torch.int32),
                 (batch.edge_j[:, :cap], torch.int32)]
@@ -532,25 +618,31 @@ class WindowExecutor:
         ring = self._staging.get(key)
         if ring is None:
             def make():
-                lanes = tuple(torch.empty((len(win), src.shape[1]),
-                                          dtype=dtype, pin_memory=cuda)
+                lanes = tuple(torch.zeros((per * self.n_shards, src.shape[1]),
+                                          dtype=dtype, pin_memory=self._pinned)
                               for src, dtype in srcs)
-                return [lanes, None]
+                return [lanes, ()]
             ring = [make(), make(), 0]
             self._staging[key] = ring
         slot = ring[ring[2]]
         ring[2] ^= 1
-        lanes, event = slot
-        if event is not None:
+        lanes, events = slot
+        for event in events:
             event.synchronize()
         for (src, _), dst in zip(srcs, lanes):
-            np.take(src, win, axis=0, out=dst.numpy())
-        if not cuda:
-            return lanes
-        dev = tuple(h.to(self.device, non_blocking=True) for h in lanes)
-        slot[1] = torch.cuda.Event()
-        slot[1].record()
-        return dev
+            np.take(src, win, axis=0, out=dst.numpy()[:len(win)])
+        shards, events = [], []
+        live = -(-len(win) // per)
+        for k, dev in enumerate(self.shard_devices[:live]):
+            part = tuple(h[k * per:(k + 1) * per] for h in lanes)
+            if dev.type == "cuda":
+                with on_device(dev):
+                    part = tuple(h.to(dev, non_blocking=True) for h in part)
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+            shards.append(part)
+        slot[1] = events
+        return shards
 
     @staticmethod
     def _batch_uids(batch: WindowBatch) -> np.ndarray:
@@ -577,10 +669,10 @@ class WindowExecutor:
         batch carrying the multiplicity lane (``batch.edge_mult``) routes
         every tier through its multiplicity-weighted twin (the ``sampled``
         tier refuses it).  The ``numpy`` tier counts on the host at
-        submit."""
+        submit.  On a sharded executor each bucket's windows split over the
+        shards (module doc)."""
         if batch.n_windows == 0:
-            return PendingCounts(0, np.zeros(0, np.int64),
-                                 np.zeros(0, np.float64))
+            return PendingCounts(0, np.zeros(0, np.int64), [np.zeros(0)])
         multiset = batch.edge_mult is not None
         if multiset and self.tier == "sampled":
             raise NotImplementedError(
@@ -599,19 +691,41 @@ class WindowExecutor:
                 counts[pos] = (count_butterflies_multiset_np(
                     e, batch.edge_mult[k][v]) if multiset
                     else count_butterflies_np(e))
-            return PendingCounts(batch.n_windows, index, counts)
-        parts = [self._counter(
-                     b, _mult_range(batch, b) if multiset else (0, 0))(
-                     *self._staged_lanes(batch, b, multiset, uids))
-                 for b in buckets]
-        dev = torch.cat(parts)
-        if self.device.type != "cuda":
-            return PendingCounts(batch.n_windows, index, dev)
-        host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
-        host.copy_(dev, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        return PendingCounts(batch.n_windows, index, host, event)
+            return PendingCounts(batch.n_windows, index, [counts])
+        counts: list[list[torch.Tensor]] = [[] for _ in self.shard_devices]
+        index: list[list[np.ndarray]] = [[] for _ in self.shard_devices]
+        for b in buckets:
+            counter = self._counter(
+                b, _mult_range(batch, b) if multiset else (0, 0))
+            shards = self._staged_lanes(batch, b, multiset, uids)
+            per = shards[0][0].shape[0]
+            win = np.concatenate([b.windows, np.full(
+                per * self.n_shards - len(b.windows), -1, np.int64)])
+            # every shard holding a window is dispatched before anything is
+            # read back
+            for k, (dev, lanes) in enumerate(zip(self.shard_devices, shards)):
+                with on_device(dev):
+                    counts[k].append(counter(*lanes))
+                index[k].append(win[k * per:(k + 1) * per])
+        hosts, events = [], []
+        for dev, parts in zip(self.shard_devices, counts):
+            if not parts:
+                continue
+            dev_counts = torch.cat(parts)
+            if dev.type != "cuda":
+                hosts.append(dev_counts)
+                continue
+            with on_device(dev):
+                host = torch.empty(dev_counts.shape, dtype=dev_counts.dtype,
+                                   pin_memory=True)
+                host.copy_(dev_counts, non_blocking=True)
+                events.append(torch.cuda.Event())
+                events[-1].record()
+            hosts.append(host)
+        return PendingCounts(batch.n_windows,
+                             np.concatenate([np.concatenate(p) for p in index
+                                             if p]),
+                             hosts, events)
 
     def window_counts(self, batch: WindowBatch) -> np.ndarray:
         """Exact in-window count per window, ``[n_windows]`` float64:
@@ -623,8 +737,9 @@ class WindowExecutor:
         rung before the first push, so the first real flush pays no one-time
         cost (on the pallas tier: building and loading the kernels).
         ``multiset`` runs the multiplicity-weighted counters; a sampled
-        rung runs with a zero uid.  Blocks until done; returns the number of
-        rungs run (0 for the ``numpy`` tier).
+        rung runs with a zero uid; a sharded executor runs each rung on
+        every shard.  Blocks until done; returns the number of rungs run (0
+        for the ``numpy`` tier).
         Wedge-capacity buckets (``sparse``, and ``auto``'s sparse-routed
         groups) key additionally on ``cap_w`` and are not covered by
         3-tuple rungs."""
@@ -637,17 +752,18 @@ class WindowExecutor:
         for rung in rungs:
             cap_e, cap_i, cap_j = (int(x) for x in rung)
             b = Bucket(cap_e, cap_i, cap_j, np.arange(1, dtype=np.int64))
-            z = torch.zeros((1, cap_e), dtype=torch.int32, device=self.device)
-            v = torch.zeros((1, cap_e), dtype=torch.bool, device=self.device)
+            lanes = [np.zeros((1, cap_e), np.int32)] * 2
             if multiset:
-                lanes = (z, z, z, v)
+                lanes.append(np.zeros((1, cap_e), np.int32))
             elif self.bucket_tier(b) == "sampled":
-                uid = torch.zeros((1, 2), dtype=torch.int64,
-                                  device=self.device)
-                lanes = (z, z, uid, v)
-            else:
-                lanes = (z, z, v)
-            self._counter(b)(*lanes).cpu()
+                lanes.append(np.zeros((1, 2), np.int64))
+            lanes.append(np.zeros((1, cap_e), bool))
+            lanes = _pad_window_axis(*lanes, multiple=self.n_shards)
+            counter = self._counter(b)
+            for k, dev in enumerate(self.shard_devices):
+                with on_device(dev):
+                    counter(*(torch.from_numpy(a[k:k + 1]).to(dev)
+                              for a in lanes)).cpu()
             done += 1
         return done
 
@@ -790,11 +906,13 @@ class WindowExecutor:
         cum = np.asarray(batch.cum_sgrs, dtype=np.float64)
         if mode == "tumbling":
             return ExecutorResult(counts, cum, self.tier, mode,
+                                  n_shards=self.n_shards,
                                   stream_ids=batch.stream_ids)
         prefix = np.concatenate([[0.0], np.cumsum(counts)])
         lo = np.maximum(np.arange(len(counts)) - span + 1, 0)
         sliding = prefix[1:] - prefix[lo]
         return ExecutorResult(sliding, cum, self.tier, mode, span,
+                              n_shards=self.n_shards,
                               stream_ids=batch.stream_ids)
 
 

@@ -26,7 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, same_device
 from .executor import WindowExecutor
 from .windows import WindowBatch
 
@@ -49,19 +49,26 @@ __all__ = [
 # exact in-window counting over a padded window batch
 # ---------------------------------------------------------------------------
 
-def _executor_for(tier, executor, device) -> WindowExecutor:
+def _executor_for(tier, executor, device, devices=None,
+                  mesh=None) -> WindowExecutor:
     """The executor a one-shot entry point counts with: the caller's (whose tier
-    and device must not conflict with the ones passed), or a new one."""
+    and device must not conflict with the ones passed, and which owns its
+    sharding: ``devices=`` / ``mesh=`` with it raise), or a new one."""
     if executor is not None:
         if tier is not None and executor.tier != tier:
             raise ValueError(
                 f"tier={tier!r} conflicts with executor.tier={executor.tier!r}")
-        if device is not None and resolve_device(device) != executor.device:
+        if devices is not None or mesh is not None:
+            raise ValueError(
+                "devices=/mesh= conflict with executor=; configure the "
+                "executor's sharding at construction instead")
+        if device is not None and not same_device(device, executor.device):
             raise ValueError(
                 f"device={device!r} conflicts with executor.device="
                 f"{executor.device}")
         return executor
-    return WindowExecutor(tier if tier is not None else "dense", device=device)
+    return WindowExecutor(tier if tier is not None else "dense", device=device,
+                          devices=devices, mesh=mesh)
 
 
 def window_exact_counts(
@@ -70,11 +77,15 @@ def window_exact_counts(
     tier: str | None = None,
     executor: WindowExecutor | None = None,
     device=None,
+    devices=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Exact butterfly count per window: ``[n_windows]`` float32 on the
     executor's device.  Pass an executor to reuse its staging buffers, or a
-    ``tier`` name (default "dense") and ``device`` for one-shot use."""
-    ex = _executor_for(tier, executor, device)
+    ``tier`` name (default "dense") and ``device`` for one-shot use;
+    ``devices=`` / ``mesh=`` shard the one-shot executor's window axis
+    (counts equal bit for bit)."""
+    ex = _executor_for(tier, executor, device, devices, mesh)
     return torch.as_tensor(ex.window_counts(batch), dtype=torch.float32,
                            device=ex.device)
 
@@ -248,10 +259,14 @@ def run_sgrapp(
     tier: str | None = None,
     executor: WindowExecutor | None = None,
     device=None,
+    devices=None,
+    mesh=None,
 ) -> SGrappResult:
     """Algorithm 4 end-to-end: exact window counts through the executor's
-    tier (numpy | dense | pallas), then the estimator on the same device."""
-    ex = _executor_for(tier, executor, device)
+    tier, then the estimator on the executor's (home) device.
+    ``devices=`` / ``mesh=`` shard the window axis; the estimates are
+    bit-identical across shard counts, because the counts are."""
+    ex = _executor_for(tier, executor, device, devices, mesh)
     wc = ex.window_counts(batch).astype(np.float32)
     est = sgrapp_estimate(wc, batch.cum_sgrs, alpha, device=ex.device)
     return SGrappResult(_host(est), wc,
@@ -270,10 +285,13 @@ def run_sgrapp_x(
     tier: str | None = None,
     executor: WindowExecutor | None = None,
     device=None,
+    devices=None,
+    mesh=None,
 ) -> SGrappResult:
     """Algorithm 5 end-to-end; ``x_percent`` is the share of windows with
-    ground truth available (the paper's x)."""
-    ex = _executor_for(tier, executor, device)
+    ground truth available (the paper's x); ``devices=`` / ``mesh=`` as in
+    :func:`run_sgrapp`."""
+    ex = _executor_for(tier, executor, device, devices, mesh)
     wc = ex.window_counts(batch).astype(np.float32)
     n = wc.shape[0]
     n_sup = int(round(n * x_percent / 100.0))

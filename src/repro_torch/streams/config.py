@@ -2,9 +2,11 @@
 
 The port's copy of ``repro.streams.config.EngineConfig``: the same knobs,
 validation, defaults and JSON form, so a checkpoint's embedded config reads
-the same in both packages.  Where the reference takes ``devices`` / ``mesh``
-the port takes ``device`` (default ``cuda``); like them it is a deployment
-property and never serialized.
+the same in both packages.  Besides the reference's ``devices`` / ``mesh``
+(window sharding) the port takes ``device`` (default ``cuda``; with
+``devices`` / ``mesh`` the mesh's first device); all three are deployment
+properties and never serialized, so a checkpoint of a sharded engine
+restores into an unsharded one.
 """
 from __future__ import annotations
 
@@ -62,6 +64,9 @@ class EngineConfig:
         construction.  Deployment-only, never serialized.
     device : where the engine counts and estimates; default ``cuda``.
         Deployment-only, never serialized.
+    devices, mesh : shard each flush's window axis (``WindowExecutor``'s
+        knobs; not with a shared ``executor=``).  Deployment-only, never
+        serialized.
     """
 
     tier: str = "dense"
@@ -80,6 +85,8 @@ class EngineConfig:
     sync_dispatch: bool = False
     warmup: tuple = ()
     device: object = None
+    devices: object = None
+    mesh: object = None
 
     def __post_init__(self):
         from ..core.executor import TIERS
@@ -151,6 +158,10 @@ class EngineConfig:
         from ..core.executor import WindowExecutor
 
         if executor is not None:
+            if self.devices is not None or self.mesh is not None:
+                raise ValueError(
+                    "devices=/mesh= conflict with executor=; configure the "
+                    "executor's sharding at construction instead")
             if self.device is not None:
                 raise ValueError(
                     "device= conflicts with executor=; the executor already "
@@ -165,13 +176,14 @@ class EngineConfig:
             self.tier, align=self.align, snap=0,
             capacity=self.capacity, gamma=self.gamma, seed=self.seed,
             memory_budget=self.memory_budget, target_mape=self.target_mape,
-            device=self.device)
+            device=self.device, devices=self.devices, mesh=self.mesh)
 
     # -- serialization -------------------------------------------------------
 
     def to_json(self) -> str:
         """Portable JSON form (deterministic key order), identical to the
-        reference's for the same knobs."""
+        reference's for the same knobs.  ``device`` / ``devices`` / ``mesh``
+        are deployment-only and never serialized."""
         return json.dumps(
             {f: getattr(self, f) for f in _PORTABLE_FIELDS}, sort_keys=True)
 

@@ -231,6 +231,8 @@ class StreamingSGrapp:
         prefix (sGrapp-x); ``None`` is plain sGrapp.
     config : an :class:`EngineConfig`; the per-knob keyword arguments remain
         as a deprecated shim that builds one (mixing both raises).
+        ``devices`` / ``mesh`` shard each flush's window axis; counts and
+        estimates equal the unsharded engine's bit for bit.
     executor : a prebuilt :class:`WindowExecutor` to share.
     """
 
@@ -238,15 +240,16 @@ class StreamingSGrapp:
                  config: EngineConfig | None = None,
                  executor: WindowExecutor | None = None,
                  tol=_UNSET, step=_UNSET, tier=_UNSET, device=_UNSET,
-                 flush_every=_UNSET, drop_partial=_UNSET, align=_UNSET,
-                 dup_policy=_UNSET, on_missing_delete=_UNSET, seed=_UNSET):
+                 devices=_UNSET, mesh=_UNSET, flush_every=_UNSET,
+                 drop_partial=_UNSET, align=_UNSET, dup_policy=_UNSET,
+                 on_missing_delete=_UNSET, seed=_UNSET):
         if nt_w <= 0:
             raise ValueError("nt_w must be positive")
         cfg = resolve_engine_config(config, dict(
-            tol=tol, step=step, tier=tier, device=device,
-            flush_every=flush_every, drop_partial=drop_partial, align=align,
-            dup_policy=dup_policy, on_missing_delete=on_missing_delete,
-            seed=seed))
+            tol=tol, step=step, tier=tier, device=device, devices=devices,
+            mesh=mesh, flush_every=flush_every, drop_partial=drop_partial,
+            align=align, dup_policy=dup_policy,
+            on_missing_delete=on_missing_delete, seed=seed))
         self.config = cfg
         self.nt_w = int(nt_w)
         self.alpha0 = float(alpha0)

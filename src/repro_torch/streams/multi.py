@@ -110,8 +110,9 @@ class MultiStreamSGrapp:
         tenant: its cumulative ground-truth prefix, or ``None``.
     config : an :class:`EngineConfig` carrying every shared knob (tier,
         flush batching, duplicate and delete semantics, sampling knobs,
-        device); the per-knob keyword arguments remain a deprecated shim,
-        as for the single-stream engine.  ``flush_every`` counts the
+        device, the ``devices`` / ``mesh`` sharding); the per-knob
+        keyword arguments remain a deprecated shim, as for the
+        single-stream engine.  ``flush_every`` counts the
         pending windows of all tenants together.  Tenant ``s`` gets the
         reservoir seed ``seed + s``.
     executor : a prebuilt :class:`WindowExecutor` serving every tenant.
@@ -121,17 +122,18 @@ class MultiStreamSGrapp:
                  config: EngineConfig | None = None,
                  executor: WindowExecutor | None = None,
                  tol=_UNSET, step=_UNSET, tier=_UNSET, device=_UNSET,
-                 flush_every=_UNSET, drop_partial=_UNSET, align=_UNSET,
-                 dup_policy=_UNSET, on_missing_delete=_UNSET, seed=_UNSET):
+                 devices=_UNSET, mesh=_UNSET, flush_every=_UNSET,
+                 drop_partial=_UNSET, align=_UNSET, dup_policy=_UNSET,
+                 on_missing_delete=_UNSET, seed=_UNSET):
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
         if nt_w <= 0:
             raise ValueError("nt_w must be positive")
         cfg = resolve_engine_config(config, dict(
-            tol=tol, step=step, tier=tier, device=device,
-            flush_every=flush_every, drop_partial=drop_partial, align=align,
-            dup_policy=dup_policy, on_missing_delete=on_missing_delete,
-            seed=seed))
+            tol=tol, step=step, tier=tier, device=device, devices=devices,
+            mesh=mesh, flush_every=flush_every, drop_partial=drop_partial,
+            align=align, dup_policy=dup_policy,
+            on_missing_delete=on_missing_delete, seed=seed))
         self.config = cfg
         if truths is not None and len(truths) != n_streams:
             raise ValueError(

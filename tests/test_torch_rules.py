@@ -13,6 +13,7 @@ from repro_torch.core.sgrapp import sgrapp_estimate  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch import serve_streams  # noqa: E402
+from repro_torch.launch.mesh import make_mesh, make_window_mesh  # noqa: E402
 from repro_torch.launch.serve import load_model, monitor_butterflies  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     init_cache,
@@ -56,7 +57,8 @@ def test_scan_sees_every_module():
             "attention.py", "model.py", "convert.py", "serve.py",
             "registry.py", "common.py", "rope.py", "server.py", "wal.py",
             "faults.py", "checkpoint.py", "fault.py", "serve_streams.py",
-            "datasets.py"} <= names
+            "datasets.py", "analysis.py", "distributed.py", "mesh.py",
+            "sharding.py", "collectives.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/kernels/build.py",
             "src/repro_torch/kernels/butterfly/build.py",
@@ -67,7 +69,13 @@ def test_scan_sees_every_module():
             "src/repro_torch/streams/datasets.py",
             "src/repro_torch/train/checkpoint.py",
             "src/repro_torch/train/fault.py",
-            "src/repro_torch/launch/serve_streams.py"} <= rel
+            "src/repro_torch/launch/serve_streams.py",
+            "src/repro_torch/core/analysis.py",
+            "src/repro_torch/core/distributed.py",
+            "src/repro_torch/distributed/__init__.py",
+            "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/distributed/collectives.py",
+            "src/repro_torch/launch/mesh.py"} <= rel
     assert imported_roots(ROOT / "tests" / "test_torch_engine.py") >= {
         "repro", "repro_torch"}
 
@@ -124,6 +132,23 @@ def small_batch():
         "serve_streams_main"])
 def test_without_a_card_entry_points_raise(no_card, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: make_window_mesh(),
+    lambda: make_window_mesh(2),
+    lambda: make_window_mesh(["cuda", "cuda"]),
+    lambda: make_mesh((2, 2), ("data", "model")),
+    lambda: WindowExecutor("pallas", devices=2),
+    lambda: run_sgrapp(small_batch(), 1.02, tier="pallas", devices=1),
+    lambda: StreamingSGrapp(20, 1.02, config=EngineConfig(tier="pallas",
+                                                          devices=2)),
+], ids=["window_mesh_all", "window_mesh_int", "window_mesh_cuda",
+        "mesh_all", "executor_devices", "run_sgrapp_devices",
+        "engine_devices"])
+def test_without_a_card_meshes_raise(no_card, entry):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
 
 
