@@ -20,8 +20,9 @@ K3, drives the executor's entries (``run`` in sliding mode,
 tenants over TCP through the port's ``StreamServer`` (a server subprocess
 SIGKILLed and recovered, WAL and checkpoints), runs the paper's SS3
 analysis, shards the executor's windows and the ring counter's Gram over
-several devices, and serves phi4-mini-3.8b at full width (prefill
-attention through K4).  Every check
+several devices, and serves phi4-mini-3.8b, minicpm3-4b (MLA),
+phi3.5-moe-42b and dbrx-132b (MoE) at full width (prefill attention
+through K4).  Every check
 raises on failure, so the exit code is non-zero unless all phases pass.
 
 Phases (each path's launch counts are set to 0 just before it runs and read
@@ -87,7 +88,10 @@ just after):
    K4's (both variants), the plain version's and
    ``scaled_dot_product_attention``'s times (the last never called by the
    port), the least time the card could take, K4's share of it and its
-   factor against SDPA;
+   factor against SDPA; then at MLA's prefill shape (minicpm3-4b: q and k
+   [4, 4096, 40, 96], v [4, 4096, 40, 64]) at the model's scale, bf16 on
+   route ``wgmma`` and float32 on ``simt``, with its time, bound and the
+   SDPA backends that take a value head dim other than the query's;
 10. serve: phi4-mini-3.8b at full width with seeded random weights, 4
    prompts x 4,096 tokens and 64 greedy tokens through
    ``repro_torch.launch.serve``: K4 held against its plain version on every
@@ -98,6 +102,14 @@ just after):
    prefill (K4's share) and of decode steps; the smoke config in float32 on
    the card against the CPU path; the sGrapp monitor's butterfly count of
    the (request, token) graph against the numpy oracle;
+16-18. serve, MLA and MoE (after phase 10): phase 10's checks for
+   minicpm3-4b (all 62 layers, 4 x 4,096 prompts, 64 tokens; K4 held on
+   every layer, MLA's prefill included), phi3.5-moe-42b (8 of its 32
+   layers, the same prompts) and dbrx-132b (2 of its 40 layers, 2 x 1,024
+   prompts, 8 tokens), each depth cut logged as ``reduced``; for an MoE
+   also the dropped share of (token, choice) pairs per layer in prefill
+   and in decode, and the smoke config's routing (every dispatch's gate
+   indices and kept choices) equal on the card and the CPU;
 11. entries (K1): on a fresh pallas executor, ``run(mode="tumbling")``
    equals phase 2, ``run(mode="sliding", span=s)`` for s in {1, 4, 32}
    equals the prefix difference of those counts and, at 32, ``dense``'s
@@ -163,7 +175,8 @@ just after):
 On a machine with several cards phase 15 also shards over the distinct
 cards (up to 4); the script needs one card.
 
-Phases 11-15 run after phase 8, before K4 and serving.  Each phase's wall
+Phases 11-15 run after phase 8, before K4 and serving; phases 16-18 run
+after phase 10.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -227,6 +240,13 @@ K4_ROUNDED = dict(rtol=2.0**-8 + 2e-5, atol=2e-5)
 
 # the LM that phase 10 serves at full width
 LM_ARCH = "phi4-mini-3.8b"
+# phases 16-18: the MLA and MoE LMs served at full width, each with the
+# layers it keeps on one 80 GB card (None: all), its prompts and its tokens.
+# minicpm3-4b is 8.5 GB in bf16; phi3.5-moe-42b is 2.60 GB a layer (84 GB
+# in all) and dbrx-132b 6.52 GB a layer plus 2.47 GB of embedding and head
+LM_CELLS = (("minicpm3-4b", None, 4, 4096, 64),
+            ("phi3.5-moe-42b", 8, 4, 4096, 64),
+            ("dbrx-132b", 2, 2, 1024, 8))
 
 # phase 12: tenants of one fleet, each an eighth of the smoke stream; the
 # records of each push (phases 12 and 13)
@@ -2160,17 +2180,17 @@ def k4_kernel_name(info, name: str):
     import re
 
     fn = info.lib.flash_attention_smem_bytes
-    w = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", name)
+    w = re.search(r"flash_attention_wgmma_kernelILi(\d+)ELi(\d+)E", name)
     f = re.search(r"flash_attention_kernelILi(\d+)E", name)
     if w:
-        atoms = int(w.group(1))
-        return (f"K4 bf16 wgmma (TMA, 3-limb P), hd {64 * atoms - 63}-"
-                f"{64 * atoms} (setmaxnreg: producer 40, consumers 232)",
-                fn(1, 64 * atoms))
+        qk, v = (int(g) for g in w.groups())
+        return (f"K4 bf16 wgmma (TMA, 3-limb P), hd {64 * qk - 63}-{64 * qk}, "
+                f"hd_v {64 * v - 63}-{64 * v} (setmaxnreg: producer 40, "
+                "consumers 232)", fn(1, 64 * qk, 64 * v))
     if f:
         hdp = int(f.group(1))
-        return (f"K4 float32 SIMT, hd {hdp // 2 + 1 if hdp > 32 else 1}-"
-                f"{hdp}", fn(0, hdp))
+        return (f"K4 float32 SIMT, max(hd, hd_v) "
+                f"{hdp // 2 + 1 if hdp > 32 else 1}-{hdp}", fn(0, hdp, hdp))
     return None
 
 
@@ -2182,42 +2202,45 @@ def within(got, want, tol: dict) -> tuple[bool, float]:
     return ok, float(diff.max()) if diff.numel() else 0.0
 
 
-def k4_bound_ms(q, k, *, causal: bool) -> tuple[float, str, float, str]:
+def k4_bound_ms(q, k, v, *, causal: bool) -> tuple[float, str, float, str]:
     """The least time an H100 could take for K4's work on these bf16
     inputs: (bound ms, "bytes" or "operations", the operations' GFLOP, the
-    rates).  The work counts the (query, key) pairs the causal mask keeps.
+    rates).  The work counts the (query, key) pairs the causal mask keeps,
+    QK^T at the query head dim and PV at the value head dim (MLA's differ).
     QK^T on bf16 inputs is exact on bf16 tensor cores with fp32
     accumulation; PV takes the reference's fp32 P, which three bf16 limbs
     hold exactly, so three bf16 products.  Bytes: q, k, v read once and the
-    output written once."""
+    output ``[B, Sq, H, hd_v]`` written once."""
     import torch
 
     check(q.dtype == torch.bfloat16, "K4's bound is reckoned for bf16 inputs")
     b, sq, h, hd = q.shape
-    skv = k.shape[1]
+    skv, hd_v = k.shape[1], v.shape[3]
     keys = np.minimum(skv, np.arange(sq) + 1) if causal else np.full(sq, skv)
-    flops = 2.0 * float(keys.sum()) * b * h * hd        # per product
-    ops_ms = flops * (1 + 3) / PEAK_BF16_OPS * 1e3
-    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    pairs = float(keys.sum()) * b * h
+    qk, pv = 2.0 * pairs * hd, 2.0 * pairs * hd_v
+    ops_ms = (qk + 3 * pv) / PEAK_BF16_OPS * 1e3
+    moved = (q.numel() + k.numel() + v.numel() + b * sq * h * hd_v) * q.element_size()
     bytes_ms = moved / PEAK_BYTES * 1e3
     return (max(ops_ms, bytes_ms),
-            "operations" if ops_ms >= bytes_ms else "bytes", 2 * flops / 1e9,
+            "operations" if ops_ms >= bytes_ms else "bytes", (qk + pv) / 1e9,
             "QK^T on bf16 tensor cores, PV on bf16 tensor cores over 3 bf16 "
             "limbs of P")
 
 
 def hold_k4(got, q, k, v, *, causal: bool, q_offset: int, chunk: int,
-            what: str) -> tuple[float, float]:
-    """Hold K4's output ``got`` to the plain version on the same inputs:
-    within ``K4_TOL`` of its output in ``q.dtype`` and, for bf16, within
-    ``K4_ROUNDED`` of its float32 output.  Returns both max abs errors."""
+            what: str, scale: float | None = None) -> tuple[float, float]:
+    """Hold K4's output ``got`` to the plain version on the same inputs at
+    the same ``scale`` (None: the reference kernel's): within ``K4_TOL`` of
+    its output in ``q.dtype`` and, for bf16, within ``K4_ROUNDED`` of its
+    float32 output.  Returns both max abs errors."""
     from repro_torch.kernels.flash_attention.flash_kernel import (
         flash_attention_plain,
     )
 
     want32 = flash_attention_plain(q.float(), k.float(), v.float(),
                                    causal=causal, q_offset=q_offset,
-                                   block_q=chunk, block_k=chunk)
+                                   block_q=chunk, block_k=chunk, scale=scale)
     tol = K4_TOL[str(q.dtype).split(".")[-1]]
     ok, err = within(got, want32.to(q.dtype), tol)
     check(ok, f"K4 != plain on {what} beyond rtol {tol['rtol']}, atol "
@@ -2311,7 +2334,7 @@ def phase_k4(device, seed: int, *, batch: int, seq: int, heads: int,
         f"{'within' if lib_ok else 'beyond'} K4_TOL['bfloat16']; vs the plain "
         f"version's float32 output {lib_err32:.6g}, beyond K4_ROUNDED at "
         f"{lib_out:.4%} of the elements (K4 at none)")
-    bound_ms, bound_by, gflop, rate = k4_bound_ms(q, k, causal=True)
+    bound_ms, bound_by, gflop, rate = k4_bound_ms(q, k, v, causal=True)
     simt_ms = gflop * 1e9 / PEAK_FP32_SIMT * 1e3
     log(f"[k4] timing, bf16, causal: K4 (wgmma variant) {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms (blocks {chunk}), "
@@ -2328,16 +2351,124 @@ def phase_k4(device, seed: int, *, batch: int, seq: int, heads: int,
             "bound_by": bound_by, "float32_simt_ms": f32_ms}
 
 
+def sdpa_backends(q, k, v) -> tuple[dict, object]:
+    """Which of ``scaled_dot_product_attention``'s fused backends take these
+    causal inputs: ``({backend: None or the first line of its refusal},
+    a function that runs the first that takes them, or None)``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    refused, run = {}, None
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    *args, is_causal=True).transpose(1, 2)
+        try:
+            call()
+            refused[backend.name] = None
+            run = run or call
+        except RuntimeError as e:
+            refused[backend.name] = str(e).strip().splitlines()[0][:160]
+    return refused, run
+
+
+def phase_k4_mla(device, seed: int, *, batch: int, seq: int, heads: int,
+                 qk_dim: int, v_dim: int, chunk: int) -> dict:
+    """Phase 9 at MLA's prefill shape (minicpm3-4b: q and k [batch, seq,
+    heads, qk_dim], v [batch, seq, heads, v_dim], causal): K4 against its
+    plain version at the model's scale (the reference's float32
+    ``1/sqrt(qk_dim)``) in bf16 (``K4_TOL`` and ``K4_ROUNDED``, on route
+    ``wgmma``) and float32 (``simt``); K4's, the plain version's and the
+    bound's times, and ``scaled_dot_product_attention``'s where one of its
+    fused backends takes a value head dim other than the query's."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.models.transformer.attention import attention_scale
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=device)
+               for shape in ((batch, seq, heads, qk_dim),
+                             (batch, seq, heads, qk_dim),
+                             (batch, seq, heads, v_dim)))
+    scale = attention_scale(qk_dim)
+    errs = {}
+    for dtype, route in ((torch.float32, "simt"), (torch.bfloat16, "wgmma")):
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        k4.reset_launch_count()
+        got = k4.flash_attention_bshd(q, k, v, causal=True, scale=scale)
+        sync(device)
+        check(device.type != "cuda" or k4.launch_count(route) == 1,
+              f"K4 at the MLA shape in {dtype} did not take route {route}")
+        what = (f"MLA shape, {str(dtype).split('.')[-1]} q/k "
+                f"{list(q.shape)}, v {list(v.shape)}, causal")
+        err, err32 = hold_k4(got, q, k, v, causal=True, q_offset=0,
+                             chunk=chunk, what=what, scale=scale)
+        errs[dtype] = err
+        log(f"[k4] {what}: K4 (route {route}) vs plain max abs err {err:.6g}"
+            + ("" if dtype == torch.float32 else
+               f"; vs the plain version's float32 output {err32:.6g} (rtol "
+               f"{K4_ROUNDED['rtol']:.6g}, atol {K4_ROUNDED['atol']})"))
+        del got
+    ms = time_ms(lambda: k4.flash_attention_bshd(q, k, v, causal=True,
+                                                 scale=scale), device)
+    plain_ms = time_ms(lambda: k4.flash_attention_plain(
+        q, k, v, causal=True, block_q=chunk, block_k=chunk, scale=scale),
+        device, reps=3)
+    bound_ms, bound_by, gflop, rate = k4_bound_ms(q, k, v, causal=True)
+    refused, library = sdpa_backends(q, k, v)
+    library_ms = None
+    for name, why in refused.items():
+        log(f"[k4] scaled_dot_product_attention backend {name} at the MLA "
+            f"shape (hd {qk_dim}, hd_v {v_dim}): "
+            + ("takes it" if why is None else f"refuses it: {why}"))
+    if library is not None:
+        library_ms = time_ms(library, device)
+        lib = library()
+        want32 = k4.flash_attention_plain(q.float(), k.float(), v.float(),
+                                          causal=True, block_q=chunk,
+                                          block_k=chunk, scale=scale)
+        _, lib_err = within(lib, want32.to(q.dtype), K4_TOL["bfloat16"])
+        lib_rounded, lib_err32 = within(lib, want32, K4_ROUNDED)
+        del lib, want32
+        check(lib_err < 0.05, f"scaled_dot_product_attention is {lib_err} off "
+              "the plain version at the MLA shape: not the same function")
+        log(f"[k4] control at the MLA shape: scaled_dot_product_attention vs "
+            f"plain in bf16 max abs err {lib_err:.6g}; vs the plain version's "
+            f"float32 output {lib_err32:.6g}, "
+            f"{'within' if lib_rounded else 'beyond'} K4_ROUNDED")
+    log(f"[k4] timing at the MLA shape, bf16, causal: K4 (wgmma variant, "
+        f"NQK {-(-qk_dim // 64)}, NV {-(-v_dim // 64)}) {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms (blocks {chunk}), "
+        f"scaled_dot_product_attention "
+        + ("refused by every fused backend" if library_ms is None else
+           f"{library_ms:.4f} ms")
+        + f"; bound {bound_ms:.4f} ms ({bound_by}: {gflop:.6g} GFLOP useful "
+        f"at hd {qk_dim} and hd_v {v_dim}, {rate}); K4 at "
+        f"{bound_ms / ms:.4%} of its bound")
+    return {"shape": {"q": list(q.shape), "k": list(k.shape),
+                      "v": list(v.shape), "causal": True},
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_backends": {n: w is None for n, w in refused.items()}}
+
+
 @contextlib.contextmanager
 def held_attention(errs: list):
     """While open, the model's prefill attention also runs K4's plain
-    version on each layer's own q, k, v and holds K4's output to it
-    (``hold_k4``); each layer's max abs errors, against the plain version in
-    the layer's dtype and against its float32 output, are appended to
-    ``errs``."""
+    version on each layer's own q, k, v at the model's scale and holds K4's
+    output to it (``hold_k4``); each layer's max abs errors, against the
+    plain version in the layer's dtype and against its float32 output, are
+    appended to ``errs``.  A GQA layer calls the attention from the model
+    module, MLA's prefill from the attention module: both are held."""
+    from repro_torch.models.transformer import attention as attn
     from repro_torch.models.transformer import model as lm
 
-    entry = lm.gqa_attention_chunked
+    entry = attn.gqa_attention_chunked
 
     def holding(q, k, v, **kw):
         check(kw["chunk_q"] == kw["chunk_k"], "one attention chunk")
@@ -2345,25 +2476,70 @@ def held_attention(errs: list):
         errs.append(hold_k4(got, q, k, v, causal=kw["causal"],
                             q_offset=kw.get("q_offset", 0),
                             chunk=kw["chunk_q"],
-                            what=f"layer {len(errs)}'s q, k, v"))
+                            what=f"layer {len(errs)}'s q, k, v",
+                            scale=attn.attention_scale(q.shape[-1])))
         return got
 
-    lm.gqa_attention_chunked = holding
+    lm.gqa_attention_chunked = attn.gqa_attention_chunked = holding
     try:
         yield errs
     finally:
-        lm.gqa_attention_chunked = entry
+        lm.gqa_attention_chunked = attn.gqa_attention_chunked = entry
+
+
+@contextlib.contextmanager
+def recorded_routes(log_: list):
+    """While open, each MoE layer's call (``model.moe_apply``) appends a
+    list to ``log_``, and each dispatch it makes (one per slab) appends its
+    ``MoERoute`` to that list; the routes stay on the device (no host
+    synchronization)."""
+    from repro_torch.models.transformer import model as lm
+    from repro_torch.models.transformer import moe as moe_mod
+
+    route, apply = moe_mod.moe_route, lm.moe_apply
+
+    def recording(*args, **kw):
+        r = route(*args, **kw)
+        log_[-1].append(r)
+        return r
+
+    def layer(*args, **kw):
+        log_.append([])
+        return apply(*args, **kw)
+
+    moe_mod.moe_route, lm.moe_apply = recording, layer
+    try:
+        yield log_
+    finally:
+        moe_mod.moe_route, lm.moe_apply = route, apply
+
+
+def dropped_shares(routes: list, n_layers: int) -> list[float]:
+    """Per layer, the share of ``(token, choice)`` pairs dropped at capacity
+    over the layer calls in ``routes`` (``recorded_routes``' log), layer
+    ``i % n_layers`` for the ``i``-th call."""
+    kept, total = np.zeros(n_layers), np.zeros(n_layers)
+    for i, call in enumerate(routes):
+        for r in call:
+            kept[i % n_layers] += int(r.keep.sum())
+            total[i % n_layers] += r.keep.numel()
+    return list(1.0 - kept / np.maximum(total, 1))
 
 
 def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
-                gen: int, smoke: bool = False) -> dict:
-    """Phase 10: LM serving through ``repro_torch.launch.serve`` at full
-    width: seeded random weights, ``batch`` prompts of ``prompt`` tokens,
-    greedy decoding to ``gen`` tokens.  K4 is held against its plain version
-    on every layer's q, k, v in one prefill; then a counted, timed serving
-    run; the profile of a prefill and of decode steps; the smoke config on
-    the card against the CPU path; and the sGrapp monitor's count of the
-    (request, token) graph against the numpy oracle."""
+                gen: int, smoke: bool = False, n_layers: int | None = None
+                ) -> dict:
+    """Phases 10 and 16-18: LM serving through ``repro_torch.launch.serve``
+    at full width: seeded random weights (the first ``n_layers`` layers
+    where the whole model does not fit one card, a cut logged as
+    ``reduced``), ``batch`` prompts of ``prompt`` tokens, greedy decoding
+    to ``gen`` tokens.  K4 is held against its plain version on every
+    layer's q, k, v in one prefill; then a counted, timed serving run (an
+    MoE's dropped share of choices per layer, in prefill and in decode);
+    the profile of a prefill and of decode steps; the smoke config on the
+    card against the CPU path (logits, greedy tokens and an MoE's routing);
+    and the sGrapp monitor's count of the (request, token) graph against
+    the numpy oracle."""
     import dataclasses
 
     import torch
@@ -2373,7 +2549,6 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
     from repro_torch.kernels.butterfly import butterfly_kernel as kk
     from repro_torch.kernels.flash_attention import flash_kernel as k4
     from repro_torch.launch.serve import (
-        load_model,
         make_prompts,
         monitor_butterflies,
         serve,
@@ -2384,15 +2559,35 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
         prefill,
     )
 
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cfg, model = load_model(arch, smoke=smoke, seed=seed, device=device)
+    cfg = get_arch(arch).smoke_config() if smoke else get_arch(arch).full_config()
+    if n_layers is not None and n_layers < cfg.n_layers:
+        log(f"[serve] reduced: {arch} keeps {n_layers} of its {cfg.n_layers} "
+            f"layers (dataclasses.replace(cfg, n_layers={n_layers})); every "
+            "width as published")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = init_lm_params(cfg, seed=seed, device=device)
     sync(device)
     n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if cfg.is_mla:
+        m = cfg.mla
+        attn_desc = (f"MLA (q_lora {m.q_lora_rank}, kv_lora {m.kv_lora_rank}, "
+                     f"q/k head dim {m.qk_nope_head_dim} + "
+                     f"{m.qk_rope_head_dim}, v head dim {m.v_head_dim})")
+    else:
+        attn_desc = f"{cfg.n_kv_heads} kv heads of {cfg.head_dim}"
+    ffn_desc = (f"d_ff {cfg.d_ff}" if cfg.moe is None else
+                f"MoE {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_ff "
+                f"{cfg.moe.d_ff_expert}")
     log(f"[serve] {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads} heads ({cfg.n_kv_heads} kv), head dim {cfg.head_dim}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded {cfg.padded_vocab}); "
-        f"{n_params:.6g} parameters ({n_params * 2 / 1e9:.4f} GB bf16) drawn "
-        f"on {device} in {time.perf_counter() - t0:.4f} s")
+        f"{cfg.n_heads} heads, {attn_desc}, {ffn_desc}, vocab "
+        f"{cfg.vocab_size} (padded {cfg.padded_vocab}); {n_params:.6g} "
+        f"parameters ({n_bytes / 1e9:.4f} GB) drawn on {device} in "
+        f"{time.perf_counter() - t0:.4f} s")
     prompts = make_prompts(cfg, batch, prompt, seed)
     toks = torch.as_tensor(prompts, device=device)
 
@@ -2410,12 +2605,13 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
         f"{K4_ROUNDED['atol']})")
     del last
 
-    cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     kk.reset_launch_count()
     k4.reset_launch_count()
-    res = serve(model, cfg, prompts, gen)
+    routes: list = []
+    with recorded_routes(routes):
+        res = serve(model, cfg, prompts, gen)
     launches = k4.launch_count()
     tma = k4.launch_count("wgmma")
     peak = torch.cuda.max_memory_allocated() if cuda else 0
@@ -2442,6 +2638,20 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
         f"layer, all the bf16 wgmma variant through TMA with no padded copy; "
         f"decode attention is plain torch); logits finite; peak device "
         f"memory {peak / 2**30:.4f} GiB; sample {res.tokens[0][:8].tolist()}")
+    if cfg.moe is not None:
+        check(len(routes) == cfg.n_layers * gen,
+              f"{len(routes)} MoE layer calls, not {cfg.n_layers} x {gen}")
+        slabs = len(routes[0])
+        for name, calls in (("prefill", routes[:cfg.n_layers]),
+                            ("decode", routes[cfg.n_layers:])):
+            shares = dropped_shares(calls, cfg.n_layers)
+            r = calls[0][0]
+            log(f"[serve] MoE {name}: capacity {r.cap} per dispatch of "
+                f"{r.keep.shape[0]} tokens x top-{cfg.moe.top_k}"
+                + (f" ({slabs} slabs)" if name == "prefill" else "")
+                + "; dropped share of (token, choice) pairs per layer "
+                + ", ".join(f"{x:.4%}" for x in shares))
+    del routes
 
     _, busy, by_kernel = profile("serve, one prefill", lambda: prefill(
         model, toks, cfg, prompt + gen), device)
@@ -2460,23 +2670,42 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
             _, c = decode_step(model, c, nxt, cfg)
 
     profile(f"serve, {n_steps} decode steps", steps, device)
-    del cache, res
+    summary = {"launches": launches, "max_abs_err": err,
+               "prefill_ms": res.prefill_s * 1e3,
+               "decode_tok_s": res.decode_tok_s()}
+    del cache, res, model
 
     # the whole path on a small input: the smoke config in float32 on the
-    # card (K4) against the CPU path (K4's plain version)
+    # card (K4) against the CPU path (K4's plain version); an MoE's routing
+    # (each dispatch's gate indices and kept choices) equal on both
     small = dataclasses.replace(get_arch(arch).smoke_config(), dtype="float32")
     cpu_model = init_lm_params(small, seed=seed, device="cpu")
     small_prompts = make_prompts(small, 2, 150, seed)
-    on_cpu = serve(cpu_model, small, small_prompts, 6)
-    on_card = serve(cpu_model.to(device), small, small_prompts, 6)
+    cpu_routes: list = []
+    card_routes: list = []
+    with recorded_routes(cpu_routes):
+        on_cpu = serve(cpu_model, small, small_prompts, 6)
+    with recorded_routes(card_routes):
+        on_card = serve(cpu_model.to(device), small, small_prompts, 6)
     ok, logit_err = within(on_card.prefill_logits.cpu(), on_cpu.prefill_logits,
                            dict(rtol=1e-4, atol=1e-4))
     check(ok and np.array_equal(on_card.tokens, on_cpu.tokens),
           f"smoke {arch} in float32: the card's prefill logits are {logit_err} "
           f"off the CPU path's, or the greedy tokens differ")
+    same = len(card_routes) == len(cpu_routes) and all(
+        torch.equal(a.gate_idx.cpu(), b.gate_idx)
+        and torch.equal(a.keep.cpu(), b.keep)
+        for ca, cb in zip(card_routes, cpu_routes) for a, b in zip(ca, cb))
+    check(same, f"smoke {arch} in float32: the MoE routing differs between "
+          "the card and the CPU path")
     log(f"[serve] smoke config in float32, 2 prompts x 150 tokens, 6 tokens: "
         f"{device} (K4 on a card) and the CPU path (plain) agree (prefill logits max "
-        f"abs err {logit_err:.6g} <= 1e-4, greedy tokens equal)")
+        f"abs err {logit_err:.6g} <= 1e-4, greedy tokens equal"
+        + ("" if small.moe is None else
+           f", gate indices and kept choices of all {len(cpu_routes)} MoE "
+           "dispatches equal")
+        + ")")
+    del cpu_model, on_cpu, on_card, cpu_routes, card_routes
 
     # the sGrapp monitor over prompts plus generations.  snapshot_count is
     # the dense tier: it sums C(W, 2) over the whole request x request Gram
@@ -2502,7 +2731,7 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
         f"{abs(bf - want):.0f}, within the float32 envelope {slack:.4f} (the "
         f"dense tier's whole-Gram sum reaches {total:.6g}"
         + (", past 2**24)" if total >= 2**24 else ", below 2**24: exact)"))
-    return {"launches": launches, "max_abs_err": err}
+    return summary
 
 
 def sync_all(devices) -> None:
@@ -2949,10 +3178,26 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     kern4 = phase_k4(device, seed, batch=lm_batch, seq=lm_prompt,
                      heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
                      head_dim=cfg.head_dim, chunk=cfg.attn_chunk_q)
+    mla_arch = get_arch("minicpm3-4b")
+    mla = (mla_arch.smoke_config() if lm_smoke else mla_arch.full_config())
+    kern4_mla = phase_k4_mla(
+        device, seed, batch=lm_batch, seq=lm_prompt, heads=mla.n_heads,
+        qk_dim=mla.mla.qk_nope_head_dim + mla.mla.qk_rope_head_dim,
+        v_dim=mla.mla.v_head_dim, chunk=mla.attn_chunk_q)
     clock.lap("9 K4")
     served = phase_serve(device, seed, arch=LM_ARCH, smoke=lm_smoke,
                          batch=lm_batch, prompt=lm_prompt, gen=lm_gen)
     clock.lap("10 serve")
+    # phases 16-18: the MLA and MoE archs; a CPU rehearsal serves their
+    # smoke configs at the rehearsal's sizes
+    k4_serve = {LM_ARCH: served}
+    for number, (arch_id, depth, b, s_len, g) in enumerate(LM_CELLS, 16):
+        if lm_smoke:
+            depth, b, s_len, g = None, lm_batch, lm_prompt, lm_gen
+        k4_serve[arch_id] = phase_serve(device, seed, arch=arch_id,
+                                        smoke=lm_smoke, batch=b, prompt=s_len,
+                                        gen=g, n_layers=depth)
+        clock.lap(f"{number} serve {arch_id}")
     src = "src/repro_torch/kernels/butterfly/csrc/"
     ref = "src/repro/kernels/butterfly/butterfly_kernel.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2984,10 +3229,13 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_kernel.py:29",
-         "launches": served["launches"],
+         "launches": sum(v["launches"] for v in k4_serve.values()),
+         "launches_by_arch": {a: v["launches"] for a, v in k4_serve.items()},
          **{k: kern4[k] for k in keys},
-         "max_abs_err": max(kern4["max_abs_err"], served["max_abs_err"]),
-         "float32_simt_ms": kern4["float32_simt_ms"]},
+         "max_abs_err": max(kern4["max_abs_err"], kern4_mla["max_abs_err"],
+                            *(v["max_abs_err"] for v in k4_serve.values())),
+         "float32_simt_ms": kern4["float32_simt_ms"],
+         "mla_shape": kern4_mla},
     ]
 
 

@@ -15,14 +15,14 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # flash_attention_launch (q, k, v, o, dtype, batch, heads, groups, sq, skv,
-# hd, strides[12], causal, q_offset, scale, stream) -> cudaError_t as int;
-# flash_attention_smem_bytes (dtype, hd) -> the variant's dynamic shared
-# memory in bytes
+# hd, hd_v, strides[12], causal, q_offset, scale, stream) -> cudaError_t as
+# int; flash_attention_smem_bytes (dtype, hd, hd_v) -> the variant's dynamic
+# shared memory in bytes
 LIBRARY = KernelLibrary("flash_attention", CSRC, (
     ("flash_attention_launch",
-     (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+     (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
       ctypes.POINTER(ctypes.c_longlong), _I, _I, ctypes.c_float, _P)),
-    ("flash_attention_smem_bytes", (_I, _I)),
+    ("flash_attention_smem_bytes", (_I, _I, _I)),
 ))
 
 

@@ -8,9 +8,10 @@
 // `gqa_attention_chunked` (the XLA twin of the same schedule in
 // src/repro/models/transformer/attention.py:33).
 //
-// What it computes.  For q [B, Sq, H, hd] and k, v [B, Skv, Hkv, hd] read
-// through their strides (no transpose, no GQA repeat: query head h reads
-// key/value head h / groups), the output o [B, Sq, H, hd] is
+// What it computes.  For q [B, Sq, H, hd], k [B, Skv, Hkv, hd] and v [B,
+// Skv, Hkv, hd_v] read through their strides (no transpose, no GQA repeat:
+// query head h reads key/value head h / groups; hd_v may differ from hd, as
+// in MLA), the output o [B, Sq, H, hd_v] is
 //
 //     s   = (q . k) * scale                       (fp32)
 //     s   = -1e30 where col >= Skv, or causal and col > q_offset + row
@@ -26,9 +27,11 @@
 // masked here; callers pad nothing.  expf, never __expf (no fast math).
 //
 // Design.  One block of 256 threads per (64 query rows, head, batch).  The
-// Q tile and each 64-key K and V tile are staged in shared memory.  A
-// thread owns 4 query rows and, for them, 4 score columns and hd_pad / 16
-// output columns: the 16 threads of a row group are lanes of one warp, so
+// Q tile and each 64-key K and V tile are staged in shared memory at a
+// padded head dim HDP >= max(hd, hd_v), zero past each tensor's own (zero
+// columns add nothing to q . k, and only d < hd_v is written).  A thread
+// owns 4 query rows and, for them, 4 score columns and HDP / 16 output
+// columns: the 16 threads of a row group are lanes of one warp, so
 // the row max and sum are warp shuffles and the P tile needs only a warp
 // barrier between its write and its read.  Query tiles launch heaviest
 // first (the last causal tiles walk the most keys).
@@ -61,7 +64,7 @@ struct Params {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
-  int groups, sq, skv, hd, causal, q_offset, n_qtiles;
+  int groups, sq, skv, hd, hd_v, causal, q_offset, n_qtiles;
   float scale;
 };
 
@@ -149,7 +152,7 @@ flash_attention_kernel(const Params p, const bool vec) {
     const int rows = min(kBK, p.skv - k0);
     __syncthreads();                      // the last tile's readers are done
     load_tile<HDP>(ks, S::kKS, kg + k0 * p.k_ss, p.k_ss, rows, p.hd, vec);
-    load_tile<HDP>(vs, S::kVS, vg + k0 * p.v_ss, p.v_ss, rows, p.hd, vec);
+    load_tile<HDP>(vs, S::kVS, vg + k0 * p.v_ss, p.v_ss, rows, p.hd_v, vec);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -231,14 +234,14 @@ flash_attention_kernel(const Params p, const bool vec) {
 #pragma unroll
     for (int c = 0; c < kOut; ++c) {
       const int d = tx + 16 * c;
-      if (d < p.hd) og[d] = acc[i][c] / denom;
+      if (d < p.hd_v) og[d] = acc[i][c] / denom;
     }
   }
 }
 
 template <int HDP>
 cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
-  bool vec = p.hd % 4 == 0;
+  bool vec = p.hd % 4 == 0 && p.hd_v % 4 == 0;
   for (const void* ptr : {p.q, p.k, p.v})
     vec = vec && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   for (long long s : {p.q_sb, p.q_ss, p.q_sh, p.k_sb, p.k_ss, p.k_sh, p.v_sb,
@@ -256,8 +259,9 @@ cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
 }
 
 cudaError_t launch_f32(const Params& p, int batch, int heads, cudaStream_t stream) {
-  if (p.hd <= 32) return launch<32>(p, batch, heads, stream);
-  if (p.hd <= 64) return launch<64>(p, batch, heads, stream);
+  const int hd = p.hd > p.hd_v ? p.hd : p.hd_v;
+  if (hd <= 32) return launch<32>(p, batch, heads, stream);
+  if (hd <= 64) return launch<64>(p, batch, heads, stream);
   return launch<128>(p, batch, heads, stream);
 }
 
@@ -266,22 +270,24 @@ cudaError_t launch_f32(const Params& p, int batch, int heads, cudaStream_t strea
 // flash_attention_wgmma.cu: the bf16 variant
 cudaError_t k4_bf16_launch(const void* q, const void* k, const void* v, void* o,
                            int batch, int heads, int groups, int sq, int skv, int hd,
-                           const long long* strides, int causal, int q_offset,
+                           int hd_v, const long long* strides, int causal, int q_offset,
                            float scale, cudaStream_t stream);
-int k4_bf16_smem_bytes(int hd);
+int k4_bf16_smem_bytes(int hd, int hd_v);
 
 // q, k, v, o: device pointers; dtype 0 = float32 (this file's SIMT kernel),
 // 1 = bfloat16 (the wgmma kernel, which takes only TMA-ready q, k, v: a
-// 16-byte-aligned base and strides of 16 bytes); all four alike; strides:
-// 12 element strides (batch, seq, head) of q, k, v, o.  Returns a
-// cudaError_t; 0 when the launch was taken.
+// 16-byte-aligned base and strides of 16 bytes); all four alike; hd: the
+// head dim of q and k, hd_v: of v and o; strides: 12 element strides
+// (batch, seq, head) of q, k, v, o.  Returns a cudaError_t; 0 when the
+// launch was taken.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
                                       void* o, int dtype, int batch, int heads,
-                                      int groups, int sq, int skv, int hd,
+                                      int groups, int sq, int skv, int hd, int hd_v,
                                       const long long* strides, int causal,
                                       int q_offset, float scale, void* stream) {
   if (batch < 0 || heads < 1 || groups < 1 || heads % groups || sq < 0 ||
-      skv < 0 || hd < 1 || hd > 128 || q_offset < 0 || (dtype != 0 && dtype != 1))
+      skv < 0 || hd < 1 || hd > 128 || hd_v < 1 || hd_v > 128 || q_offset < 0 ||
+      (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || sq == 0) return 0;
   if (batch > 65535 || heads > 65535)
@@ -289,7 +295,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
     return static_cast<int>(k4_bf16_launch(q, k, v, o, batch, heads, groups, sq, skv,
-                                           hd, strides, causal, q_offset, scale, s));
+                                           hd, hd_v, strides, causal, q_offset, scale,
+                                           s));
   Params p;
   p.q = static_cast<const float*>(q);
   p.k = static_cast<const float*>(k);
@@ -303,6 +310,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   p.sq = sq;
   p.skv = skv;
   p.hd = hd;
+  p.hd_v = hd_v;
   p.causal = causal;
   p.q_offset = q_offset;
   p.n_qtiles = (sq + kBQ - 1) / kBQ;
@@ -311,9 +319,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 }
 
 // The dynamic shared memory of the variant that `flash_attention_launch`
-// runs for dtype (0 float32, 1 bfloat16) and head dim hd.
-extern "C" int flash_attention_smem_bytes(int dtype, int hd) {
-  if (dtype == 1) return k4_bf16_smem_bytes(hd);
+// runs for dtype (0 float32, 1 bfloat16) and head dims hd (q, k) and hd_v.
+extern "C" int flash_attention_smem_bytes(int dtype, int hd, int hd_v) {
+  if (dtype == 1) return k4_bf16_smem_bytes(hd, hd_v);
+  if (hd_v > hd) hd = hd_v;
   if (hd <= 32) return static_cast<int>(Smem<32>::kBytes);
   if (hd <= 64) return static_cast<int>(Smem<64>::kBytes);
   return static_cast<int>(Smem<128>::kBytes);

@@ -21,6 +21,9 @@
 // bf16 operands is exact on the bf16 tensor cores (products of two 8-bit
 // significands, fp32 accumulation).  PV takes the reference's fp32 P, so
 // three bf16 products (below): 4 x 206.2 GFLOP at 989 TFLOP/s = 0.834 ms.
+// At MiniCPM3's MLA prefill (q, k [4, 4096, 40, 96], v [4, 4096, 40, 64])
+// QK^T is 257.7 GFLOP and PV 171.8 GFLOP, three limbs of it 515.4: 0.782
+// ms at 989 TFLOP/s.
 //
 // The three limbs.  Each p is split in registers as hi = bf16_rn(p),
 // p -= hi, mid = bf16_rn(p), p -= mid, lo = bf16_rn(p).  Every subtraction
@@ -53,6 +56,16 @@
 // p = 0 and corr = 1); only tiles that cross the diagonal or the ragged end
 // of the keys are masked; rows past Sq are computed on TMA's zero fill and
 // never written.  Query tiles launch heaviest first across the whole grid.
+//
+// The value head dim hd_v may differ from the query/key head dim hd (MLA:
+// MiniCPM3's prefill has hd = 96, hd_v = 64).  The kernel is a template on
+// two atom counts, NQK for Q and K (ceil(hd / 64)) and NV for V and the O
+// accumulator (ceil(hd_v / 64)), and each tensor map is built at its own
+// head dim.  A head dim that is not a multiple of 64 leaves part of its last
+// atom to TMA's zero fill (at hd = 96 the second Q/K atom is half zeros, a
+// 192-byte row): zero columns add nothing to q . k, and the epilogue writes
+// only d < hd_v.  The same fill zeroes K and V rows past Skv in the last
+// key tile, whose scores are masked.
 // TMA needs a 16-byte-aligned base and strides that are multiples of 16
 // bytes; the wrapper hands this kernel a padded copy of any input that
 // does not meet that (flash_kernel._launch), and the launcher refuses one.
@@ -78,17 +91,17 @@ constexpr float kNeg = -1e30f;
 struct Params {
   __nv_bfloat16* o;
   long long o_sb, o_ss, o_sh;             // strides in elements
-  int groups, sq, skv, hd, causal, q_offset, n_qtiles, pairs;
+  int groups, sq, skv, hd_v, causal, q_offset, n_qtiles, pairs;
   float scale;
 };
 
-// shared memory of a block: Q atoms, then per stage K atoms and V atoms,
-// then the barriers (q, full[kStages], empty[kStages]); 1024 bytes of slack
-// align the swizzled tiles
-template <int NA>
+// shared memory of a block: NQK Q atoms, then per stage NQK K atoms and NV
+// V atoms, then the barriers (q, full[kStages], empty[kStages]); 1024 bytes
+// of slack align the swizzled tiles
+template <int NQK, int NV>
 struct Smem {
-  static constexpr int kQ = NA * kQAtom;
-  static constexpr int kStage = 2 * NA * kKVAtom;
+  static constexpr int kQ = NQK * kQAtom;
+  static constexpr int kStage = (NQK + NV) * kKVAtom;
   static constexpr int kBars = kQ + kStages * kStage;
   static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
 };
@@ -229,12 +242,12 @@ __device__ __forceinline__ uint32_t peel(float& x0, float& x1) {
   return u;
 }
 
-template <int NA>
+template <int NQK, int NV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv, const Params p) {
-  using S = Smem<NA>;
+  using S = Smem<NQK, NV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // 128-byte swizzle: 1024-aligned
@@ -265,19 +278,19 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // ---- producer: one thread issues every copy ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 256) {
-      bar_expect_tx(qbar, NA * kQAtom);
-      for (int a = 0; a < NA; ++a)
+      bar_expect_tx(qbar, NQK * kQAtom);
+      for (int a = 0; a < NQK; ++a)
         tma_load(base + a * kQAtom, &tq, qbar, a * kAtomCols, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         if (t >= kStages) bar_wait(empty0 + 8 * s, ((t / kStages) - 1) & 1);
         const uint32_t full = full0 + 8 * s;
         const uint32_t kb = base + S::kQ + s * S::kStage;
-        bar_expect_tx(full, 2 * NA * kKVAtom);
-        for (int a = 0; a < NA; ++a)
+        bar_expect_tx(full, (NQK + NV) * kKVAtom);
+        for (int a = 0; a < NQK; ++a)
           tma_load(kb + a * kKVAtom, &tk, full, a * kAtomCols, hk, t * kBK, b);
-        for (int a = 0; a < NA; ++a)
-          tma_load(kb + (NA + a) * kKVAtom, &tv, full, a * kAtomCols, hk, t * kBK, b);
+        for (int a = 0; a < NV; ++a)
+          tma_load(kb + (NQK + a) * kKVAtom, &tv, full, a * kAtomCols, hk, t * kBK, b);
       }
     }
   } else {
@@ -296,9 +309,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
     const int pos0 = p.q_offset + w0 + r0;        // row r0's global position
 
-    float o[NA][32];
+    float o[NV][32];
 #pragma unroll
-    for (int a = 0; a < NA; ++a)
+    for (int a = 0; a < NV; ++a)
 #pragma unroll
       for (int i = 0; i < 32; ++i) o[a][i] = 0.f;
     float m[2] = {kNeg, kNeg};
@@ -311,14 +324,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       bar_wait(full0 + 8 * s, (t / kStages) & 1);
       if (t < my_tiles) {
         const uint32_t kb = base + S::kQ + s * S::kStage;
-        const uint32_t vb = kb + NA * kKVAtom;
+        const uint32_t vb = kb + NQK * kKVAtom;
 
         float sc[32];
 #pragma unroll
         for (int i = 0; i < 32; ++i) sc[i] = 0.f;
         wg_fence();
 #pragma unroll
-        for (int a = 0; a < NA; ++a)
+        for (int a = 0; a < NQK; ++a)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             wgmma_ss(sc, desc(qb + a * kQAtom + kk * 32), desc(kb + a * kKVAtom + kk * 32),
@@ -365,7 +378,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           sum += __shfl_xor_sync(0xffffffffu, sum, 2);
           l[i] = l[i] * corr + sum;
 #pragma unroll
-          for (int a = 0; a < NA; ++a)
+          for (int a = 0; a < NV; ++a)
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
               o[a][4 * j + 2 * i] *= corr;
@@ -395,22 +408,22 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int a = 0; a < NA; ++a)
+          for (int a = 0; a < NV; ++a)
             wgmma_rs(o[a], hi[kk], desc(vb + a * kKVAtom + kk * 16 * 128));
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int a = 0; a < NA; ++a)
+          for (int a = 0; a < NV; ++a)
             wgmma_rs(o[a], mid[kk], desc(vb + a * kKVAtom + kk * 16 * 128));
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int a = 0; a < NA; ++a)
+          for (int a = 0; a < NV; ++a)
             wgmma_rs(o[a], lo[kk], desc(vb + a * kKVAtom + kk * 16 * 128));
         wg_commit();
         wg_wait_all();
 #pragma unroll
-        for (int a = 0; a < NA; ++a)
+        for (int a = 0; a < NV; ++a)
 #pragma unroll
           for (int i = 0; i < 32; ++i) keep(o[a][i]);
 #pragma unroll
@@ -434,18 +447,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const float denom = fmaxf(l[i], 1e-30f);
       __nv_bfloat16* og = p.o + b * p.o_sb + h * p.o_sh + row * p.o_ss;
 #pragma unroll
-      for (int a = 0; a < NA; ++a)
+      for (int a = 0; a < NV; ++a)
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int d = kAtomCols * a + 8 * j + cq;
-          if (d >= p.hd) continue;
+          if (d >= p.hd_v) continue;
           const float x0 = o[a][4 * j + 2 * i] / denom;
           const float x1 = o[a][4 * j + 2 * i + 1] / denom;
           if (p.pairs) {
             *reinterpret_cast<__nv_bfloat162*>(og + d) = __floats2bfloat162_rn(x0, x1);
           } else {
             og[d] = __float2bfloat16_rn(x0);
-            if (d + 1 < p.hd) og[d + 1] = __float2bfloat16_rn(x1);
+            if (d + 1 < p.hd_v) og[d + 1] = __float2bfloat16_rn(x1);
           }
         }
     }
@@ -509,16 +522,16 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int s
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int NA>
+template <int NQK, int NV>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                    const Params& p, int batch, int heads, cudaStream_t stream) {
-  const int smem = Smem<NA>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<NA>,
+  const int smem = Smem<NQK, NV>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_wgmma_kernel<NQK, NV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(heads), static_cast<unsigned>(batch),
                   static_cast<unsigned>(p.n_qtiles));
-  flash_attention_wgmma_kernel<NA><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
+  flash_attention_wgmma_kernel<NQK, NV><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -528,7 +541,7 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
 // the arguments that entry point checked.
 cudaError_t k4_bf16_launch(const void* q, const void* k, const void* v, void* o,
                            int batch, int heads, int groups, int sq, int skv, int hd,
-                           const long long* strides, int causal, int q_offset,
+                           int hd_v, const long long* strides, int causal, int q_offset,
                            float scale, cudaStream_t stream) {
   const int n_qtiles = (sq + kBQ - 1) / kBQ;
   if (n_qtiles > 65535 || batch > 65535) return cudaErrorInvalidConfiguration;
@@ -539,7 +552,7 @@ cudaError_t k4_bf16_launch(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess)
     err = make_map(&tk, k, hd, hkv, skv, batch, strides[5], strides[4], strides[3], kBK);
   if (err == cudaSuccess)
-    err = make_map(&tv, v, hd, hkv, skv, batch, strides[8], strides[7], strides[6], kBK);
+    err = make_map(&tv, v, hd_v, hkv, skv, batch, strides[8], strides[7], strides[6], kBK);
   if (err != cudaSuccess) return err;
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
@@ -549,18 +562,22 @@ cudaError_t k4_bf16_launch(const void* q, const void* k, const void* v, void* o,
   p.groups = groups;
   p.sq = sq;
   p.skv = skv;
-  p.hd = hd;
+  p.hd_v = hd_v;
   p.causal = causal;
   p.q_offset = q_offset;
   p.n_qtiles = n_qtiles;
-  p.pairs = hd % 2 == 0 && p.o_sb % 2 == 0 && p.o_ss % 2 == 0 && p.o_sh % 2 == 0 &&
+  p.pairs = hd_v % 2 == 0 && p.o_sb % 2 == 0 && p.o_ss % 2 == 0 && p.o_sh % 2 == 0 &&
             reinterpret_cast<uintptr_t>(o) % 4 == 0;
   p.scale = scale;
-  return hd <= kAtomCols ? launch<1>(tq, tk, tv, p, batch, heads, stream)
-                         : launch<2>(tq, tk, tv, p, batch, heads, stream);
+  if (hd <= kAtomCols)
+    return hd_v <= kAtomCols ? launch<1, 1>(tq, tk, tv, p, batch, heads, stream)
+                             : launch<1, 2>(tq, tk, tv, p, batch, heads, stream);
+  return hd_v <= kAtomCols ? launch<2, 1>(tq, tk, tv, p, batch, heads, stream)
+                           : launch<2, 2>(tq, tk, tv, p, batch, heads, stream);
 }
 
-// dynamic shared memory of the bf16 kernel at head dim hd
-int k4_bf16_smem_bytes(int hd) {
-  return hd <= kAtomCols ? Smem<1>::kBytes : Smem<2>::kBytes;
+// dynamic shared memory of the bf16 kernel at head dims hd (q, k) and hd_v
+int k4_bf16_smem_bytes(int hd, int hd_v) {
+  if (hd <= kAtomCols) return hd_v <= kAtomCols ? Smem<1, 1>::kBytes : Smem<1, 2>::kBytes;
+  return hd_v <= kAtomCols ? Smem<2, 1>::kBytes : Smem<2, 2>::kBytes;
 }

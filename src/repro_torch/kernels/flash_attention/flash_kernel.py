@@ -1,15 +1,19 @@
 """K4, the flash-attention forward kernel, its wrappers and its plain twin.
 
-:func:`flash_attention_bshd` is K4's wrapper.  For q ``[B, Sq, H, hd]`` and
-k, v ``[B, Skv, Hkv, hd]`` (``H`` a multiple of ``Hkv``: query head ``h``
-reads key/value head ``h // (H // Hkv)``) it returns softmax attention
-``[B, Sq, H, hd]`` by the FlashAttention-2 online softmax that the
+:func:`flash_attention_bshd` is K4's wrapper.  For q ``[B, Sq, H, hd]``, k
+``[B, Skv, Hkv, hd]`` and v ``[B, Skv, Hkv, hd_v]`` (``H`` a multiple of
+``Hkv``: query head ``h`` reads key/value head ``h // (H // Hkv)``; MLA's
+value head dim differs from the query's) it returns softmax attention
+``[B, Sq, H, hd_v]`` by the FlashAttention-2 online softmax that the
 reference's Pallas kernel
 (``repro.kernels.flash_attention.flash_kernel._kernel``) runs: fp32 scores
 ``q.k * scale``, the causal mask by global index (query row ``r`` sits at
 position ``q_offset + r``) with ``-1e30``, an fp32 ``(acc, m, l)`` and
 ``acc / max(l, 1e-30)`` written in ``q.dtype``.  Lengths need not divide a
-block.
+block.  The caller gives the scale: the model's attention passes the
+reference's float32 ``1/sqrt(hd)``; without one the wrappers use the
+reference kernel's double (:func:`default_scale`), which its own entries
+(:func:`flash_attention_call`, ``ops.flash_attention``) keep.
 
 On a CUDA tensor the wrapper launches one of K4's two hand-written
 variants (built at first use, see :mod:`.build`) on the tensors' strides --
@@ -39,7 +43,8 @@ import torch
 from ...core.butterfly import full_fp32_matmul
 
 __all__ = ["flash_attention_bshd", "flash_attention_call",
-           "flash_attention_plain", "check_blocks", "launch_count",
+           "flash_attention_plain", "check_blocks", "default_scale",
+           "launch_count",
            "reset_launch_count", "split_bf16_limbs", "tma_ready", "VARIANTS"]
 
 _NEG = -1e30
@@ -107,9 +112,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.dim() != 4:
             raise ValueError(f"{name} must be [B, S, H, hd], got shape {tuple(t.shape)}")
     b, _, h, hd = q.shape
-    if k.shape != v.shape:
+    if k.shape[:3] != v.shape[:3]:
         raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)} differ "
-                         "(hd_v != hd is MLA's, not ported)")
+                         "in batch, length or heads")
     if k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
                          "on batch or head dim")
@@ -134,31 +139,40 @@ def check_blocks(sq: int, skv: int, block_q: int, block_k: int
     return bq, bk
 
 
+def default_scale(hd: int) -> float:
+    """The reference kernel's scale, ``1 / hd ** 0.5`` as a Python double
+    (rounded to float32 where it multiplies)."""
+    return 1.0 / hd ** 0.5
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, q_offset: int = 0,
-                          block_q: int = 512, block_k: int = 512
-                          ) -> torch.Tensor:
+                          block_q: int = 512, block_k: int = 512,
+                          scale: float | None = None) -> torch.Tensor:
     """Plain torch version of K4: per query block of ``block_q`` rows, an
     online softmax over key blocks of ``block_k`` (the last of each may be
     short), every key block in order as the reference walks them, in full
     fp32.  Shapes and semantics as :func:`flash_attention_bshd`."""
     _check(q, k, v, q_offset)
     b, sq, h, hd = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
+    skv, hkv, hd_v = k.shape[1], k.shape[2], v.shape[3]
     g = h // hkv
-    scale = 1.0 / hd ** 0.5
+    if scale is None:
+        scale = default_scale(hd)
     # [B, Hkv, G, S, hd]: query heads grouped under their key/value head
     qf = q.float().reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
-    out = torch.empty((b, hkv, g, sq, hd), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, hkv, g, sq, hd_v), dtype=torch.float32,
+                      device=q.device)
     bq, bk = max(1, min(block_q, sq)), max(1, min(block_k, skv))
     neg = torch.full((), _NEG, dtype=torch.float32, device=q.device)
     with full_fp32_matmul():
         for q0 in range(0, sq, bq):
             qb = qf[..., q0:q0 + bq, :]
             rows = q_offset + q0 + torch.arange(qb.shape[-2], device=q.device)
-            acc = torch.zeros_like(qb)
+            acc = torch.zeros(qb.shape[:-1] + (hd_v,), dtype=torch.float32,
+                              device=q.device)
             m = torch.full(qb.shape[:-1] + (1,), _NEG, dtype=torch.float32,
                            device=q.device)
             l = torch.zeros_like(m)
@@ -175,15 +189,16 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 acc = acc * corr + torch.matmul(p, vb)
                 m = m_new
             out[..., q0:q0 + bq, :] = acc / torch.clamp_min(l, 1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd_v).to(q.dtype)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool, q_offset: int) -> torch.Tensor:
+            causal: bool, q_offset: int, scale: float) -> torch.Tensor:
     """Launch K4 on CUDA tensors and count one launch, in all and for its
     variant.  Raises on anything the kernels do not take: another device, a
-    dtype other than float32 or bfloat16, a head dim above 128, a last axis
-    that is not contiguous, or more than 65535 batches or heads.  A bf16
+    dtype other than float32 or bfloat16, a head dim (query or value) above
+    128, a last axis that is not contiguous, or more than 65535 batches or
+    heads.  A bf16
     input that is not :func:`tma_ready` goes to the kernel as a padded copy
     (variant ``wgmma_padded``).  The output is allocated with
     ``torch.empty`` and the kernel launches on the current CUDA stream
@@ -194,15 +209,16 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES:
         raise ValueError(f"K4 takes float32 or bfloat16, got {q.dtype}")
     b, sq, h, hd = q.shape
-    skv, hkv = k.shape[1], k.shape[2]
-    if hd > _MAX_HD:
-        raise ValueError(f"K4 takes a head dim up to {_MAX_HD}, got {hd}")
+    skv, hkv, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    if max(hd, hd_v) > _MAX_HD:
+        raise ValueError(f"K4 takes a head dim up to {_MAX_HD}, got {hd} "
+                         f"(values {hd_v})")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v must be contiguous along the head dim")
     if b > _MAX_GRID_YZ or h > _MAX_GRID_YZ:
         raise ValueError(f"K4 takes at most {_MAX_GRID_YZ} batches and heads, "
                          f"got {b} and {h}")
-    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, hd_v), dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return out
     from .build import load_library
@@ -219,8 +235,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 _DTYPES[q.dtype], b, h, h // hkv, sq, skv, hd, strides,
-                 int(causal), q_offset, 1.0 / hd ** 0.5, stream)
+                 _DTYPES[q.dtype], b, h, h // hkv, sq, skv, hd, hd_v, strides,
+                 int(causal), q_offset, scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_launch failed: cudaError {err}")
     _launches["K4"] += 1
@@ -230,17 +246,21 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, q_offset: int = 0,
-                         block_q: int = 512, block_k: int = 512
-                         ) -> torch.Tensor:
-    """K4's wrapper: q ``[B, Sq, H, hd]``, k/v ``[B, Skv, Hkv, hd]`` ->
-    ``[B, Sq, H, hd]`` in ``q.dtype``.  ``block_q`` / ``block_k`` set the
-    plain version's blocks only (K4 tiles by itself and masks ragged
-    lengths)."""
+                         block_q: int = 512, block_k: int = 512,
+                         scale: float | None = None) -> torch.Tensor:
+    """K4's wrapper: q ``[B, Sq, H, hd]``, k ``[B, Skv, Hkv, hd]``, v ``[B,
+    Skv, Hkv, hd_v]`` -> ``[B, Sq, H, hd_v]`` in ``q.dtype``.  ``scale``
+    multiplies the scores (None: :func:`default_scale`, the reference
+    kernel's).  ``block_q`` / ``block_k`` set the plain version's blocks
+    only (K4 tiles by itself and masks ragged lengths)."""
     _check(q, k, v, q_offset)
+    if scale is None:
+        scale = default_scale(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
-                                     block_q=block_q, block_k=block_k)
-    return _launch(q, k, v, causal=causal, q_offset=q_offset)
+                                     block_q=block_q, block_k=block_k,
+                                     scale=scale)
+    return _launch(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
 
 
 def flash_attention_call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,18 +1,22 @@
-"""The dense GQA transformer LM (the port of ``repro.models.transformer``;
-MoE and MLA are later slices)."""
+"""The transformer LM (the port of ``repro.models.transformer``): GQA and
+MLA attention, dense and MoE FFNs."""
 from .config import LMConfig, MLAConfig, MoEConfig
 from .convert import params_from_reference
 from .model import (
+    Block,
     TransformerLM,
     decode_step,
     init_cache,
     init_lm_params,
+    layer_keys,
     lm_forward,
     prefill,
 )
+from .moe import MoERoute, init_moe, moe_apply, moe_route
 
 __all__ = [
-    "LMConfig", "MoEConfig", "MLAConfig", "TransformerLM",
+    "LMConfig", "MoEConfig", "MLAConfig", "TransformerLM", "Block",
     "init_lm_params", "lm_forward", "prefill", "decode_step", "init_cache",
-    "params_from_reference",
+    "layer_keys", "params_from_reference", "MoERoute", "init_moe",
+    "moe_apply", "moe_route",
 ]

@@ -1,5 +1,5 @@
-"""Attention of the dense GQA transformer: chunked prefill attention (K4 on
-the card) and single-token decode attention.
+"""Attention of the transformer: chunked prefill attention (K4 on the card),
+single-token decode attention, and MLA's prefill and absorbed decode.
 
 ``gqa_attention_chunked`` is the reference's online-softmax prefill
 attention (``repro.models.transformer.attention``), the XLA twin of the
@@ -7,8 +7,10 @@ flash-attention kernel's schedule.  On a CUDA tensor it launches K4, which
 reads the key/value heads by stride and masks ragged lengths itself, so
 nothing is repeated or padded; on a CPU tensor it runs the same chunked
 online softmax in torch (K4's plain version at ``chunk_q`` x ``chunk_k``
-blocks).  Decode attention stays plain torch, as the reference computes it
-outside any kernel.  MLA is a later slice.
+blocks).  The value head dim may differ from the query's (MLA).  MLA's
+prefill expands its latents and calls ``gqa_attention_chunked`` (K4 on the
+card); decode attention, dense and MLA, stays plain torch, as the reference
+computes it outside any kernel.
 """
 from __future__ import annotations
 
@@ -16,32 +18,40 @@ import torch
 
 from ...core.butterfly import full_fp32_matmul
 from ...kernels.flash_attention.flash_kernel import flash_attention_bshd
+from .rope import apply_rope, rope_freqs
 
-__all__ = ["gqa_attention_chunked", "gqa_decode_attention", "mla_attention",
-           "mla_decode_attention"]
+__all__ = ["attention_scale", "gqa_attention_chunked", "gqa_decode_attention",
+           "mla_attention", "mla_decode_attention"]
 
 _NEG = -1e30
+
+
+def attention_scale(hd: int) -> float:
+    """The reference's ``1 / sqrt(float32(hd))``, rounded in float32, as a
+    Python float: no host-to-device copy (and so no synchronization) per
+    call.  At hd = 96 it is one float32 ulp below the double
+    ``1 / hd ** 0.5`` rounded to float32."""
+    return float(1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32)))
 
 
 def gqa_attention_chunked(
     q: torch.Tensor,            # [B, Sq, H, hd]
     k: torch.Tensor,            # [B, Skv, Hkv, hd]
-    v: torch.Tensor,            # [B, Skv, Hkv, hd]
+    v: torch.Tensor,            # [B, Skv, Hkv, hd_v]
     *,
     causal: bool = True,
     q_offset: int = 0,          # global position of q[0] (chunked prefill)
     chunk_q: int = 1024,
     chunk_k: int = 1024,
 ) -> torch.Tensor:
-    """Softmax attention ``[B, Sq, H, hd]`` in ``q.dtype``: fp32 scores,
-    the causal mask by global position with ``-1e30``, an fp32 online
-    softmax and ``acc / max(l, 1e-30)``.  ``chunk_q`` / ``chunk_k`` are the
-    blocks of the CPU path."""
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            "hd_v != hd (MLA's value head dim) is not ported (a later slice)")
+    """Softmax attention ``[B, Sq, H, hd_v]`` in ``q.dtype``: fp32 scores
+    scaled by the reference's float32 ``1/sqrt(hd)``, the causal mask by
+    global position with ``-1e30``, an fp32 online softmax and
+    ``acc / max(l, 1e-30)``.  ``chunk_q`` / ``chunk_k`` are the blocks of
+    the CPU path."""
     return flash_attention_bshd(q, k, v, causal=causal, q_offset=q_offset,
-                                block_q=chunk_q, block_k=chunk_k)
+                                block_q=chunk_q, block_k=chunk_k,
+                                scale=attention_scale(q.shape[-1]))
 
 
 def gqa_decode_attention(
@@ -56,9 +66,7 @@ def gqa_decode_attention(
     b, h, hd = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     groups = h // hkv
-    # the reference's float32 1/sqrt(hd), as a Python float: no host-to-device
-    # copy (and so no synchronization) per call
-    scale = float(1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32)))
+    scale = attention_scale(hd)
     qg = q.reshape(b, hkv, groups, hd).float()
     with full_fp32_matmul():
         scores = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float())
@@ -76,12 +84,86 @@ def gqa_decode_attention(
     return out.reshape(b, h, hd).to(q.dtype)
 
 
-def mla_attention(*args, **kwargs):
-    """Multi-head latent attention: not ported (``hd_v != hd``; a later
-    slice)."""
-    raise NotImplementedError("MLA attention is not ported (a later slice)")
+def mla_attention(
+    x: torch.Tensor,            # [B, S, D]
+    p,                          # the layer: wq_down wq_up wkv_down wk_rope wk_up wv_up wo
+    cfg,                        # LMConfig with .mla set
+    positions: torch.Tensor,    # [S]
+    *,
+    causal: bool = True,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Prefill MLA: ``(out [B, S, D], (c_kv [B, S, kv_rank], k_rope [B, S,
+    rope]))``, the latents the cache keeps.  The latents are expanded to
+    full heads (queries and keys of ``nope + rope``, values of ``v_head_dim``)
+    and attended by ``gqa_attention_chunked``, which is K4 on the card."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q = ((x @ p.wq_down) @ p.wq_up).reshape(
+        b, s, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+    c_kv = x @ p.wkv_down
+    k_rope = (x @ p.wk_rope).reshape(b, s, 1, m.qk_rope_head_dim)
+    cos, sin = rope_freqs(m.qk_rope_head_dim, cfg.rope_theta, positions)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope, cos, sin)
+    k_nope = (c_kv @ p.wk_up).reshape(b, s, h, m.qk_nope_head_dim)
+    v = (c_kv @ p.wv_up).reshape(b, s, h, m.v_head_dim)
+    qf = torch.cat([q_nope, q_rope], dim=-1)
+    kf = torch.cat([k_nope, k_rope.expand(b, s, h, m.qk_rope_head_dim)],
+                   dim=-1)
+    out = gqa_attention_chunked(qf, kf, v, causal=causal,
+                                chunk_q=cfg.attn_chunk_q,
+                                chunk_k=cfg.attn_chunk_k)
+    out = out.reshape(b, s, h * m.v_head_dim) @ p.wo
+    return out, (c_kv, k_rope[:, :, 0, :])
 
 
-def mla_decode_attention(*args, **kwargs):
-    """Absorbed-matrix MLA decode: not ported (a later slice)."""
-    raise NotImplementedError("MLA decode attention is not ported (a later slice)")
+def mla_decode_attention(
+    x: torch.Tensor,            # [B, D] one token
+    p,
+    cfg,
+    ckv_cache: torch.Tensor,    # [B, S, kv_rank]
+    krope_cache: torch.Tensor,  # [B, S, rope]
+    cache_len,                  # int, or [B] valid prefix lengths
+    position: int,              # the new token's position
+) -> torch.Tensor:
+    """Absorbed-matrix MLA decode, ``[B, D]``: ``q_nope`` is folded through
+    ``wk_up`` so the scores run against the cached latents, all in float32
+    (``1/sqrt(float32(nope + rope))``, positions at or past ``cache_len``
+    masked with ``-1e30``), and ``wv_up`` is applied to the attended latent
+    on the way out before ``wo`` in ``x.dtype``."""
+    m = cfg.mla
+    b = x.shape[0]
+    h, r = cfg.n_heads, m.kv_lora_rank
+    q = ((x @ p.wq_down) @ p.wq_up).reshape(
+        b, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+    cos, sin = rope_freqs(m.qk_rope_head_dim, cfg.rope_theta, torch.arange(
+        position, position + 1, device=x.device))
+    q_rope = apply_rope(q_rope[:, None], cos, sin)[:, 0]
+    wk_up = p.wk_up.reshape(r, h, m.qk_nope_head_dim).float()
+    ckv = ckv_cache.float()
+    with full_fp32_matmul():
+        q_abs = torch.einsum("bhn,rhn->bhr", q_nope.float(), wk_up)
+        s_lat = torch.einsum("bhr,bsr->bhs", q_abs, ckv)
+        s_rope = torch.einsum("bhr,bsr->bhs", q_rope.float(),
+                              krope_cache.float())
+    scores = (s_lat + s_rope) * attention_scale(
+        m.qk_nope_head_dim + m.qk_rope_head_dim)
+    s = ckv_cache.shape[1]
+    pos = torch.arange(s, device=x.device)
+    if isinstance(cache_len, torch.Tensor) and cache_len.dim():
+        valid = pos[None, :] < cache_len.to(x.device)[:, None]
+    else:
+        valid = (pos < int(cache_len))[None, :].expand(b, s)
+    scores = torch.where(valid[:, None, :], scores,
+                         torch.full((), _NEG, device=x.device))
+    pattn = torch.softmax(scores, dim=-1)
+    wv_up = p.wv_up.reshape(r, h, m.v_head_dim).float()
+    with full_fp32_matmul():
+        out_lat = torch.einsum("bhs,bsr->bhr", pattn, ckv)
+        out = torch.einsum("bhr,rhv->bhv", out_lat, wv_up)
+    return out.reshape(b, h * m.v_head_dim).to(x.dtype) @ p.wo

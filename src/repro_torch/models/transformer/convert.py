@@ -6,7 +6,7 @@ import torch
 
 from ...device import resolve_device
 from .config import LMConfig
-from .model import LAYER_KEYS, TransformerLM
+from .model import TransformerLM, layer_keys
 
 __all__ = ["params_from_reference", "tensor_from_numpy"]
 
@@ -24,12 +24,19 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 def params_from_reference(tree: dict, cfg: LMConfig, device=None) -> TransformerLM:
     """The reference's ``init_lm_params`` pytree -- ``embed``, ``head``,
-    ``ln_f`` and ``layers`` with each leaf stacked on a leading ``[L]`` axis,
-    as numpy arrays -- as a :class:`TransformerLM` on ``device``."""
+    ``ln_f`` and ``layers`` with each leaf stacked on a leading ``[L]`` axis
+    (an MoE layer's ``moe`` subtree likewise), as numpy arrays -- as a
+    :class:`TransformerLM` on ``device``."""
     dev = resolve_device(device)
+
+    def layer(tree: dict, i: int) -> dict:
+        return {name: layer(leaf, i) if isinstance(leaf, dict)
+                else tensor_from_numpy(np.asarray(leaf)[i], dev)
+                for name, leaf in tree.items()}
+
     layers = tree["layers"]
-    per_layer = [{name: tensor_from_numpy(np.asarray(layers[name])[i], dev)
-                  for name in LAYER_KEYS} for i in range(cfg.n_layers)]
+    per_layer = [layer({name: layers[name] for name in layer_keys(cfg)}, i)
+                 for i in range(cfg.n_layers)]
     return TransformerLM(cfg, tensor_from_numpy(tree["embed"], dev),
                          tensor_from_numpy(tree["head"], dev),
                          tensor_from_numpy(tree["ln_f"], dev), per_layer)

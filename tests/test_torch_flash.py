@@ -30,6 +30,9 @@ from repro.kernels.flash_attention import (  # noqa: E402
 from repro.kernels.flash_attention.flash_kernel import (  # noqa: E402
     flash_attention_call as j_call,
 )
+from repro.models.transformer.attention import (  # noqa: E402
+    gqa_attention_chunked as j_gqa,
+)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref,
     flash_attention,
@@ -39,6 +42,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.core.butterfly import full_fp32_matmul  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_kernel  # noqa: E402
+from repro_torch.models.transformer.attention import (  # noqa: E402
+    attention_scale,
+    gqa_attention_chunked,
+)
 
 F32 = dict(rtol=2e-5, atol=2e-5)
 BF16 = dict(rtol=8e-3, atol=1e-3)
@@ -318,7 +325,7 @@ def test_cpu_path_launches_nothing():
 
 @pytest.mark.parametrize("bad,match", [
     (lambda q, k, v: (q, k[..., :8], v[..., :8]), "disagree"),
-    (lambda q, k, v: (q, k, v[:, :, :, :8]), "differ"),
+    (lambda q, k, v: (q, k, v[:, :8]), "differ"),
     (lambda q, k, v: (q[:, :, :3], k, v), "do not group"),
     (lambda q, k, v: (q, k.double(), v.double()), "dtypes differ"),
     (lambda q, k, v: (q[0], k, v), r"\[B, S, H, hd\]"),
@@ -333,3 +340,71 @@ def test_wrapper_rejects_negative_q_offset():
     _, (q, k, v) = both(rand_qkv(1, 16, 16, 2, 2, 16))
     with pytest.raises(ValueError, match="q_offset"):
         flash_attention_bshd(q, k, v, q_offset=-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,q_offset,b,sq,skv,h,hkv,hd,hd_v,chunk", [
+    (True, 0, 2, 100, 100, 4, 4, 96, 64, 64),   # MiniCPM3's MLA head dims
+    (True, 30, 1, 20, 50, 4, 2, 96, 64, 16),    # a later chunk, GQA groups
+    (False, 0, 1, 24, 70, 2, 2, 24, 16, 32),    # the MLA smoke config's dims
+    (True, 0, 1, 64, 64, 2, 1, 16, 40, 32),     # values wider than queries
+])
+def test_value_head_dim_matches_the_reference_attention(
+        dtype, causal, q_offset, b, sq, skv, h, hkv, hd, hd_v, chunk):
+    """K4's plain version with a value head dim other than the query's,
+    through the model's ``gqa_attention_chunked``, against the reference's
+    (MLA's prefill attention): ``[B, Sq, H, hd_v]``, within ``F32`` /
+    ``BF16``, and a bf16 output within ``ROUNDED`` of the reference's
+    float32 output on the same inputs."""
+    rng = np.random.default_rng(hd * hd_v + sq)
+    arrays = [rng.standard_normal(shape, dtype=np.float32) for shape in (
+        (b, sq, h, hd), (b, skv, hkv, hd), (b, skv, hkv, hd_v))]
+    (jq, jk, jv), (q, k, v) = both(arrays, dtype)
+    got = gqa_attention_chunked(q, k, v, causal=causal, q_offset=q_offset,
+                                chunk_q=chunk, chunk_k=chunk)
+    want = j_gqa(jq, jk, jv, causal=causal, q_offset=q_offset, chunk_q=chunk,
+                 chunk_k=chunk)
+    assert got.shape == (b, sq, h, hd_v) and got.dtype == q.dtype
+    np.testing.assert_allclose(as_np(got), as_np(want),
+                               **(F32 if dtype == "float32" else BF16))
+    if dtype == "bfloat16":
+        want32 = j_gqa(*(t.astype(jnp.float32) for t in (jq, jk, jv)),
+                       causal=causal, q_offset=q_offset, chunk_q=chunk,
+                       chunk_k=chunk)
+        np.testing.assert_allclose(as_np(got), as_np(want32), **ROUNDED)
+    plain = flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                  block_q=chunk, block_k=chunk,
+                                  scale=attention_scale(hd))
+    assert torch.equal(plain, got)
+
+
+def test_the_scale_is_the_reference_models_float32_value():
+    """The model's attention scales by the reference's
+    ``1 / sqrt(float32(hd))``.  At hd = 96 that is one float32 ulp below
+    the double ``1 / 96 ** 0.5`` (the reference kernel's, which
+    ``flash_attention_call`` keeps); at 16, 32, 64 and 128 they agree."""
+    want96 = np.float32(1) / np.sqrt(np.float32(96))
+    assert np.float32(attention_scale(96)) == want96 == np.float32(0.10206207)
+    assert np.float32(flash_kernel.default_scale(96)) == np.float32(0.10206208)
+    assert np.float32(attention_scale(96)) != np.float32(
+        flash_kernel.default_scale(96))
+    for hd in (16, 32, 64, 128):
+        assert np.float32(attention_scale(hd)) == np.float32(
+            flash_kernel.default_scale(hd)) == np.float32(1) / np.sqrt(
+            np.float32(hd))
+
+
+@pytest.mark.parametrize("scale", [None, 0.3])
+def test_the_wrapper_scales_by_its_callers_scale(scale):
+    """``flash_attention_bshd`` multiplies the scores by the scale it is
+    given, the reference kernel's double when none is given: the plain
+    version at that scale, and the full softmax of ``q.k * scale``."""
+    _, (q, k, v) = both(rand_qkv(1, 40, 40, 2, 2, 96, seed=4))
+    got = flash_attention_bshd(q, k, v, causal=False, block_q=16, block_k=16,
+                               scale=scale)
+    used = flash_kernel.default_scale(96) if scale is None else scale
+    assert torch.equal(got, flash_attention_plain(
+        q, k, v, causal=False, block_q=16, block_k=16, scale=used))
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * used
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.double())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **F32)

@@ -225,3 +225,48 @@ def test_server_on_the_card_equals_a_dedicated_fleet(cuda, tmp_path, policy,
         np.testing.assert_array_equal(msg["counts"], ref.window_counts)
         np.testing.assert_array_equal(
             np.asarray(msg["estimates"], np.float32), ref.estimates)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b", "dbrx-132b",
+                                  "minicpm3-4b"])
+def test_moe_and_mla_served_on_the_card_equal_the_cpu(cuda, arch,
+                                                      monkeypatch):
+    """The MoE and MLA smoke configs in float32 through ``launch.serve``:
+    the card (K4 in every prefill layer) against the CPU path (its plain
+    version) on the same weights: logits within rtol = atol = 1e-4, greedy
+    tokens equal, and every MoE dispatch's gate indices and kept choices
+    equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.models.transformer import moe as moe_mod
+
+    cfg = dataclasses.replace(get_arch(arch).smoke_config(), dtype="float32")
+    model = init_lm_params(cfg, seed=0, device=CPU)
+    prompts = serve.make_prompts(cfg, 2, 150, seed=0)
+    routes = []
+    route = moe_mod.moe_route
+
+    def recording(*args, **kw):
+        r = route(*args, **kw)
+        routes.append((r.gate_idx.cpu(), r.keep.cpu()))
+        return r
+
+    monkeypatch.setattr(moe_mod, "moe_route", recording)
+    want = serve.serve(model, cfg, prompts, 6)
+    on_cpu, routes[:] = list(routes), []
+    k4.reset_launch_count()
+    got = serve.serve(model.to(cuda), cfg, prompts, 6)
+    assert k4.launch_count() == cfg.n_layers == k4.launch_count("simt")
+    torch.testing.assert_close(got.prefill_logits.cpu(), want.prefill_logits,
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.last_logits.cpu(), want.last_logits,
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert len(routes) == len(on_cpu) == (
+        0 if cfg.moe is None else cfg.n_layers * 6)
+    for (gi, kg), (ci, kc) in zip(routes, on_cpu):
+        assert torch.equal(gi, ci) and torch.equal(kg, kc)

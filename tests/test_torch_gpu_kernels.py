@@ -479,6 +479,46 @@ def test_k4_reads_strided_heads_without_copies(cuda):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,h,hkv,hd,hd_v,q_offset", [
+    (2, 300, 300, 4, 4, 96, 64, 0),     # MiniCPM3's MLA head dims, ragged
+    (1, 129, 191, 6, 3, 96, 64, 62),    # tile edges, a later chunk, GQA
+    (1, 100, 100, 2, 2, 24, 16, 0),     # the MLA smoke config's head dims
+    (1, 70, 140, 2, 1, 40, 128, 70),    # a value head wider than the query's
+])
+def test_k4_value_head_dim_equals_plain(cuda, dtype, b, sq, skv, h, hkv, hd,
+                                        hd_v, q_offset):
+    """K4 with a value head dim other than the query's (MLA) against its
+    plain version at the caller's scale (the reference's float32
+    1/sqrt(hd)), on the route the tensors call for: bf16 inputs with
+    16-byte rows on ``wgmma`` as they lie, float32 on ``simt``; bf16 also
+    within its rounding of the plain version's float32 output."""
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.models.transformer.attention import attention_scale
+
+    gen = torch.Generator().manual_seed(hd * hd_v + sq)
+    q, k, v = (torch.randn(shape, generator=gen).to(dtype).to(cuda)
+               for shape in ((b, sq, h, hd), (b, skv, hkv, hd),
+                             (b, skv, hkv, hd_v)))
+    scale = attention_scale(hd)
+    k4.reset_launch_count()
+    got = k4.flash_attention_bshd(q, k, v, causal=True, q_offset=q_offset,
+                                  scale=scale)
+    torch.cuda.synchronize()
+    route = "simt" if dtype == torch.float32 else "wgmma"
+    assert k4.launch_count(route) == 1 == k4.launch_count()
+    assert got.dtype == dtype and got.shape == (b, sq, h, hd_v)
+    want = k4.flash_attention_plain(q.float(), k.float(), v.float(),
+                                    causal=True, q_offset=q_offset,
+                                    scale=scale)
+    torch.testing.assert_close(got.float(), want.to(dtype).float(),
+                               **K4_TOL[dtype])
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want, rtol=2.0**-8 + 2e-5,
+                                   atol=2e-5)
+
+
 def test_k4_counts_launches_and_rejects(cuda):
     from repro_torch.kernels.flash_attention import flash_kernel as k4
 
@@ -491,6 +531,10 @@ def test_k4_counts_launches_and_rejects(cuda):
     with pytest.raises(ValueError, match="head dim up to 128"):
         big = torch.zeros((1, 8, 1, 160), device=cuda)
         k4.flash_attention_bshd(big, big, big)
+    with pytest.raises(ValueError, match="head dim up to 128"):
+        small = torch.zeros((1, 8, 1, 64), device=cuda)
+        k4.flash_attention_bshd(small, small, torch.zeros((1, 8, 1, 160),
+                                                          device=cuda))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         half = torch.zeros((1, 8, 1, 16), device=cuda, dtype=torch.float16)
         k4.flash_attention_bshd(half, half, half)
