@@ -172,11 +172,39 @@ just after):
    window under both schedules, and ``distributed_count_dense`` on the
    largest window, equal to phase 2.
 
+19. the sgrapp cells (K1): ``list_cells("sgrapp")`` at its full shapes
+   through each cell's ``make_step(Sharder(None))``: ``win_8k`` (32 x
+   8,192 lanes, 4,096 x 8,192), ``estimator`` (512 windows, the same) and
+   ``win_64k`` (32 x 65,536 lanes, 32,768 x 65,536; 2 GiB of uint8 stack
+   a window, so 2 windows a K1 launch), on a uniform and a skewed (hub)
+   draw each: counts equal to the int64 oracle below 2**24 and within
+   rtol 1e-6 above (every window; every 8th of win_64k), the estimator's
+   output equal to ``sgrapp_x_estimate`` of those counts on the CPU, K1's
+   launches all on route ``wgmma``, wall time, windows/s and K1's share
+   of the device time;
+20. LM training (K4 in the forward under autograd, twice a step with
+   per-block checkpointing): (a) the five LM smoke configs in float32
+   through their ``train_4k`` cell (8 microbatches) on the card against
+   the CPU port (loss, every gradient leaf, the parameters after 3 AdamW
+   steps), and the launcher (``launch.train.main``) on phi4-mini-3.8b's
+   smoke config, 3 steps with a checkpoint each, restarted from it; (d)
+   the attention's autograd function (K4 forward, float32 torch backward)
+   against torch autograd through K4's plain version at phi4-mini's shape
+   and MLA's (hd 96, hd_v 64), with both times; (b) phi4-mini-3.8b at
+   full width (32 layers, seeded random bf16 weights), one 1 x 4,096
+   sequence, 3 steps at lr 3e-4 on that batch with one microbatch: the
+   loss finite and falling, 64 K4 launches a step all on ``wgmma``, step
+   ms, tokens/s, peak memory, a profile of a step, the attention
+   backward's share and ``6 N tokens / (step s x peak)``; (c) the config
+   cut to 8 layers, 2 x 4,096 tokens in 2 microbatches (float32
+   accumulation) against one microbatch.  Both cuts are logged as
+   ``reduced``.
+
 On a machine with several cards phase 15 also shards over the distinct
 cards (up to 4); the script needs one card.
 
-Phases 11-15 run after phase 8, before K4 and serving; phases 16-18 run
-after phase 10.  Each phase's wall
+Phases 11-15 and 19 run after phase 8, before K4 and serving; phases
+16-18 and 20 run after phase 10.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -2080,12 +2108,15 @@ def host_profile(label: str, fn, device, top: int = 4) -> None:
         log(f"[profile]   host {own * 1e3:12.4f} ms {calls:6d} x  {where[:80]}")
 
 
-def profile(label: str, fn, device, top: int = 8
+def profile(label: str, fn, device, top: int = 8, spans: tuple = ()
             ) -> tuple[float, float, dict[str, float]]:
     """Where the device time of ``fn`` goes: ``torch.profiler`` over one
     call, the device's busy share of the host wall time (one stream, so
     kernels never overlap) and the ``top`` kernels that took the most of
-    it.  Returns (wall ms, device busy ms, device ms by kernel name)."""
+    it.  Returns (wall ms, device busy ms, device ms by kernel name); the
+    last also holds, under ``span:<name>``, the device time of the kernels
+    launched inside each ``record_function`` span named in ``spans``,
+    summed over its calls."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -2120,6 +2151,15 @@ def profile(label: str, fn, device, top: int = 8
     by_kernel: dict[str, float] = {}
     for e in dev:
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    for name in spans:
+        # the host-side span: its device time is that of the kernels its
+        # ops launched (the span on the device's own timeline is left out)
+        calls = [e for e in prof.events()
+                 if e.name == name and e.device_type == DeviceType.CPU]
+        ms = sum(e.device_time_total for e in calls) / 1e3
+        by_kernel[f"span:{name}"] = ms
+        log(f"[profile]   span {name}: {len(calls)} calls, {ms:.4f} ms of "
+            f"device time ({ms / max(busy_ms, 1e-9):.4%} of the busy time)")
     return wall_ms, busy_ms, by_kernel
 
 
@@ -3058,6 +3098,571 @@ def phase_ring(wb, device, replay_counts):
         f"phase 2")
 
 
+# --------------------------------------------------------------------------
+# phases 19-20: the registry's cells and LM training
+# --------------------------------------------------------------------------
+
+def uniform_lanes(W, cap, n_i, n_j, seed):
+    """The uniform draw of the reference's sgrapp smoke test."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, n_i, (W, cap)).astype(np.int32),
+            rng.integers(0, n_j, (W, cap)).astype(np.int32),
+            rng.random((W, cap)) < 0.8)
+
+
+def skewed_lanes(W, cap, n_i, n_j, seed):
+    """Hubs on both sides: ids drawn as ``floor(n * u**3)``, so id 0 takes
+    about ``cap / n**(1/3)`` of a window's lanes."""
+    rng = np.random.default_rng(seed)
+    return ((n_i * rng.random((W, cap)) ** 3).astype(np.int32),
+            (n_j * rng.random((W, cap)) ** 3).astype(np.int32),
+            rng.random((W, cap)) < 0.9)
+
+
+def hold_counts(got, lanes, every: int, what: str) -> tuple[int, int, float]:
+    """Hold window counts to the int64 oracle on every ``every``-th window:
+    equal where the count is below 2**24 (then every partial is, and K1's
+    float32 sums are exact), else within rtol 1e-6 (one float32 rounding of
+    the exact sum is 2**-24 of it).  Returns (windows held, held exactly,
+    largest relative error)."""
+    from repro_torch.core import count_butterflies_np
+
+    ei, ej, v = lanes
+    n = exact = 0
+    worst = 0.0
+    for w in range(0, len(got), every):
+        want = count_butterflies_np(np.stack([ei[w][v[w]], ej[w][v[w]]], 1))
+        g = float(got[w])
+        if want < 2**24:
+            check(g == want, f"{what}: window {w} counts {g}, oracle {want}")
+            exact += 1
+        else:
+            rel = abs(g - want) / want
+            check(rel <= 1e-6, f"{what}: window {w} counts {g}, oracle {want} "
+                  f"(rel {rel:.3g} > 1e-6)")
+            worst = max(worst, rel)
+        n += 1
+    return n, exact, worst
+
+
+def phase_sgrapp_cells(device, seed: int, *, smoke: bool = False) -> tuple[int, dict]:
+    """Phase 19: ``list_cells("sgrapp")`` at its full shapes through each
+    cell's ``make_step(Sharder(None))`` on the card: ``win_8k`` (32 windows
+    of 8,192 lanes, 4,096 x 8,192), ``estimator`` (512 windows, the same
+    lanes) and ``win_64k`` (32 windows of 65,536 lanes, 32,768 x 65,536),
+    each on a uniform and a skewed draw from ``seed``; window stacks are
+    chunked to ``registry.STACK_BYTES`` (win_64k's uint8 stack is 2 GiB a
+    window).  Counts are held to the oracle (every window, every 8th of
+    win_64k); the estimator's output equals ``sgrapp_x_estimate`` of the
+    held counts on the same device.  Logs K1's launches by route, wall time,
+    windows/s and K1's share of the device time of one profiled run.
+    Returns K1's launches and routes over the counted runs."""
+    import torch
+
+    from repro_torch.configs import get_arch, list_cells
+    from repro_torch.configs.registry import STACK_BYTES, window_counter
+    from repro_torch.core.sgrapp import sgrapp_x_estimate
+    from repro_torch.distributed import Sharder
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+
+    cfg = get_arch("sgrapp").smoke_config() if smoke else \
+        get_arch("sgrapp").full_config()
+    cells = list_cells("sgrapp", smoke=smoke)
+    launches, routes = 0, k1_routes(kk)
+    routes = dict.fromkeys(routes, 0)
+    for name in ("win_8k", "estimator", "win_64k"):
+        if name not in cells:
+            continue
+        cell = cells[name]
+        W, cap, n_i, n_j = cfg["shapes"][name]
+        per = max(1, STACK_BYTES // (n_i * n_j))
+        step = cell.make_step(Sharder(None), device=device)
+        every = 8 if name == "win_64k" else 1
+        for d, draw in enumerate((uniform_lanes, skewed_lanes)):
+            lanes = draw(W, cap, n_i, n_j, seed + d)
+            extra = ()
+            if name == "estimator":
+                cum = np.cumsum(lanes[2].sum(1)).astype(np.float32)
+                truths = (cum.astype(np.float64) ** 1.5).astype(np.float32)
+                extra = (cum, truths, np.arange(W) < W // 8, 1.02)
+            sync(device)
+            kk.reset_launch_count()
+            t0 = time.perf_counter()
+            out = step(*lanes, *extra)
+            sync(device)
+            sec = time.perf_counter() - t0
+            n_k1 = kk.launch_count("K1")
+            r = k1_routes(kk)
+            want_launches = -(-W // per) if device.type == "cuda" else 0
+            check(n_k1 == want_launches,
+                  f"sgrapp/{name}: {n_k1} K1 launches, want {want_launches}")
+            check(device.type != "cuda" or r["wgmma"] == n_k1,
+                  f"sgrapp/{name}: K1 routes {r}, want all wgmma")
+            launches += n_k1
+            routes = add_routes(routes, r)
+            if name == "estimator":
+                est, alpha = out
+                counts = window_counter(n_i, n_j, device)(*lanes)
+                cum, truths, tmask, alpha0 = extra
+                want_est, want_alpha = sgrapp_x_estimate(
+                    counts, cum, alpha0, truths, tmask, device=device)
+                check(bool(torch.isfinite(est).all()) and est.shape == (W,),
+                      f"sgrapp/{name}: estimates not finite [{W}]")
+                check(torch.equal(est, want_est) and
+                      float(alpha) == float(want_alpha),
+                      f"sgrapp/{name}: estimates differ from sgrapp_x_estimate "
+                      "of the same counts")
+            else:
+                counts = out
+            check(counts.shape == (W,) and counts.dtype == torch.float32,
+                  f"sgrapp/{name}: counts {tuple(counts.shape)} {counts.dtype}")
+            t1 = time.perf_counter()
+            held, exact, worst = hold_counts(counts.cpu().numpy(), lanes, every,
+                                             f"sgrapp/{name} {draw.__name__}")
+            osec = time.perf_counter() - t1
+            c = counts.cpu().numpy()
+            log(f"[sgrapp] {name} ({W} x {cap} lanes, {n_i} x {n_j}), "
+                f"{draw.__name__}: {sec:.4f} s, {W / sec:.4f} windows/s, K1 "
+                f"launches {n_k1} ({per} windows a launch) by route {r}; "
+                f"counts {c.min():.6g}-{c.max():.6g}, {held} windows held to "
+                f"the int64 oracle ({osec:.4f} s): {exact} equal below 2**24, "
+                f"the rest within rtol 1e-6 (max rel {worst:.3g})")
+            del lanes, out, counts
+        # K1's share of the device time of one run on the skewed draw
+        lanes = skewed_lanes(W, cap, n_i, n_j, seed + 1)
+        extra = () if name != "estimator" else (
+            np.cumsum(lanes[2].sum(1)).astype(np.float32),
+            np.ones(W, np.float32), np.zeros(W, bool), 1.02)
+        if device.type == "cuda":
+            _, busy, by_kernel = profile(f"sgrapp/{name}, skewed draw",
+                                         lambda: step(*lanes, *extra), device,
+                                         top=4)
+            k1_ms = sum(ms for k, ms in by_kernel.items()
+                        if "butterfly_windows_wgmma" in k or "round_sums" in k)
+            log(f"[sgrapp] {name}: K1 {k1_ms:.4f} ms of {busy:.4f} ms device "
+                f"time ({k1_ms / busy:.4%}), {k1_ms / W:.4f} ms a window; the "
+                "rest is the scatter, its zero fill and the lanes' upload")
+        del lanes
+    return launches, routes
+
+
+def lm_batch(cfg, b: int, s: int, seed: int, device) -> dict:
+    """``b`` sequences of ``s`` tokens of ``data.token_batches`` (copy
+    structure, so a model can learn it) as tensors on ``device``."""
+    import torch
+
+    from repro_torch.data import token_batches
+
+    host = next(token_batches(cfg.vocab_size, b, s, seed=seed))
+    return {k: torch.as_tensor(v, device=device) for k, v in host.items()}
+
+
+def tree_to(x, device):
+    """A copy of a tensor, or of a dict of tensors, on ``device``."""
+    if isinstance(x, dict):
+        return {k: tree_to(v, device) for k, v in x.items()}
+    return x.to(device, copy=True)
+
+
+def grads_of(model, batch, cfg, n_micro: int = 1) -> tuple[float, dict]:
+    """The loss and its gradients as the train step takes them: the mean
+    over ``n_micro`` equal microbatches of rows, in float32 (each routes
+    its MoE tokens with its own capacity)."""
+    import torch
+
+    from repro_torch.models.transformer import lm_loss
+
+    named = dict(model.named_parameters())
+    for p in named.values():
+        p.requires_grad_(True)
+    loss, grads = 0.0, None
+    for mb in zip(*(v.chunk(n_micro) for v in batch.values())):
+        l_mb = lm_loss(model, dict(zip(batch, mb)), cfg)
+        g_mb = torch.autograd.grad(l_mb, list(named.values()))
+        loss += float(l_mb.detach()) / n_micro
+        grads = [g.float() for g in g_mb] if grads is None else \
+            [acc + g.float() for acc, g in zip(grads, g_mb)]
+    return loss, {n: g / n_micro for n, g in zip(named, grads)}
+
+
+# Where a parameter may miss rtol 1e-5, atol 1e-6 after one AdamW step at
+# lr 3e-4 from a common state: a gradient gap d at an entry of size |g|
+# moves Adam's normalised step by up to about 2 * lr * d / |g| (bias
+# correction weighs the earlier steps' moments in), so with d <= 3e-6 *
+# max|g| (the gap measured on every leaf is at most 2.1e-6 * max|g|) the
+# step reaches a gap of atol 1e-6 only where |g| <= 2 * 3e-4 * 3e-6 / 1e-6
+# * max|g|, i.e. 1.8e-3 * max|g|, rounded up here.
+ADAM_FLOOR = 2e-3
+
+
+def phase_train_smoke(device, seed: int, tmp: Path, smoke: bool) -> int:
+    """Phase 20 (a): the five LM archs' smoke configs in float32 through
+    their ``train_4k`` cell's step (8 microbatches) on the card against the
+    CPU port: the loss within rtol 1e-4 and every gradient leaf within
+    ``1e-4 * max|g_cpu| + 1e-6``, and after 3 AdamW steps every parameter
+    within ``2 * lr`` and within rtol 1e-5, atol 1e-6 except where the
+    step's CPU gradient entry is at most ``ADAM_FLOOR * max|g_cpu|`` of its
+    leaf (there Adam's normalised step turns the gradients' rounding gap
+    into a step gap of up to about lr).  Each of the 3 steps starts the
+    card from the CPU's state, so that only that step's rounding separates
+    the two, and the loss and gradients are held at each.  Then the
+    launcher (``launch.train.main``) trains phi4-mini-3.8b's smoke config
+    for 3 steps on the card with a checkpoint each step and restores it.
+    Returns K4's launches over the card's train steps."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import lm_cells
+    from repro_torch.distributed import Sharder
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.train import AdamWState, TrainState, adamw_init
+
+    lr = 3e-4
+    k4_total = 0
+    for arch in ("phi4-mini-3.8b", "granite-8b", "minicpm3-4b",
+                 "phi3.5-moe-42b", "dbrx-132b"):
+        cfg = dataclasses.replace(get_arch(arch).smoke_config(), dtype="float32")
+        cpu = init_lm_params(cfg, seed=seed, device="cpu")
+        b_cpu = lm_batch(cfg, 8, 96, seed, "cpu")
+        b_card = {k: v.to(device) for k, v in b_cpu.items()}
+        n_micro = 8                      # lm_cells' default for train_4k
+        step = lm_cells(cfg, n_microbatches=n_micro)["train_4k"].make_step(
+            Sharder(None))
+        s_cpu = TrainState(cpu, adamw_init(cpu), seed)
+        losses, worst, worst_g, off, n_k4 = [], 0.0, 0.0, 0, 0
+        for t in range(3):
+            # each step starts the card from the CPU's state, so that only
+            # this step's rounding separates the two
+            card = copy.deepcopy(s_cpu.params).to(device)
+            opt = s_cpu.opt
+            s_card = TrainState(card, AdamWState(*(
+                tree_to(x, device) for x in (opt.step, opt.m, opt.v))), seed)
+            l_cpu, g_cpu = grads_of(s_cpu.params, b_cpu, cfg, n_micro)
+            l_card, g_card = grads_of(card, b_card, cfg, n_micro)
+            losses.append((l_card, l_cpu))
+            check(abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu),
+                  f"{arch} step {t}: loss {l_card} on the card, {l_cpu} on "
+                  "the CPU")
+            for name, g in g_cpu.items():
+                gap = float((g_card[name].cpu() - g).abs().max())
+                scale = float(g.abs().max())
+                check(gap <= 1e-4 * scale + 1e-6, f"{arch} step {t}: gradient "
+                      f"{name} off by {gap} (max {scale})")
+                worst = max(worst, gap / max(scale, 1e-30))
+            before = k4.launch_count()
+            s_card, m_card = step(s_card, b_card)
+            sync(device)
+            n_k4 += k4.launch_count() - before
+            s_cpu, m_cpu = step(s_cpu, b_cpu)
+            check(abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+                  <= 1e-4 * abs(float(m_cpu["loss"])),
+                  f"{arch} step {t}: step loss {float(m_card['loss'])} vs "
+                  f"{float(m_cpu['loss'])}")
+            p_card = dict(s_card.params.named_parameters())
+            total = 0
+            for name, p in s_cpu.params.named_parameters():
+                gap = (p_card[name].detach().cpu() - p.detach()).abs()
+                check(float(gap.max()) <= 2 * lr, f"{arch} step {t}: "
+                      f"parameter {name} off by {float(gap.max())}")
+                miss = gap > 1e-6 + 1e-5 * p.detach().abs()
+                if bool(miss.any()):
+                    g = g_cpu[name].abs()
+                    rel_g = float(g[miss].max()) / float(g.max())
+                    worst_g = max(worst_g, rel_g)
+                    check(rel_g <= ADAM_FLOOR,
+                          f"{arch} step {t}: parameter {name} beyond rtol "
+                          f"1e-5 where its gradient entry is over "
+                          f"{ADAM_FLOOR} max|g| ({rel_g:.3g})")
+                off += int(miss.sum())
+                total += p.numel()
+        k4_total += n_k4
+        check(device.type != "cuda" or n_k4 == 3 * 8 * 2 * cfg.n_layers,
+              f"{arch}: {n_k4} K4 launches over 3 steps of 8 microbatches, "
+              f"want {3 * 8 * 2 * cfg.n_layers} (forward and recompute)")
+        (l_card, l_cpu) = losses[0]
+        log(f"[train] {arch} smoke (float32, 8 x 96 tokens, 8 microbatches): "
+            f"loss {l_card:.6f} on {device} vs {l_cpu:.6f} on the CPU "
+            f"(rel {abs(l_card - l_cpu) / l_cpu:.3g}); worst gradient leaf "
+            f"max|dg|/max|g| over 3 steps {worst:.3g}; 3 AdamW steps, each "
+            f"from the CPU's state: loss after {float(m_card['loss']):.6f}, "
+            f"{off} of 3 x {total} parameter updates beyond rtol 1e-5"
+            + (f", each where its gradient entry is at most "
+               f"{worst_g:.3g} max|g|" if off else "")
+            + f"; K4 launches {n_k4}")
+        del cpu, card, s_cpu, s_card, g_cpu, g_card, opt
+    # the launcher: 3 steps with a checkpoint each, then a restart (a CPU
+    # rehearsal cuts train_4k's sequences to 32 tokens)
+    from repro_torch.configs import registry
+
+    ck = str(tmp / "train_ckpt")
+    shapes = registry.LM_SHAPES
+    if smoke:
+        registry.LM_SHAPES = {**shapes, "train_4k": (32, 256, "train")}
+    try:
+        t0 = time.perf_counter()
+        out = launcher.main(["--arch", "phi4-mini-3.8b", "--smoke", "--steps",
+                             "3", "--ckpt", ck, "--ckpt_every", "1",
+                             "--device", device.type])
+        sec = time.perf_counter() - t0
+        check(out["start"] == 0 and int(out["metrics"]["step"]) == 3
+              and np.isfinite(float(out["metrics"]["loss"])),
+              "the launcher did not train 3 steps")
+        again = launcher.main(["--arch", "phi4-mini-3.8b", "--smoke", "--steps",
+                               "4", "--ckpt", ck, "--device", device.type])
+    finally:
+        registry.LM_SHAPES = shapes
+    check(again["start"] == 3 and int(again["metrics"]["step"]) == 4,
+          "the launcher did not restore step 3 and train on")
+    log(f"[train] launcher: phi4-mini-3.8b smoke (bf16, 64 x 4,096 tokens, 8 "
+        f"microbatches) 3 steps on {device} in {sec:.4f} s with a checkpoint "
+        f"each step, loss {float(out['metrics']['loss']):.6f}; restarted, "
+        f"restored step 3 and took step 4 (loss "
+        f"{float(again['metrics']['loss']):.6f})")
+    return k4_total
+
+
+def attention_bwd_bound_ms(q, k, v, chunk: int) -> tuple[float, str]:
+    """The least time an H100 could take for ``attention_backward``'s work
+    on these inputs, as it computes it: per query chunk the kept (query,
+    key) pairs (keys up to the chunk's last row) through five float32
+    matmuls (scores, dV, dP, dQ, dK) at the fp32 SIMT peak; bytes: q, k, v
+    and dO read once, dq, dk, dv written once."""
+    b, sq, h, hd = q.shape
+    skv, hd_v = k.shape[1], v.shape[3]
+    pairs = sum(min(q0 + chunk, skv) * min(chunk, sq - q0)
+                for q0 in range(0, sq, chunk)) * b * h
+    ops = 2.0 * pairs * (3 * hd + 2 * hd_v)
+    moved = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size() \
+        + b * sq * h * hd_v * q.element_size()
+    ops_ms, bytes_ms = ops / PEAK_FP32_SIMT * 1e3, moved / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def phase_attention_backward(device, seed: int, shapes) -> dict:
+    """Phase 20 (d): the attention's autograd function (K4 forward, the
+    float32 torch backward) against torch autograd through K4's plain
+    version on the same card, at phi4-mini's shape and at MLA's (hd 96,
+    hd_v 64), bf16: dq, dk, dv each within one bf16 rounding of the other
+    (``|d| <= 2**-7 |g| + 2**-10 max|g|``), and both times (forward plus
+    backward, and the backward alone).  Returns the backward's ms at each
+    shape."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.flash_kernel import (
+        flash_attention_plain,
+    )
+    from repro_torch.models.transformer.attention import (
+        attention_backward,
+        attention_scale,
+        gqa_attention_chunked,
+    )
+
+    out_ms = {}
+    for label, (b, s, h, hkv, hd, hd_v, chunk) in shapes.items():
+        g = torch.Generator(device=device).manual_seed(seed)
+        q, k, v = (torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+                   for shape in ((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd_v)))
+        d_out = torch.randn((b, s, h, hd_v), generator=g, device=device).to(torch.bfloat16)
+        scale = attention_scale(hd)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def ours():
+            out = gqa_attention_chunked(*leaves, chunk_q=chunk, chunk_k=chunk)
+            return torch.autograd.grad(out, leaves, d_out)
+
+        def plain():
+            out = flash_attention_plain(*leaves, block_q=chunk, block_k=chunk,
+                                        scale=scale)
+            return torch.autograd.grad(out, leaves, d_out)
+
+        got, want = ours(), plain()
+        errs = []
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            gap = (a.float() - w.float()).abs()
+            top = float(w.float().abs().max())
+            ok = bool((gap <= 2.0**-7 * w.float().abs() + 2.0**-10 * top).all())
+            check(ok, f"attention backward {label}: {name} beyond one bf16 "
+                  f"rounding of autograd through the plain version (max abs "
+                  f"{float(gap.max())}, max |g| {top})")
+            errs.append(float(gap.max()))
+        ms_ours = time_ms(ours, device, reps=3)
+        ms_plain = time_ms(plain, device, reps=3)
+        ms_bwd = time_ms(lambda: attention_backward(
+            q, k, v, d_out, causal=True, q_offset=0, chunk_q=chunk,
+            scale=scale), device, reps=3)
+        bound, by = attention_bwd_bound_ms(q, k, v, chunk)
+        out_ms[label] = ms_bwd
+        log(f"[train] attention backward at {label} (q [{b}, {s}, {h}, {hd}], "
+            f"k [{b}, {s}, {hkv}, {hd}], v [.., {hd_v}], bf16, chunk {chunk}): "
+            f"dq/dk/dv max abs err {errs[0]:.4g}/{errs[1]:.4g}/{errs[2]:.4g} "
+            f"against autograd through flash_attention_plain; forward + "
+            f"backward {ms_ours:.4f} ms (K4 + the torch backward) vs "
+            f"{ms_plain:.4f} ms (plain + autograd); the backward alone "
+            f"{ms_bwd:.4f} ms, bound {bound:.4f} ms by {by} (fp32 SIMT "
+            f"{PEAK_FP32_SIMT / 1e12:.0f} TFLOP/s)")
+        del q, k, v, d_out, leaves, got, want
+    return out_ms
+
+
+def phase_train_full(device, seed: int, *, smoke: bool, bwd_ms: float) -> dict:
+    """Phase 20 (b, c): phi4-mini-3.8b at full width on seeded random
+    weights.  (b) All 32 layers: train_4k's cell step with one microbatch
+    on one 1 x 4,096 sequence, 3 steps on that repeated batch at lr 3e-4:
+    the loss finite and falling, 64 K4 launches a step (forward and
+    per-block recompute) all on route ``wgmma``; step ms, tokens/s, peak
+    memory, a profile of one step with the attention backward's share of
+    its device time (the kernels inside its ``record_function`` span;
+    beside it ``bwd_ms``, phase 20 (d)'s time at this shape alone) and
+    ``6 N tokens / (step s * peak)`` against the dense bf16 peak.  (c) The
+    config cut to 8 of its 32 layers, 2 x 4,096 tokens in 2 microbatches
+    (float32 accumulation) against one microbatch on the same weights and
+    batch.  Returns K4's launches and routes over (b)'s three steps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.registry import lm_cells
+    from repro_torch.distributed import Sharder
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.train import TrainState, adamw_init
+
+    arch = get_arch(LM_ARCH)
+    cfg = arch.smoke_config() if smoke else arch.full_config()
+    seq = 96 if smoke else 4096
+    if not smoke:
+        log("[train] reduced: global batch 256 -> 1: train_4k's 1,048,576 "
+            "tokens a step need a pod")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = init_lm_params(cfg, seed=seed, device=device)
+    state = TrainState(params, adamw_init(params), seed)
+    sync(device)
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"[train] {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{n_params:,} parameters ({cfg.dtype}) and float32 moments on "
+        f"{device} in {time.perf_counter() - t0:.4f} s")
+    step = lm_cells(cfg, n_microbatches=1)["train_4k"].make_step(Sharder(None))
+    batch = lm_batch(cfg, 1, seq, seed, device)
+    losses, step_ms = [], []
+    k4.reset_launch_count()
+    for i in range(3):
+        before = k4.launch_count()
+        sync(device)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        check(device.type != "cuda"
+              or k4.launch_count() - before == 2 * cfg.n_layers,
+              f"step {i}: {k4.launch_count() - before} K4 launches, want "
+              f"{2 * cfg.n_layers}")
+    launches = k4.launch_count()
+    routes = {r: k4.launch_count(r) for r in k4.VARIANTS}
+    check(all(np.isfinite(losses)) and losses[0] > losses[1] > losses[2],
+          f"the loss does not fall over 3 steps on one batch: {losses}")
+    check(device.type != "cuda" or routes["wgmma"] == launches,
+          f"K4 routes {routes}, want all wgmma")
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    tokens = seq
+    best = min(step_ms[1:])
+    flops = 6.0 * cfg.active_param_count() * tokens
+    log(f"[train] {LM_ARCH} train_4k, 1 x {seq} tokens, 1 microbatch: losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)} (falling); step ms "
+        f"{', '.join(f'{x:.4f}' for x in step_ms)}; {tokens / best * 1e3:.4f} "
+        f"tokens/s at the best later step; peak memory {peak / 2**30:.4f} GiB; "
+        f"K4 launches {launches} ({2 * cfg.n_layers} a step) by variant "
+        f"{routes}")
+    if device.type == "cuda":
+        log(f"[train] 6 N tokens / (step s x peak) = {flops / (best / 1e3) / PEAK_BF16_OPS:.4%} "
+            f"of the dense bf16 peak {PEAK_BF16_OPS / 1e12:.0f} TFLOP/s (H100 "
+            f"SXM data sheet; N = {cfg.active_param_count():,})")
+        _, busy, by_kernel = profile(f"{LM_ARCH} train step",
+                                     lambda: step(state, batch), device,
+                                     top=10, spans=("attention_backward",))
+        bwd_step = by_kernel["span:attention_backward"]
+        check(0 < bwd_step < busy,
+              f"the attention backward's span reads {bwd_step} ms of the "
+              f"profiled step's {busy} ms of device time")
+        log(f"[train] the attention backward takes {bwd_step:.4f} ms of the "
+            f"profiled step's {busy:.4f} ms of device time "
+            f"({bwd_step / busy:.4%}; its record_function span over "
+            f"{cfg.n_layers} layers); alone at this shape (phase 20 (d)) "
+            f"{bwd_ms:.4f} ms a layer, {cfg.n_layers * bwd_ms:.4f} ms for "
+            f"{cfg.n_layers}")
+    del state, params, m
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (c) microbatching at full width, 8 of 32 layers
+    depth = cfg.n_layers if smoke else 8
+    cut = dataclasses.replace(cfg, n_layers=depth)
+    if not smoke:
+        log(f"[train] reduced: {LM_ARCH} cut to {depth} of its "
+            f"{cfg.n_layers} layers for 2 x 4,096 tokens in 2 microbatches (a "
+            "float32 gradient accumulator beside the whole model's state "
+            "does not fit one card)")
+    batch2 = lm_batch(cut, 2, seq, seed + 1, device)
+    res = {}
+    for nm in (2, 1):
+        params = init_lm_params(cut, seed=seed, device=device)
+        state = TrainState(params, adamw_init(params), seed)
+        k4.reset_launch_count()
+        sync(device)
+        t0 = time.perf_counter()
+        state, m = lm_cells(cut, n_microbatches=nm)["train_4k"].make_step(
+            Sharder(None))(state, batch2)
+        sync(device)
+        res[nm] = (float(m["loss"]), float(m["grad_norm"]),
+                   (time.perf_counter() - t0) * 1e3, k4.launch_count())
+        del state, params, m
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    (l2, g2, ms2, n2), (l1, g1, ms1, _) = res[2], res[1]
+    check(np.isfinite([l2, g2]).all()
+          and (device.type != "cuda" or n2 == 2 * 2 * depth),
+          f"microbatched step: loss {l2}, grad norm {g2}, K4 launches {n2}")
+    check(abs(l2 - l1) <= 1e-5 * abs(l1) and abs(g2 - g1) <= 1e-4 * abs(g1),
+          f"2 microbatches (loss {l2}, grad norm {g2}) vs 1 (loss {l1}, grad "
+          f"norm {g1}) beyond rtol 1e-5 / 1e-4")
+    log(f"[train] {LM_ARCH} at {depth} layers, 2 x {seq} tokens: 2 "
+        f"microbatches (float32 accumulation) loss {l2:.6f}, grad norm "
+        f"{g2:.6f}, {ms2:.4f} ms, K4 launches {n2}; 1 microbatch loss "
+        f"{l1:.6f}, grad norm {g1:.6f}, {ms1:.4f} ms")
+    return {"launches": launches, "routes": routes, "step_ms": best}
+
+
+def phase_train(device, seed: int, *, smoke: bool) -> dict:
+    """Phase 20: LM training.  (a) the smoke configs on the card against
+    the CPU port and the launcher; (d) the attention backward held; (b, c)
+    phi4-mini-3.8b at full width.  Returns K4's launches on (b)."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_smoke(device, seed, Path(tmp), smoke)
+    full = get_arch(LM_ARCH).smoke_config() if smoke else get_arch(LM_ARCH).full_config()
+    mla = get_arch("minicpm3-4b").smoke_config() if smoke else \
+        get_arch("minicpm3-4b").full_config()
+    s = 96 if smoke else 4096
+    shapes = {
+        LM_ARCH: (1, s, full.n_heads, full.n_kv_heads, full.head_dim,
+                  full.head_dim, full.attn_chunk_q),
+        "minicpm3-4b (MLA)": (1, s, mla.n_heads, mla.n_heads,
+                              mla.mla.qk_nope_head_dim + mla.mla.qk_rope_head_dim,
+                              mla.mla.v_head_dim, mla.attn_chunk_q),
+    }
+    bwd = phase_attention_backward(device, seed, shapes)
+    return phase_train_full(device, seed, smoke=smoke, bwd_ms=bwd[LM_ARCH])
+
+
 class PhaseClock:
     """Logs the wall time of each phase since the previous lap."""
 
@@ -3075,7 +3680,7 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
         alpha0: float = 1.02, tenant_unique: int = 50_000,
         serve_batch: int = SERVE_BATCH) -> list[dict]:
-    """Phases 0-15 on ``device``; returns the kernels records."""
+    """Phases 0-20 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -3162,13 +3767,16 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     clock.lap("15 (b) sharded executor")
     phase_ring(wb, device, replay.window_counts)
     clock.lap("15 (c) ring counter")
+    k1_19 = phase_sgrapp_cells(device, seed, smoke=lm_smoke)
+    clock.lap("19 sgrapp cells")
     # K1's and K2's launches on their paths, each with its routes as read
     # after its run: the replay, the entries, the fleets, the server and
     # the sharded executor for K1; the multiset stream, the fleets, the
     # server and the sharded executor for K2
-    k1_launches += n11 + fleets["K1"][0] + serving["K1"][0] + k1_15[0]
+    k1_launches += (n11 + fleets["K1"][0] + serving["K1"][0] + k1_15[0]
+                    + k1_19[0])
     k1_routes = add_routes(k1_routes, r11, fleets["K1"][1], serving["K1"][1],
-                           k1_15[1])
+                           k1_15[1], k1_19[1])
     k2_launches += fleets["K2"][0] + serving["K2"][0] + k2_15[0]
     k2_routes = add_routes(k2_routes, fleets["K2"][1], serving["K2"][1],
                            k2_15[1])
@@ -3198,6 +3806,10 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
                                         smoke=lm_smoke, batch=b, prompt=s_len,
                                         gen=g, n_layers=depth)
         clock.lap(f"{number} serve {arch_id}")
+    trained = phase_train(device, seed, smoke=lm_smoke)
+    clock.lap("20 LM training")
+    k4_launches = {f"{a} (serve)": v["launches"] for a, v in k4_serve.items()}
+    k4_launches[f"{LM_ARCH} (train, 3 steps)"] = trained["launches"]
     src = "src/repro_torch/kernels/butterfly/csrc/"
     ref = "src/repro/kernels/butterfly/butterfly_kernel.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3229,8 +3841,8 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
          "source": "src/repro_torch/kernels/flash_attention/csrc/"
                    "flash_attention_wgmma.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_kernel.py:29",
-         "launches": sum(v["launches"] for v in k4_serve.values()),
-         "launches_by_arch": {a: v["launches"] for a, v in k4_serve.items()},
+         "launches": sum(k4_launches.values()),
+         "launches_by_arch": k4_launches,
          **{k: kern4[k] for k in keys},
          "max_abs_err": max(kern4["max_abs_err"], kern4_mla["max_abs_err"],
                             *(v["max_abs_err"] for v in k4_serve.values())),

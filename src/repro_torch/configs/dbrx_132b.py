@@ -1,7 +1,7 @@
 """dbrx-132b [hf:databricks/dbrx-base; unverified]: 40L d=6144 48H (GQA kv=8)
 d_ff=10752 vocab=100352, MoE 16 experts top-4 (fine-grained)."""
 from ..models.transformer.config import LMConfig, MoEConfig
-from .registry import Arch, register
+from .registry import Arch, lm_cells, register
 
 
 def full_config() -> LMConfig:
@@ -21,4 +21,5 @@ def smoke_config() -> LMConfig:
     )
 
 
-register(Arch("dbrx-132b", "lm", full_config, smoke_config))
+register(Arch("dbrx-132b", "lm", full_config, smoke_config,
+              lambda cfg: lm_cells(cfg, n_microbatches=8)))

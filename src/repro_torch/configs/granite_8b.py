@@ -1,7 +1,7 @@
 """granite-8b [arXiv:2405.04324; hf]: 36L d=4096 32H (GQA kv=8) d_ff=14336
 vocab=49152 -- llama-arch, code."""
 from ..models.transformer.config import LMConfig
-from .registry import Arch, register
+from .registry import Arch, lm_cells, register
 
 
 def full_config() -> LMConfig:
@@ -19,4 +19,5 @@ def smoke_config() -> LMConfig:
     )
 
 
-register(Arch("granite-8b", "lm", full_config, smoke_config))
+register(Arch("granite-8b", "lm", full_config, smoke_config,
+              lambda cfg: lm_cells(cfg, n_microbatches=8)))

@@ -1,7 +1,7 @@
 """minicpm3-4b [hf:openbmb/MiniCPM3-4B]: 62L d=2560 40H d_ff=6400
 vocab=73448 -- MLA (q_lora 768, kv_lora 256, nope 64, rope 32, v 64)."""
 from ..models.transformer.config import LMConfig, MLAConfig
-from .registry import Arch, register
+from .registry import Arch, lm_cells, register
 
 
 def full_config() -> LMConfig:
@@ -23,4 +23,5 @@ def smoke_config() -> LMConfig:
     )
 
 
-register(Arch("minicpm3-4b", "lm", full_config, smoke_config))
+register(Arch("minicpm3-4b", "lm", full_config, smoke_config,
+              lambda cfg: lm_cells(cfg, n_microbatches=8)))

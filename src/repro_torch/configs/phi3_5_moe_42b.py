@@ -1,7 +1,7 @@
 """phi3.5-moe-42b-a6.6b [hf:microsoft/Phi-3.5-MoE-instruct]: 32L d=4096 32H
 (GQA kv=8) d_ff=6400 vocab=32064, MoE 16 experts top-2."""
 from ..models.transformer.config import LMConfig, MoEConfig
-from .registry import Arch, register
+from .registry import Arch, lm_cells, register
 
 
 def full_config() -> LMConfig:
@@ -21,4 +21,5 @@ def smoke_config() -> LMConfig:
     )
 
 
-register(Arch("phi3.5-moe-42b", "lm", full_config, smoke_config))
+register(Arch("phi3.5-moe-42b", "lm", full_config, smoke_config,
+              lambda cfg: lm_cells(cfg, n_microbatches=8)))

@@ -1,7 +1,7 @@
 """phi4-mini-3.8b [arXiv:2412.08905; hf]: 32L d=3072 24H (GQA kv=8)
 d_ff=8192 vocab=200064 -- RoPE SwiGLU GQA."""
 from ..models.transformer.config import LMConfig
-from .registry import Arch, register
+from .registry import Arch, lm_cells, register
 
 
 def full_config() -> LMConfig:
@@ -20,4 +20,5 @@ def smoke_config() -> LMConfig:
     )
 
 
-register(Arch("phi4-mini-3.8b", "lm", full_config, smoke_config))
+register(Arch("phi4-mini-3.8b", "lm", full_config, smoke_config,
+              lambda cfg: lm_cells(cfg, n_microbatches=8)))

@@ -71,9 +71,13 @@ __all__ = ["butterfly_pairs_windows_kernel_call",
            "KERNELS", "ROUTES", "K2_ROUTES", "launch_count",
            "reset_launch_count"]
 
-# the kernels index a window with 32-bit ints and take at most 65535 windows
+# the kernels take at most 65535 windows; K2 indexes a window's plane with
+# 32-bit ints.  K1 and K3 address a window through TMA coordinates (byte,
+# row, window) and a 64-bit window stride, and their exact 64-bit sums stay
+# below (n * k)**2 / 4 <= 2**62 up to 2**32 bytes a window
 _MAX_WINDOWS = 65535
 _MAX_ELEMS = 2**31 - 1
+_MAX_ELEMS_K1 = 2**32
 # K1 and K3 read 0/1 stacks as uint8 (float32 ones through a copy); K2's
 # float32 entry takes multiplicities in float32
 _K1_DTYPES = (torch.uint8, torch.float32)
@@ -338,17 +342,19 @@ def _launch_output(kernel: str, adjs: torch.Tensor,
     """The ``[B, T]`` float32 output of ``kernel`` on ``adjs`` (a ``[B, n,
     k]`` stack or ``[B, planes, n, k]`` limb planes), allocated with
     ``torch.empty``, after raising on what the CUDA kernels do not take: a
-    device other than CUDA, a non-contiguous stack, more than 65535 windows
-    or 2**31 elements per window and plane."""
+    device other than CUDA, a non-contiguous stack, more than 65535 windows,
+    or more than 2**32 elements per window (K1, K3) or 2**31 - 1 per window
+    and plane (K2)."""
     if adjs.device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got {adjs.device}")
     if not adjs.is_contiguous():
         raise ValueError("adjs must be contiguous")
     b, n, k = adjs.shape[0], adjs.shape[-2], adjs.shape[-1]
-    if b > _MAX_WINDOWS or n * k > _MAX_ELEMS:
+    elems = _MAX_ELEMS if kernel == "K2" else _MAX_ELEMS_K1
+    if b > _MAX_WINDOWS or n * k > elems:
         raise ValueError(
             f"adjs {tuple(adjs.shape)} exceeds the kernel's limits "
-            f"({_MAX_WINDOWS} windows, {_MAX_ELEMS} elements per window)")
+            f"({_MAX_WINDOWS} windows, {elems} elements per window)")
     return torch.empty((b, n_tile_pairs(n, block_i)), dtype=torch.float32,
                        device=adjs.device)
 

@@ -29,13 +29,14 @@
 // workspace with integer atomics, which are exact and commutative; one
 // last pass rounds each sum to float32 once (round to nearest even).  The
 // partials are therefore the same bits whatever the CTA tile, the order of
-// the tiles or the number of windows in the launch.  Nothing wraps: with
-// n_rows * row_bytes < 2**31 every w <= row_bytes, and a window's whole sum
-// is below (n_rows * row_bytes)**2 / 4 < 2**60.  Below 2**24 the result is
-// the reference's float32 sum exactly (every partial sum of integers is
-// exact there); above it, the correctly rounded sum of the reference's own
-// per-entry values.  `butterfly_kernel.butterfly_pairs_windows_plain` sums
-// the same values in int64, so the kernel equals it at every size.
+// the tiles or the number of windows in the launch.  Nothing wraps: every
+// w <= row_bytes, and with n_rows * row_bytes <= 2**32 (the wrapper's limit)
+// a window's whole sum is below (n_rows * row_bytes)**2 / 4 <= 2**62.
+// Below 2**24 the result is the reference's float32 sum exactly (every
+// partial sum of integers is exact there); above it, the correctly rounded
+// sum of the reference's own per-entry values.
+// `butterfly_kernel.butterfly_pairs_windows_plain` sums the same values in
+// int64, so the kernel equals it at every size.
 //
 // What bounds it on an H100.  Operations.  The largest stack of the smoke
 // replay is [21, 3776, 5120]: the strict upper triangle is 1.53e12 int8

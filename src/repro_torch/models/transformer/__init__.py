@@ -1,7 +1,7 @@
 """The transformer LM (the port of ``repro.models.transformer``): GQA and
 MLA attention, dense and MoE FFNs."""
 from .config import LMConfig, MLAConfig, MoEConfig
-from .convert import params_from_reference
+from .convert import params_from_reference, params_to_reference
 from .model import (
     Block,
     TransformerLM,
@@ -10,6 +10,9 @@ from .model import (
     init_lm_params,
     layer_keys,
     lm_forward,
+    lm_loss,
+    lm_param_specs,
+    param_shapes,
     prefill,
 )
 from .moe import MoERoute, init_moe, moe_apply, moe_route
@@ -17,6 +20,7 @@ from .moe import MoERoute, init_moe, moe_apply, moe_route
 __all__ = [
     "LMConfig", "MoEConfig", "MLAConfig", "TransformerLM", "Block",
     "init_lm_params", "lm_forward", "prefill", "decode_step", "init_cache",
-    "layer_keys", "params_from_reference", "MoERoute", "init_moe",
+    "layer_keys", "lm_loss", "lm_param_specs", "param_shapes",
+    "params_from_reference", "params_to_reference", "MoERoute", "init_moe",
     "moe_apply", "moe_route",
 ]

@@ -11,6 +11,13 @@ blocks).  The value head dim may differ from the query's (MLA).  MLA's
 prefill expands its latents and calls ``gqa_attention_chunked`` (K4 on the
 card); decode attention, dense and MLA, stays plain torch, as the reference
 computes it outside any kernel.
+
+Training differentiates ``gqa_attention_chunked``: it is an autograd
+function whose forward is K4 (the plain version on the CPU) and whose
+backward (:func:`attention_backward`) recomputes the softmax in float32
+torch ops one query chunk at a time, the function ``jax.grad`` of the
+reference's chunked scan computes.  No kernel of the reference runs a
+backward, so none is ported for it.
 """
 from __future__ import annotations
 
@@ -20,8 +27,8 @@ from ...core.butterfly import full_fp32_matmul
 from ...kernels.flash_attention.flash_kernel import flash_attention_bshd
 from .rope import apply_rope, rope_freqs
 
-__all__ = ["attention_scale", "gqa_attention_chunked", "gqa_decode_attention",
-           "mla_attention", "mla_decode_attention"]
+__all__ = ["attention_backward", "attention_scale", "gqa_attention_chunked",
+           "gqa_decode_attention", "mla_attention", "mla_decode_attention"]
 
 _NEG = -1e30
 
@@ -32,6 +39,83 @@ def attention_scale(hd: int) -> float:
     call.  At hd = 96 it is one float32 ulp below the double
     ``1 / hd ** 0.5`` rounded to float32."""
     return float(1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32)))
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       d_out: torch.Tensor, *, causal: bool, q_offset: int,
+                       chunk_q: int, scale: float
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of ``gqa_attention_chunked`` for the output's
+    cotangent ``d_out [B, Sq, H, hd_v]``, each in its input's dtype, on the
+    inputs' device.  Per query chunk of ``chunk_q`` rows, in float32 with
+    no TF32: the scores ``q k^T * scale``, masked by global position with
+    ``-1e30``, and their softmax ``P``; ``dV += P^T dO``, ``dP = dO V^T``,
+    ``dS = P * (dP - rowsum(dO * O))`` (``rowsum(dO * O)`` computed as
+    ``rowsum(P * dP)``, the same sum since ``O = P V``), ``dQ = dS K *
+    scale`` and ``dK += dS^T Q * scale``; a query head's gradients are
+    summed onto its key/value head.  Under a causal mask a chunk reads only
+    the keys at or before its last row: the ones after it weigh exactly 0."""
+    b, sq, h, hd = q.shape
+    skv, hkv, hd_v = k.shape[1], k.shape[2], v.shape[3]
+    g = h // hkv
+    dev = q.device
+    # [B, Hkv, G, S, .]: query heads grouped under their key/value head
+    qf = q.float().reshape(b, sq, hkv, g, hd).permute(0, 2, 3, 1, 4)
+    dof = d_out.float().reshape(b, sq, hkv, g, hd_v).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)[:, :, None]
+    vf = v.float().permute(0, 2, 1, 3)[:, :, None]
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((b, hkv, skv, hd), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, hkv, skv, hd_v), dtype=torch.float32, device=dev)
+    neg = torch.full((), _NEG, dtype=torch.float32, device=dev)
+    cq = max(1, min(chunk_q, sq))
+    with full_fp32_matmul():
+        for q0 in range(0, sq, cq):
+            n = min(cq, sq - q0)
+            kend = min(skv, q_offset + q0 + n) if causal else skv
+            if kend <= 0:
+                continue
+            qb, dob = qf[..., q0:q0 + n, :], dof[..., q0:q0 + n, :]
+            kb, vb = kf[..., :kend, :], vf[..., :kend, :]
+            s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+            if causal:
+                rows = q_offset + q0 + torch.arange(n, device=dev)
+                cols = torch.arange(kend, device=dev)
+                s = torch.where(rows[:, None] >= cols[None, :], s, neg)
+            p = torch.softmax(s, dim=-1)
+            del s
+            dv[:, :, :kend] += torch.einsum("bhgqk,bhgqd->bhkd", p, dob)
+            ds = torch.matmul(dob, vb.transpose(-1, -2))
+            ds = ds.sub_((p * ds).sum(dim=-1, keepdim=True)).mul_(p)
+            del p
+            dq[..., q0:q0 + n, :] = torch.matmul(ds, kb) * scale
+            dk[:, :, :kend] += torch.einsum("bhgqk,bhgqd->bhkd", ds, qb) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """Forward: K4's wrapper.  Backward: :func:`attention_backward` on the
+    saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, chunk_q, chunk_k, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.conf = dict(causal=causal, q_offset=q_offset, chunk_q=chunk_q,
+                        scale=scale)
+        return flash_attention_bshd(q, k, v, causal=causal, q_offset=q_offset,
+                                    block_q=chunk_q, block_k=chunk_k,
+                                    scale=scale)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v = ctx.saved_tensors
+        # a profiler span, so that a profiled step shows this backward's
+        # share of its device time
+        with torch.profiler.record_function("attention_backward"):
+            dq, dk, dv = attention_backward(q, k, v, d_out, **ctx.conf)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def gqa_attention_chunked(
@@ -48,10 +132,10 @@ def gqa_attention_chunked(
     scaled by the reference's float32 ``1/sqrt(hd)``, the causal mask by
     global position with ``-1e30``, an fp32 online softmax and
     ``acc / max(l, 1e-30)``.  ``chunk_q`` / ``chunk_k`` are the blocks of
-    the CPU path."""
-    return flash_attention_bshd(q, k, v, causal=causal, q_offset=q_offset,
-                                block_q=chunk_q, block_k=chunk_k,
-                                scale=attention_scale(q.shape[-1]))
+    the CPU path; ``chunk_q`` is also the backward's query chunk.
+    Differentiable in ``q``, ``k`` and ``v`` (:func:`attention_backward`)."""
+    return _ChunkedAttention.apply(q, k, v, causal, q_offset, chunk_q,
+                                   chunk_k, attention_scale(q.shape[-1]))
 
 
 def gqa_decode_attention(

@@ -11,15 +11,22 @@ reference stacks layers on an ``[L]`` axis and scans; here the layers are
 a ``ModuleList`` walked by a Python loop.  Prefill attention is
 ``gqa_attention_chunked`` (K4 on the card), MLA's included.  Serving runs
 under ``torch.inference_mode()``.
+
+The parameters take no gradient until asked (``params.requires_grad_()``,
+which the train step does).  :func:`lm_loss` is the training loss: the
+trunk with each block under ``torch.utils.checkpoint`` when ``cfg.remat``
+(the reference's ``jax.checkpoint`` with nothing saveable), so the
+attention's forward, K4 on the card, runs twice a step.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...device import resolve_device
-from ..common import Split, dense_init, rms_norm
+from ..common import Split, cross_entropy, dense_init, rms_norm
 from .attention import (
     gqa_attention_chunked,
     gqa_decode_attention,
@@ -31,19 +38,18 @@ from .moe import MOE_KEYS, init_moe, moe_apply
 from .rope import apply_rope, rope_freqs
 
 __all__ = ["TransformerLM", "Block", "init_lm_params", "lm_forward",
-           "prefill", "decode_step", "init_cache", "layer_keys"]
+           "lm_loss", "prefill", "decode_step", "init_cache", "layer_keys",
+           "param_shapes", "lm_param_specs", "cache_shapes", "cache_specs"]
 
-GQA_KEYS = ("wq", "wk", "wv", "wo")
-MLA_KEYS = ("wq_down", "wq_up", "wkv_down", "wk_rope", "wk_up", "wv_up", "wo")
-FFN_KEYS = ("wi", "wg", "wo_mlp")
+# what the loss writes over the vocabulary padding's logits
+_NEG_LOGIT = -1e30
 
 
 def layer_keys(cfg: LMConfig) -> tuple[str, ...]:
     """The names of a layer's tensors under ``cfg`` (an MoE layer's
     ``moe`` subtree holds :data:`~.moe.MOE_KEYS`)."""
-    attn = MLA_KEYS if cfg.is_mla else GQA_KEYS
-    ffn = ("moe",) if cfg.moe is not None else FFN_KEYS
-    return ("ln_attn", "ln_mlp") + attn + ffn
+    moe = ("moe",) if cfg.moe is not None else ()
+    return ("ln_attn", "ln_mlp") + tuple(_matrix_shapes(cfg)) + moe
 
 
 def _dt(cfg: LMConfig) -> torch.dtype:
@@ -52,8 +58,8 @@ def _dt(cfg: LMConfig) -> torch.dtype:
 
 class Block(nn.Module):
     """A layer's tensors under the reference's names, as parameters that
-    take no gradient; a nested dict (the ``moe`` subtree) becomes a
-    sub-module of its own."""
+    take no gradient until asked; a nested dict (the ``moe`` subtree)
+    becomes a sub-module of its own."""
 
     def __init__(self, params: dict):
         super().__init__()
@@ -87,37 +93,38 @@ class TransformerLM(nn.Module):
         self.layers = nn.ModuleList(Block(p) for p in layers)
 
 
+def _matrix_shapes(cfg: LMConfig) -> dict[str, tuple[int, int]]:
+    """A layer's ``[d_in, d_out]`` matrices in the order the initializer
+    draws them: the attention's, then a dense FFN's (an MoE's experts are
+    :func:`~.moe.init_moe`'s)."""
+    d = cfg.d_model
+    if cfg.is_mla:
+        m, h = cfg.mla, cfg.n_heads
+        out = {"wq_down": (d, m.q_lora_rank),
+               "wq_up": (m.q_lora_rank,
+                         h * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+               "wkv_down": (d, m.kv_lora_rank),
+               "wk_rope": (d, m.qk_rope_head_dim),
+               "wk_up": (m.kv_lora_rank, h * m.qk_nope_head_dim),
+               "wv_up": (m.kv_lora_rank, h * m.v_head_dim),
+               "wo": (h * m.v_head_dim, d)}
+    else:
+        hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        out = {"wq": (d, hq), "wk": (d, hkv), "wv": (d, hkv), "wo": (hq, d)}
+    if cfg.moe is None:
+        out.update(wi=(d, cfg.d_ff), wg=(d, cfg.d_ff), wo_mlp=(cfg.d_ff, d))
+    return out
+
+
 def _init_layer(gen: torch.Generator, cfg: LMConfig) -> dict:
     ks = Split(gen)
     d, dt, dev = cfg.d_model, _dt(cfg), gen.device
     p: dict = {"ln_attn": torch.ones((d,), dtype=dt, device=dev),
                "ln_mlp": torch.ones((d,), dtype=dt, device=dev)}
-    if cfg.is_mla:
-        m, h = cfg.mla, cfg.n_heads
-        p.update(
-            wq_down=dense_init(ks(), d, m.q_lora_rank, dtype=dt),
-            wq_up=dense_init(ks(), m.q_lora_rank,
-                             h * (m.qk_nope_head_dim + m.qk_rope_head_dim),
-                             dtype=dt),
-            wkv_down=dense_init(ks(), d, m.kv_lora_rank, dtype=dt),
-            wk_rope=dense_init(ks(), d, m.qk_rope_head_dim, dtype=dt),
-            wk_up=dense_init(ks(), m.kv_lora_rank, h * m.qk_nope_head_dim,
-                             dtype=dt),
-            wv_up=dense_init(ks(), m.kv_lora_rank, h * m.v_head_dim, dtype=dt),
-            wo=dense_init(ks(), h * m.v_head_dim, d, dtype=dt),
-        )
-    else:
-        hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-        p.update(wq=dense_init(ks(), d, hq, dtype=dt),
-                 wk=dense_init(ks(), d, hkv, dtype=dt),
-                 wv=dense_init(ks(), d, hkv, dtype=dt),
-                 wo=dense_init(ks(), hq, d, dtype=dt))
+    for name, shape in _matrix_shapes(cfg).items():
+        p[name] = dense_init(ks(), *shape, dtype=dt)
     if cfg.moe is not None:
         p["moe"] = init_moe(ks(), d, cfg.moe, dtype=dt)
-    else:
-        p.update(wi=dense_init(ks(), d, cfg.d_ff, dtype=dt),
-                 wg=dense_init(ks(), d, cfg.d_ff, dtype=dt),
-                 wo_mlp=dense_init(ks(), cfg.d_ff, d, dtype=dt))
     return p
 
 
@@ -137,6 +144,51 @@ def init_lm_params(cfg: LMConfig, *, seed: int = 0, device=None) -> TransformerL
     head = dense_init(ks(), cfg.d_model, cfg.padded_vocab, dtype=dt)
     ln_f = torch.ones((cfg.d_model,), dtype=dt, device=dev)
     return TransformerLM(cfg, embed, head, ln_f, layers)
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    """The reference's parameter tree as ``(shape, dtype)`` pairs, layers
+    stacked on ``[L]``: what ``jax.eval_shape(init_lm_params)`` gives,
+    allocating nothing."""
+    d, L, dt = cfg.d_model, cfg.n_layers, _dt(cfg)
+    layers = {name: ((L, *shape), dt)
+              for name, shape in _matrix_shapes(cfg).items()}
+    layers["ln_attn"] = layers["ln_mlp"] = ((L, d), dt)
+    if cfg.moe is not None:
+        e, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        layers["moe"] = {"w_router": ((L, d, e), torch.float32),
+                         "wi": ((L, e, d, f), dt), "wg": ((L, e, d, f), dt),
+                         "wo": ((L, e, f, d), dt)}
+    return {"embed": ((cfg.padded_vocab, d), dt),
+            "head": ((d, cfg.padded_vocab), dt), "ln_f": ((d,), dt),
+            "layers": layers}
+
+
+def lm_param_specs(cfg: LMConfig) -> dict:
+    """Logical-axis tuples mirroring the reference's parameter tree (its
+    ``lm_param_specs``): Megatron TP on 'model', and with ``cfg.fsdp`` the
+    complementary dim over 'data'."""
+    dp = "data" if cfg.fsdp else None
+    if cfg.is_mla:
+        attn = {"wq_down": (None, dp, "model"), "wq_up": (None, dp, "model"),
+                "wkv_down": (None, dp, "model"), "wk_rope": (None, dp, None),
+                "wk_up": (None, dp, "model"), "wv_up": (None, dp, "model"),
+                "wo": (None, "model", dp)}
+    else:
+        attn = {"wq": (None, dp, "model"), "wk": (None, dp, "model"),
+                "wv": (None, dp, "model"), "wo": (None, "model", dp)}
+    if cfg.moe is not None:
+        ffn = {"moe": {"w_router": (None, None, None),
+                       "wi": (None, "model", dp, None),
+                       "wg": (None, "model", dp, None),
+                       "wo": (None, "model", None, dp)}}
+    else:
+        ffn = {"wi": (None, dp, "model"), "wg": (None, dp, "model"),
+               "wo_mlp": (None, "model", dp)}
+    return {"embed": ("model", dp) if cfg.fsdp else (None, "model"),
+            "head": (dp, "model"), "ln_f": (None,),
+            "layers": {"ln_attn": (None, None), "ln_mlp": (None, None),
+                       **attn, **ffn}}
 
 
 def _ffn(p: Block, h2: torch.Tensor, cfg: LMConfig
@@ -177,11 +229,12 @@ def _block(p: Block, x: torch.Tensor, cfg: LMConfig, positions: torch.Tensor,
 
 
 def _trunk(params: TransformerLM, tokens: torch.Tensor, cfg: LMConfig,
-           positions: torch.Tensor | None, sink
+           positions: torch.Tensor | None, sink, remat: bool = False
            ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(logits [B, S, Vp], aux)`` over all positions, aux summed over
     the layers; ``sink(layer, cache)``, when given, receives each layer's
-    cache entries."""
+    cache entries.  ``remat`` runs each block under a non-reentrant
+    ``checkpoint``: its activations are recomputed in the backward."""
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=tokens.device)
     rope = None if cfg.is_mla else rope_freqs(cfg.head_dim, cfg.rope_theta,
@@ -189,7 +242,11 @@ def _trunk(params: TransformerLM, tokens: torch.Tensor, cfg: LMConfig,
     x = params.embed[tokens]
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, p in enumerate(params.layers):
-        x, a, cache = _block(p, x, cfg, positions, rope)
+        if remat:
+            x, a, cache = checkpoint(_block, p, x, cfg, positions, rope,
+                                     use_reentrant=False)
+        else:
+            x, a, cache = _block(p, x, cfg, positions, rope)
         if a is not None:
             aux = aux + a
         if sink is not None:
@@ -214,6 +271,26 @@ def lm_forward(params: TransformerLM, tokens: torch.Tensor, cfg: LMConfig, *,
     return logits, aux
 
 
+def lm_loss(params: TransformerLM, batch: dict, cfg: LMConfig,
+            shard=None) -> torch.Tensor:
+    """The reference's training loss: the trunk's logits with the
+    vocabulary padding set to ``-1e30`` (in ``logits.dtype``), the float32
+    token cross entropy against ``batch["labels"]`` (masked by
+    ``batch["mask"]`` when given) plus ``0.01 * aux``.  Differentiable in
+    the parameters once they take a gradient; ``cfg.remat`` checkpoints
+    each block.  ``shard`` is a
+    ``distributed.Sharder``: without a mesh it does nothing (on a mesh it
+    raises, as LM sharding is not ported yet)."""
+    tokens = batch["tokens"]
+    if shard is not None:
+        tokens = shard.act(tokens, "batch", None)
+    logits, aux = _trunk(params, tokens, cfg, None, None, cfg.remat)
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = _NEG_LOGIT
+    loss = cross_entropy(logits, batch["labels"], mask=batch.get("mask"))
+    return loss + 0.01 * aux
+
+
 def _cache_names(cfg: LMConfig) -> tuple[str, str]:
     return ("ckv", "krope") if cfg.is_mla else ("k", "v")
 
@@ -224,17 +301,35 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
     for MLA the latents ``{"ckv": [L, B, max_len, kv_rank], "krope": [L, B,
     max_len, rope], "len": 0}``; ``len`` is a Python int."""
     dev = resolve_device(device)
-    dt = dtype or _dt(cfg)
-    lead = (cfg.n_layers, batch, max_len)
+    cache = {name: torch.zeros(shape, dtype=dtype or dt, device=dev)
+             for name, (shape, dt) in cache_shapes(cfg, batch, max_len).items()
+             if name != "len"}
+    cache["len"] = 0
+    return cache
+
+
+def cache_shapes(cfg: LMConfig, batch: int, max_len: int) -> dict:
+    """The reference's ``init_cache`` as ``(shape, dtype)`` pairs (its
+    ``len`` an int32 scalar), allocating nothing."""
+    dt, lead = _dt(cfg), (cfg.n_layers, batch, max_len)
     if cfg.is_mla:
         m = cfg.mla
         shapes = (lead + (m.kv_lora_rank,), lead + (m.qk_rope_head_dim,))
     else:
         shapes = (lead + (cfg.n_kv_heads, cfg.head_dim),) * 2
-    cache = {name: torch.zeros(shape, dtype=dt, device=dev)
-             for name, shape in zip(_cache_names(cfg), shapes)}
-    cache["len"] = 0
-    return cache
+    out = {name: (shape, dt) for name, shape in zip(_cache_names(cfg), shapes)}
+    out["len"] = ((), torch.int32)
+    return out
+
+
+def cache_specs(cfg: LMConfig) -> dict:
+    """Logical shardings of the cache (the reference's ``cache_specs``:
+    sequence over 'model' when ``cfg.seq_shard_attn_cache``)."""
+    seq_ax = "model" if cfg.seq_shard_attn_cache else None
+    rest = (None,) if cfg.is_mla else (None, None)
+    out = {name: (None, "batch", seq_ax) + rest for name in _cache_names(cfg)}
+    out["len"] = ()
+    return out
 
 
 @torch.inference_mode()

@@ -22,7 +22,9 @@ steps newest-first past any truncated, bit-flipped or corrupt step.
 fault points (:mod:`repro_torch.streams.faults`); :func:`gc_tmp_dirs` sweeps
 the stale ``.tmp_step_*`` dirs a crash between them leaves.  Restore returns
 numpy leaves (``host=True``, at the template's dtypes, 64-bit widths kept)
-or torch tensors on ``device`` (default ``cuda``).  ``AsyncCheckpointer``
+or torch tensors on ``device`` (default ``cuda``).  A bf16 leaf is stored
+as the 2-byte records of its bits (``|V2``), which is how ``np.savez``
+stores the reference's bf16 leaves.  ``AsyncCheckpointer``
 runs saves on a worker thread.
 """
 from __future__ import annotations
@@ -37,6 +39,7 @@ from zlib import crc32
 import numpy as np
 import torch
 
+from ..arrays import BF16_BITS, tensor_from_numpy, tensor_to_numpy
 from ..device import resolve_device
 from .fault import fault_point
 
@@ -155,12 +158,14 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
 
 def _to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return tensor_to_numpy(x)
     return np.asarray(x)
 
 
 def _np_dtype(x) -> np.dtype:
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            return BF16_BITS
         return torch.empty(0, dtype=x.dtype).numpy().dtype
     return np.asarray(x).dtype
 
@@ -317,8 +322,7 @@ def restore_checkpoint(ckpt_dir: str, template: Any, *,
                   for h, t in zip(loaded, t_leaves)]
     else:
         dev = resolve_device(device)
-        placed = [torch.as_tensor(np.asarray(h, dtype=_np_dtype(t)),
-                                  device=dev)
+        placed = [tensor_from_numpy(np.asarray(h, dtype=_np_dtype(t)), dev)
                   for h, t in zip(loaded, t_leaves)]
     return tree_unflatten(treedef, placed), manifest["extra"]
 

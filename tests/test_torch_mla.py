@@ -35,7 +35,7 @@ from repro_torch.models.transformer.attention import (  # noqa: E402
     mla_attention,
     mla_decode_attention,
 )
-from repro_torch.models.transformer.convert import tensor_from_numpy  # noqa: E402
+from repro_torch.arrays import tensor_from_numpy  # noqa: E402
 
 DTYPES = ["float32", "bfloat16"]
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),

@@ -33,7 +33,7 @@ from repro.models.transformer.moe import (  # noqa: E402
     moe_apply as j_moe_apply,
 )
 from repro_torch.models.transformer import Block, MoEConfig  # noqa: E402
-from repro_torch.models.transformer.convert import tensor_from_numpy  # noqa: E402
+from repro_torch.arrays import tensor_from_numpy  # noqa: E402
 from repro_torch.models.transformer.moe import (  # noqa: E402
     init_moe,
     moe_apply,

@@ -10,7 +10,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import WindowExecutor, run_sgrapp, run_sgrapp_x  # noqa: E402
 from repro_torch.core.sgrapp import sgrapp_estimate  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import get_arch, list_cells  # noqa: E402
+from repro_torch.data import shard_batch  # noqa: E402
+from repro_torch.distributed import Sharder  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch import serve_streams  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, make_window_mesh  # noqa: E402
@@ -58,7 +61,9 @@ def test_scan_sees_every_module():
             "registry.py", "common.py", "rope.py", "server.py", "wal.py",
             "faults.py", "checkpoint.py", "fault.py", "serve_streams.py",
             "datasets.py", "analysis.py", "distributed.py", "mesh.py",
-            "sharding.py", "collectives.py"} <= names
+            "sharding.py", "collectives.py", "shapes.py", "sgrapp_paper.py",
+            "optimizer.py", "train_state.py", "loop.py", "pipeline.py",
+            "train.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/kernels/build.py",
             "src/repro_torch/kernels/butterfly/build.py",
@@ -75,7 +80,14 @@ def test_scan_sees_every_module():
             "src/repro_torch/distributed/__init__.py",
             "src/repro_torch/distributed/sharding.py",
             "src/repro_torch/distributed/collectives.py",
-            "src/repro_torch/launch/mesh.py"} <= rel
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/configs/shapes.py",
+            "src/repro_torch/configs/sgrapp_paper.py",
+            "src/repro_torch/train/optimizer.py",
+            "src/repro_torch/train/train_state.py",
+            "src/repro_torch/train/loop.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/launch/train.py"} <= rel
     assert imported_roots(ROOT / "tests" / "test_torch_engine.py") >= {
         "repro", "repro_torch"}
 
@@ -124,12 +136,19 @@ def small_batch():
                          config=EngineConfig(tier="pallas")),
     lambda: serve_streams.main(["--nt-w", "20", "--tenant", "a:0",
                                 "--tier", "pallas"]),
+    lambda: list_cells("sgrapp", smoke=True)["win_8k"].make_step(Sharder(None)),
+    lambda: list_cells("sgrapp", smoke=True)["estimator"].make_step(
+        Sharder(None)),
+    lambda: shard_batch({"tokens": np.zeros((1, 2), np.int32)}),
+    lambda: train_launcher.main(["--arch", "phi4-mini-3.8b", "--smoke",
+                                 "--steps", "1"]),
 ], ids=["run_sgrapp_pallas", "run_sgrapp_default", "run_sgrapp_x",
         "executor_pallas", "executor_numpy", "engine", "estimator",
         "resolve_cuda", "init_lm_params", "init_cache", "serve_load_model",
         "params_from_reference", "monitor_butterflies",
         "stream_server_default", "stream_server_pallas",
-        "serve_streams_main"])
+        "serve_streams_main", "sgrapp_win_cell", "sgrapp_estimator_cell",
+        "shard_batch", "train_main"])
 def test_without_a_card_entry_points_raise(no_card, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()

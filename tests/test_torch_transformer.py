@@ -23,16 +23,23 @@ with the reference's tokens.
 bfloat16 MoE: routing is a discrete decision on float32 logits of bf16
 hidden states, and those differ by an ulp between the frameworks, so a
 token near a tie can take another expert (and, through the capacity, move
-a later token's place in a queue).  Such a position's logits differ by up
-to 2.3; every other position is held as above.  What is held: at most
-``FLIP_SHARE`` (5%) of the positions beyond atol 0.125 (measured at the
-test's weights: 2 of 200 prefill positions for phi3.5-moe-42b, none in the
-cache or the three decode steps; over weight seeds 0-3, 0 to 16 of 200),
-and ``aux`` within rtol 1e-2 (measured 3.3e-4; over seeds 0-3 up to
-1.7e-3).  dbrx-132b's smoke config routes every token to all 4 experts, so
-only the order of its choices and their queue places can move.  float32
-routing is equal and is held at the float32 tolerances.
+a later token's place in a queue).  So the port's MoE arithmetic runs on
+the reference's route: the reference's ``gate_idx`` and queue positions
+(recorded inside its jitted run by an ordered ``jax.debug.callback``) are
+carried into a ``MoERoute`` with the port's own gates and aux
+(:func:`routed`), and every position is held at the bf16 tolerance above,
+at weight seeds 0-3.  Separately, every token whose own top-k differs from
+the reference's is a near-tie: the gap between the reference's router
+logits of the two experts that trade places is within what ``TIE_ULPS``
+(4) bf16 ulps on each entry of the token's router input can move it
+(:func:`assert_near_ties`; measured at most 0.74 of one ulp's reach, over
+seeds 0-3).  ``aux`` within rtol 1e-2
+(measured 3.3e-4; over seeds 0-3 up to 1.7e-3).  dbrx-132b's smoke config
+routes every token to all 4 experts, so only the order of its choices and
+their queue places can move.  float32 routing is equal and is held at the
+float32 tolerances without forcing.
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -45,6 +52,7 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_arch as j_get_arch  # noqa: E402
 from repro.core.butterfly import snapshot_count as j_snapshot_count  # noqa: E402
 from repro.models.common import rms_norm as j_rms_norm  # noqa: E402
+import repro.models.transformer.model as j_model  # noqa: E402
 from repro.models.transformer import (  # noqa: E402
     decode_step as j_decode_step,
     init_lm_params as j_init,
@@ -77,7 +85,8 @@ from repro_torch.models.transformer.attention import (  # noqa: E402
     gqa_attention_chunked,
     gqa_decode_attention,
 )
-from repro_torch.models.transformer.convert import tensor_from_numpy  # noqa: E402
+from repro_torch.models.transformer import moe as moe_mod  # noqa: E402
+from repro_torch.arrays import tensor_from_numpy  # noqa: E402
 from repro_torch.models.transformer.rope import apply_rope, rope_freqs  # noqa: E402
 
 ARCHS = ["phi4-mini-3.8b", "granite-8b", "phi3.5-moe-42b", "dbrx-132b",
@@ -88,7 +97,7 @@ TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
 OP_TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
           "bfloat16": dict(rtol=8e-3, atol=1e-3)}
 PROMPT, GEN = 100, 3          # a prompt past one 64-row attention chunk
-FLIP_SHARE = 0.05             # bf16 MoE: positions whose routing may flip
+TIE_ULPS = 4                  # bf16 MoE: a route flip's logit gap, in ulps
 
 
 def as_np(x):
@@ -106,16 +115,88 @@ def cache_names(cfg):
     return ("ckv", "krope") if cfg.is_mla else ("k", "v")
 
 
-def assert_close(got, want, served, positions):
-    """``got`` within ``TOL`` of ``want``; for a bf16 MoE, at all but
-    ``FLIP_SHARE`` of the positions (the leading ``positions`` axes)."""
-    tol = TOL[served["dtype"]]
-    if served["dtype"] == "float32" or served["cfg"].moe is None:
-        np.testing.assert_allclose(as_np(got), want, **tol)
+def assert_close(got, want, served):
+    np.testing.assert_allclose(as_np(got), want, **TOL[served["dtype"]])
+
+
+@contextlib.contextmanager
+def recording(cfg):
+    """Record each MoE dispatch of the reference's runs traced inside the
+    block: its ``gate_idx``, queue positions and float32 router logits, by
+    an ordered callback on the reference's own routing arithmetic (the same
+    ops as its ``moe_apply``'s, which XLA computes once)."""
+    routes: list = []
+    if cfg.moe is None:
+        yield routes
         return
-    assert got.shape == want.shape
-    gap = np.abs(as_np(got) - want).reshape(want.shape[:positions] + (-1,))
-    assert (gap.max(-1) > tol["atol"]).mean() <= FLIP_SHARE
+    orig = j_model.moe_apply
+
+    def rec(p, x, moe, **kw):
+        t, e, k = x.shape[0], moe.n_experts, moe.top_k
+        logits = x.astype(jnp.float32) @ p["w_router"]
+        _, gi = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), k)
+        flat = jax.nn.one_hot(gi, e, dtype=jnp.int32).reshape(t * k, e)
+        pos = ((jnp.cumsum(flat, axis=0) - flat) * flat).sum(-1).reshape(t, k)
+        jax.debug.callback(
+            lambda *a: routes.append(tuple(np.asarray(v) for v in a)),
+            gi, pos, logits, ordered=True)
+        return orig(p, x, moe, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_model, "moe_apply", rec)
+        yield routes
+
+
+def assert_near_ties(own_idx, ref_idx, ref_logits, x, w_router):
+    """Every token whose own top-k differs from the reference's is a
+    near-tie: the two experts ``a``, ``b`` that trade places have reference
+    router logits within what ``TIE_ULPS`` bf16 ulps (``2**-8`` of each
+    value) on every entry of the token's router input ``x`` can move their
+    gap, ``TIE_ULPS * 2**-8 * sum_d |x_d| |w_da - w_db|``."""
+    for t in np.flatnonzero((own_idx != ref_idx).any(-1)):
+        for a, b in zip(own_idx[t], ref_idx[t]):
+            if a != b:
+                reach = np.abs(x[t]) @ np.abs(w_router[:, a] - w_router[:, b])
+                gap = abs(ref_logits[t, a] - ref_logits[t, b])
+                assert gap <= TIE_ULPS * 2.0 ** -8 * reach, (t, a, b, gap, reach)
+
+
+@contextlib.contextmanager
+def routed(routes):
+    """Run the port's MoE dispatches on the recorded routes, in order: the
+    reference's ``gate_idx``, queue positions and ``keep`` with the port's
+    own gates (its probabilities at those experts, normalised), capacity
+    and aux; each flip of the port's own route is held a near-tie.  With
+    ``routes`` None the port routes itself."""
+    if routes is None:
+        yield
+        return
+    queue = list(routes)
+    own = moe_mod.moe_route
+
+    def forced(p, x, moe):
+        r = own(p, x, moe)
+        gi, pos, logits = queue.pop(0)
+        gate_idx = torch.from_numpy(gi.astype(np.int64))
+        assert_near_ties(r.gate_idx.numpy(), gi, logits, x.float().numpy(),
+                         p.w_router.detach().numpy())
+        probs = torch.softmax(x.float() @ p.w_router, dim=-1)
+        gates = torch.gather(probs, 1, gate_idx)
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        pos = torch.from_numpy(pos.astype(np.int64))
+        return moe_mod.MoERoute(gate_idx, gates, pos, pos < r.cap, r.cap, r.aux)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(moe_mod, "moe_route", forced)
+        yield
+    assert not queue, f"{len(queue)} recorded dispatches not replayed"
+
+
+def forced(served, phase):
+    """The recorded routes of a bf16 MoE's ``phase``, else None."""
+    if served["dtype"] == "bfloat16" and served["cfg"].moe is not None:
+        return served["routes"][phase]
+    return None
 
 
 def configs(arch, dtype):
@@ -135,23 +216,33 @@ def served(request):
     model = params_from_reference(jax.tree.map(np.asarray, jp), cfg, "cpu")
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, PROMPT))
     jt = jnp.asarray(toks, jnp.int32)
-    logits, aux = jax.jit(lambda p, t: j_lm_forward(p, t, jcfg))(jp, jt)
     max_len = PROMPT + GEN + 1
-    last, cache = jax.jit(lambda p, t: j_prefill(p, t, jcfg, max_len))(jp, jt)
-    prefilled = {k: np.asarray(cache[k], np.float32) if k != "len"
-                 else int(cache[k]) for k in cache}
-    step = jax.jit(lambda p, c, t: j_decode_step(p, c, t, jcfg))
-    fed, steps = [], []
-    nxt = jnp.argmax(last[:, :cfg.vocab_size], -1).astype(jnp.int32)
-    for _ in range(GEN):
-        fed.append(np.array(nxt))
-        lo, cache = step(jp, cache, nxt)
-        steps.append(np.asarray(lo, np.float32))
-        nxt = jnp.argmax(lo[:, :cfg.vocab_size], -1).astype(jnp.int32)
+    fed, steps, routes = [], [], {"decode": []}
+    with recording(jcfg) as rec:
+        logits, aux = jax.jit(lambda p, t: j_lm_forward(p, t, jcfg))(jp, jt)
+        jax.effects_barrier()
+        routes["forward"] = list(rec)
+        rec.clear()
+        last, cache = jax.jit(lambda p, t: j_prefill(p, t, jcfg, max_len))(jp, jt)
+        jax.effects_barrier()
+        routes["prefill"] = list(rec)
+        rec.clear()
+        prefilled = {k: np.asarray(cache[k], np.float32) if k != "len"
+                     else int(cache[k]) for k in cache}
+        step = jax.jit(lambda p, c, t: j_decode_step(p, c, t, jcfg))
+        nxt = jnp.argmax(last[:, :cfg.vocab_size], -1).astype(jnp.int32)
+        for _ in range(GEN):
+            fed.append(np.array(nxt))
+            lo, cache = step(jp, cache, nxt)
+            steps.append(np.asarray(lo, np.float32))
+            jax.effects_barrier()
+            routes["decode"].append(list(rec))
+            rec.clear()
+            nxt = jnp.argmax(lo[:, :cfg.vocab_size], -1).astype(jnp.int32)
     return dict(arch=arch, dtype=dtype, cfg=cfg, model=model, toks=toks,
                 logits=np.asarray(logits, np.float32), aux=float(aux),
                 last=np.asarray(last, np.float32),
-                cache=prefilled,
+                cache=prefilled, routes=routes,
                 fed=fed, steps=steps, max_len=max_len)
 
 
@@ -224,8 +315,9 @@ def test_gqa_decode_attention(dtype, lens):
 # --------------------------------------------------------------------------
 
 def test_lm_forward(served):
-    logits, aux = lm_forward(served["model"], torch.as_tensor(served["toks"]),
-                             served["cfg"])
+    with routed(forced(served, "forward")):
+        logits, aux = lm_forward(served["model"], torch.as_tensor(served["toks"]),
+                                 served["cfg"])
     assert logits.shape == served["logits"].shape
     if served["cfg"].moe is None:
         assert float(aux) == served["aux"] == 0.0
@@ -233,12 +325,14 @@ def test_lm_forward(served):
         assert served["aux"] > 0
         np.testing.assert_allclose(float(aux), served["aux"], rtol=1e-5 if
                                    served["dtype"] == "float32" else 1e-2)
-    assert_close(logits, served["logits"], served, 2)
+    assert_close(logits, served["logits"], served)
 
 
 def test_lm_forward_collects_the_cache(served):
-    _, _, entries = lm_forward(served["model"], torch.as_tensor(served["toks"]),
-                               served["cfg"], collect_cache=True)
+    with routed(forced(served, "prefill")):
+        _, _, entries = lm_forward(served["model"],
+                                   torch.as_tensor(served["toks"]),
+                                   served["cfg"], collect_cache=True)
     cfg = served["cfg"]
     for name, got in zip(cache_names(cfg), entries, strict=True):
         want = served["cache"][name][:, :, :PROMPT]
@@ -246,31 +340,35 @@ def test_lm_forward_collects_the_cache(served):
         if not cfg.is_mla:
             assert got.shape == (cfg.n_layers, 2, PROMPT, cfg.n_kv_heads,
                                  cfg.head_dim)
-        assert_close(got, want, served, 3)
+        assert_close(got, want, served)
 
 
 def test_prefill_last_logits_and_cache(served):
-    last, cache = prefill(served["model"], torch.as_tensor(served["toks"]),
-                          served["cfg"], served["max_len"])
-    assert_close(last, served["last"], served, 1)
+    with routed(forced(served, "prefill")):
+        last, cache = prefill(served["model"], torch.as_tensor(served["toks"]),
+                              served["cfg"], served["max_len"])
+    assert_close(last, served["last"], served)
     assert cache["len"] == served["cache"]["len"] == PROMPT
     assert set(cache) == set(served["cache"]) == {*cache_names(served["cfg"]),
                                                   "len"}
     for name in cache_names(served["cfg"]):
         assert cache[name].shape == served["cache"][name].shape
-        assert_close(cache[name], served["cache"][name], served, 3)
+        assert_close(cache[name], served["cache"][name], served)
         assert not cache[name][:, :, PROMPT:].any()
 
 
 def test_three_decode_steps(served):
     cfg = served["cfg"]
-    _, cache = prefill(served["model"], torch.as_tensor(served["toks"]), cfg,
-                       served["max_len"])
+    with routed(forced(served, "prefill")):
+        _, cache = prefill(served["model"], torch.as_tensor(served["toks"]),
+                           cfg, served["max_len"])
     for s, (fed, want) in enumerate(zip(served["fed"], served["steps"])):
-        logits, cache = decode_step(served["model"], cache,
-                                    torch.as_tensor(fed, dtype=torch.int64), cfg)
+        routes = forced(served, "decode")
+        with routed(None if routes is None else routes[s]):
+            logits, cache = decode_step(served["model"], cache, torch.as_tensor(
+                fed, dtype=torch.int64), cfg)
         assert cache["len"] == PROMPT + s + 1
-        assert_close(logits, want, served, 1)
+        assert_close(logits, want, served)
 
 
 def test_greedy_tokens_equal(served):
@@ -284,6 +382,28 @@ def test_greedy_tokens_equal(served):
     else:
         np.testing.assert_array_equal(res.tokens[:, 0], want[:, 0])
     assert np.isfinite(as_np(res.last_logits)).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b", "dbrx-132b"])
+def test_bf16_moe_logits_on_the_references_routes(arch, seed):
+    """Every position of a bf16 MoE's logits within the bf16 tolerance at
+    weight seeds 0-3, on the reference's routes; every flip of the port's
+    own route a near-tie."""
+    jcfg, cfg = configs(arch, "bfloat16")
+    jp = j_init(jax.random.PRNGKey(seed), jcfg)
+    model = params_from_reference(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, PROMPT))
+    with recording(jcfg) as rec:
+        want, j_aux = jax.jit(lambda p, t: j_lm_forward(p, t, jcfg))(
+            jp, jnp.asarray(toks, jnp.int32))
+        jax.effects_barrier()
+    assert len(rec) == cfg.n_layers
+    with routed(rec):
+        logits, aux = lm_forward(model, torch.as_tensor(toks), cfg)
+    np.testing.assert_allclose(as_np(logits), np.asarray(want, np.float32),
+                               **TOL["bfloat16"])
+    np.testing.assert_allclose(float(aux), float(j_aux), rtol=1e-2)
 
 
 def test_decode_refuses_a_full_cache():
