@@ -20,9 +20,10 @@ K3, drives the executor's entries (``run`` in sliding mode,
 tenants over TCP through the port's ``StreamServer`` (a server subprocess
 SIGKILLed and recovered, WAL and checkpoints), runs the paper's SS3
 analysis, shards the executor's windows and the ring counter's Gram over
-several devices, and serves phi4-mini-3.8b, minicpm3-4b (MLA),
+several devices, serves phi4-mini-3.8b, minicpm3-4b (MLA),
 phi3.5-moe-42b and dbrx-132b (MoE) at full width (prefill attention
-through K4).  Every check
+through K4), trains phi4-mini-3.8b, the GNNs and xDeepFM at full width and
+checks the halo-exchange losses.  Every check
 raises on failure, so the exit code is non-zero unless all phases pass.
 
 Phases (each path's launch counts are set to 0 just before it runs and read
@@ -198,13 +199,37 @@ just after):
    backward's share and ``6 N tokens / (step s x peak)``; (c) the config
    cut to 8 layers, 2 x 4,096 tokens in 2 microbatches (float32
    accumulation) against one microbatch.  Both cuts are logged as
-   ``reduced``.
+   ``reduced``;
+21. GNN training (no TPU kernel: torch's gathers, ``index_add`` /
+   ``scatter_reduce`` with atomics, cuBLAS fp32 GEMMs): (a) the smoke
+   configs of graphsage-reddit, graphcast, dimenet and equiformer-v2
+   through their ``molecule`` cell's train step on a seeded graph of 1,024
+   nodes and 8,192 edges (skewed destinations) on the card against the
+   CPU port: loss, every gradient leaf and the parameters after 3 AdamW
+   steps (``hold_steps``); (b) ``GNN_CELLS`` at full width: each arch's
+   full config on its cells' shapes (ogb_products' rounds as the registry
+   budgets them; GraphSAGE's minibatch_lg through ``fanout_sample`` on a
+   Reddit-sized CSR), 3 steps on one seeded batch with the loss falling,
+   step ms, nodes/s, ``model_flops / (step s x 67 TFLOP/s)``, peak memory
+   and a profile of the third step; a cell that does not fit the card is
+   halved in nodes and edges until it does, and the cut logged as
+   ``reduced``; (c) ``sage_loss_halo`` and ``eqv2_loss_halo`` over a 2 x 4
+   mesh of ``[cuda:0] * 8`` (one shard per card round-robin where there
+   are several) against the gather losses on a locality graph (GraphSAGE
+   2**20 edges, EquiformerV2 2**18), within the reference's 2e-5 and 3e-5;
+22. xDeepFM: (a) the smoke config's train step against the CPU port, and
+   serving and candidate scores; (b) the full config (39 x 1M-row tables):
+   train_batch (65,536 rows, 3 steps, the loss falling), serve_p99,
+   serve_bulk and retrieval_cand through their cells: p50/p99 ms, rows/s,
+   peak memory, ``model_flops / (s x 67 TFLOP/s)``, a profile of
+   serve_bulk.  Phases 21-22 launch none of K1-K4: their counts, set to 0
+   before phase 21, are checked to stay 0.
 
 On a machine with several cards phase 15 also shards over the distinct
 cards (up to 4); the script needs one card.
 
 Phases 11-15 and 19 run after phase 8, before K4 and serving; phases
-16-18 and 20 run after phase 10.  Each phase's wall
+16-18 and 20-22 run after phase 10.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -3663,6 +3688,734 @@ def phase_train(device, seed: int, *, smoke: bool) -> dict:
     return phase_train_full(device, seed, smoke=smoke, bwd_ms=bwd[LM_ARCH])
 
 
+# --------------------------------------------------------------------------
+# phases 21-22: GNN and xDeepFM training (no TPU kernel on this path)
+# --------------------------------------------------------------------------
+
+# phase 21 (b): the GNN cells run at full width on one card; a cell that
+# does not fit 80 GB is cut to the largest share of its nodes and edges in
+# CUT_SHARES that fits, and logged as reduced
+GNN_CELLS = (("graphsage-reddit", "ogb_products"),
+             ("graphsage-reddit", "minibatch_lg"),
+             ("graphcast", "minibatch_lg"), ("graphcast", "ogb_products"),
+             ("dimenet", "molecule"), ("dimenet", "minibatch_lg"),
+             ("dimenet", "ogb_products"),
+             ("equiformer-v2", "full_graph_sm"), ("equiformer-v2", "molecule"),
+             ("equiformer-v2", "minibatch_lg"),
+             ("equiformer-v2", "ogb_products"))
+CUT_SHARES = (1, 3 / 4, 1 / 2, 3 / 8, 1 / 4, 3 / 16, 1 / 8, 3 / 32, 1 / 16,
+              3 / 64, 1 / 32)
+# DimeNet's full-width trunk has no normalization: under the reference's
+# AdamW (lr 3e-4, clip 1.0) its loss overshoots at the first step (lr *
+# sign(g) on every entry) and oscillates after it on random inputs, so it
+# is not required to fall over 3 steps; its gradient must point downhill
+# (``descent_check``) and its losses stay finite
+OSCILLATES = {"dimenet"}
+# minibatch_lg's sampled-from graph: Reddit's nodes and edges
+# (arXiv:1706.02216), degrees skewed, 1,024 seeds, fanout 15-10
+REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892
+# phase 21 (a): the card against the CPU port in float32.  The card sums
+# segments with atomics in a run-dependent order, and the CPU in another:
+# the loss within rtol 1e-4, every gradient leaf within 1e-4 * max|g| +
+# 1e-6, and after each AdamW step every parameter within 2 * lr and within
+# rtol 1e-5, atol 1e-6 except where its gradient entry is at most
+# ADAM_FLOOR * max|g| of its leaf (phase 20's derivation).  A leaf whose
+# gradient is 0 up to rounding is held within 2 * lr only, since Adam turns
+# its rounding noise into steps of about lr either way: EquiformerV2's last
+# attention bias, which shifts every logit of a softmax.  It is told by its
+# card-CPU gap: over NOISE_LEAF of its own max|g| (then the gradient check
+# above bounds its max|g| near 1e-6), where every other leaf stays below
+# 1e-5 of its max
+NOISE_LEAF = 1e-2
+GNN_SMOKE_NODES, GNN_SMOKE_EDGES = 1024, 8192
+# phase 21 (c): the halo losses against the gather losses on a locality
+# graph, GraphSAGE at 2**20 edges; EquiformerV2 at 2**18 (its gather loss
+# holds [E, 49, 128] float32 stacks: 25.7 GB each at 2**20 edges)
+HALO_SIZES = {"graphsage-reddit": (1 << 18, 1 << 20),
+              "equiformer-v2": (1 << 16, 1 << 18)}
+HALO_TOL = {"graphsage-reddit": 2e-5, "equiformer-v2": 3e-5}
+
+
+def tree_copy(tree, device):
+    """Detached copies of a tree's tensors on ``device``."""
+    from repro_torch.train.checkpoint import tree_map
+
+    return tree_map(lambda t: t.detach().to(device, copy=True), tree)
+
+
+def tree_grads(loss_fn, params, batch) -> tuple[float, dict]:
+    """The loss and its gradients by leaf name (``param_leaves``)."""
+    import torch
+
+    from repro_torch.train.optimizer import param_leaves
+
+    leaves = param_leaves(params)
+    for p in leaves.values():
+        p.requires_grad_(True)
+    loss = loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(leaves, grads))
+
+
+def hold_steps(label: str, step, loss_fn, params_cpu, batch_cpu, device,
+               lr: float = 3e-4) -> str:
+    """Phase 21/22 (a): three train steps of ``step`` (a cell's) on the card
+    against the CPU port, each started on the card from the CPU's state:
+    the loss and every gradient leaf before the step, the step's loss and
+    every parameter after it (the tolerances above).  Returns the log's
+    summary."""
+    from repro_torch.train import AdamWState, TrainState, adamw_init
+    from repro_torch.train.optimizer import param_leaves
+
+    s_cpu = TrainState(params_cpu, adamw_init(params_cpu), 0)
+    b_card = {k: v.to(device) for k, v in batch_cpu.items()}
+    worst = worst_l = worst_g = 0.0
+    off = total = 0
+    noise: set = set()
+    for t in range(3):
+        card = tree_copy(s_cpu.params, device)
+        opt = s_cpu.opt
+        s_card = TrainState(card, AdamWState(*(tree_copy(x, device) for x in opt)), 0)
+        l_cpu, g_cpu = tree_grads(loss_fn, s_cpu.params, batch_cpu)
+        l_card, g_card = tree_grads(loss_fn, card, b_card)
+        worst_l = max(worst_l, abs(l_card - l_cpu) / abs(l_cpu))
+        check(abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu),
+              f"{label} step {t}: loss {l_card} on the card, {l_cpu} on the CPU")
+        for name, g in g_cpu.items():
+            gap = float((g_card[name].cpu() - g).abs().max())
+            scale = float(g.abs().max())
+            check(gap <= 1e-4 * scale + 1e-6, f"{label} step {t}: gradient "
+                  f"{name} off by {gap} (max {scale})")
+            if gap > NOISE_LEAF * scale:
+                noise.add(name)
+            else:
+                worst = max(worst, gap / max(scale, 1e-30))
+        s_card, m_card = step(s_card, b_card)
+        s_cpu, m_cpu = step(s_cpu, batch_cpu)
+        sync(device)
+        check(abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+              <= 1e-4 * abs(float(m_cpu["loss"])),
+              f"{label} step {t}: step loss {float(m_card['loss'])} vs "
+              f"{float(m_cpu['loss'])}")
+        p_card = param_leaves(s_card.params)
+        for name, p in param_leaves(s_cpu.params).items():
+            gap = (p_card[name].detach().cpu() - p.detach()).abs()
+            check(float(gap.max()) <= 2 * lr, f"{label} step {t}: parameter "
+                  f"{name} off by {float(gap.max())}")
+            if name in noise:
+                continue
+            miss = gap > 1e-6 + 1e-5 * p.detach().abs()
+            if bool(miss.any()):
+                g = g_cpu[name].abs()
+                rel_g = float(g[miss].max()) / max(float(g.max()), 1e-30)
+                worst_g = max(worst_g, rel_g)
+                check(rel_g <= ADAM_FLOOR, f"{label} step {t}: parameter "
+                      f"{name} beyond rtol 1e-5 where its gradient entry is "
+                      f"over {ADAM_FLOOR} max|g| ({rel_g:.3g})")
+            off += int(miss.sum())
+            total += p.numel()
+    return (f"loss rel gap up to {worst_l:.3g}; worst gradient leaf "
+            f"max|dg|/max|g| {worst:.3g}; 3 AdamW steps, each from the CPU's "
+            f"state: {off} of {total} parameter updates beyond rtol 1e-5"
+            + (f", each where its gradient entry is at most {worst_g:.3g} "
+               "max|g|" if off else "")
+            + (f"; held within 2 lr only (gradient 0 up to rounding): "
+               f"{sorted(noise)}" if noise else ""))
+
+
+def graph_edges(n: int, e: int, gen, device, molecule: int = 0,
+                mesh: bool = False):
+    """``e`` edges on ``n`` nodes from ``gen``: sources uniform,
+    destinations skewed (``floor(n u**3)``: hubs at the low ids, where the
+    scatter's atomics collide); with ``molecule`` > 0, each edge stays
+    inside its source's block of that many atoms; with ``mesh``, each edge
+    goes to one of the six next node ids (a ring lattice of bounded degree
+    standing in for GraphCast's icosahedral multi-mesh: its sum
+    aggregation over 16 layers overflows float32 at full width on a graph
+    with hubs)."""
+    import torch
+
+    src = torch.randint(0, n, (e,), generator=gen, device=device)
+    if mesh:
+        dst = (src + torch.randint(1, 7, (e,), generator=gen, device=device)) % n
+    elif molecule:
+        off = (molecule * torch.rand(e, generator=gen, device=device) ** 3).long()
+        dst = torch.clamp(src // molecule * molecule + off, max=n - 1)
+    else:
+        dst = (n * torch.rand(e, generator=gen, device=device) ** 3).long()
+    return src, dst
+
+
+def gnn_batch(arch: str, cfg, shp, n: int, e: int, seed: int, device) -> dict:
+    """A seeded batch of ``n`` nodes and ``e`` edges for ``arch``'s cell at
+    shape ``shp`` (the registry's layout; ``graph_edges``, GraphCast's on
+    its mesh stand-in): masks about 97% on; labels in
+    ``[0, n_classes)``; DimeNet's triplets by
+    ``build_triplets_vectorised`` on the host (``TRIPLET_BUDGET`` a edge),
+    its molecules 30 atoms each with one ``graph_id`` and target each;
+    EquiformerV2's Wigner inputs seeded normals times 0.2 (the reference's
+    halo test)."""
+    import torch
+
+    from repro_torch.configs.registry import GNN_KEY
+    from repro_torch.configs.shapes import TRIPLET_BUDGET, pad_to
+    from repro_torch.models.gnn.dimenet import build_triplets_vectorised
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=device)  # noqa: E731
+    key = GNN_KEY[cfg.name]
+    src, dst = graph_edges(n, e, g, device, 30 if shp.batched else 0,
+                           mesh=key == "graphcast")
+    b = {"edge_src": src.int(), "edge_dst": dst.int(),
+         "edge_mask": torch.rand(e, generator=g, device=device) < 0.97}
+    if key == "graphsage":
+        b |= {"x": rnd(n, cfg.d_in),
+              "labels": torch.randint(0, cfg.n_classes, (n,), generator=g,
+                                      device=device).int(),
+              "label_mask": (torch.rand(n, generator=g, device=device) < 0.9).float()}
+    elif key == "graphcast":
+        b |= {"x": rnd(n, cfg.d_in), "edge_feat": rnd(e, cfg.d_edge_in),
+              "target": rnd(n, cfg.d_out)}
+    elif key == "dimenet":
+        t = pad_to(e * TRIPLET_BUDGET[shp.name])
+        t_in, t_out, t_mask = build_triplets_vectorised(
+            src.cpu().numpy(), dst.cpu().numpy(), t)
+        b |= {"pos": rnd(n, 3) * 2, "z": torch.randint(
+                  1, 9, (n, 1), generator=g, device=device).float(),
+              "t_in": torch.as_tensor(t_in, device=device).int(),
+              "t_out": torch.as_tensor(t_out, device=device).int(),
+              "triplet_mask": torch.as_tensor(t_mask, device=device)}
+        if shp.batched:
+            b |= {"graph_id": torch.clamp(torch.arange(n, device=device) // 30,
+                                          max=shp.n_graphs - 1).int(),
+                  "target": rnd(shp.n_graphs, 1)}
+        else:
+            b |= {"target": rnd(n, 1)}
+    else:
+        nc = cfg.n_coeff
+        b |= {"x": rnd(n, cfg.d_in), "wigner": rnd(e, nc, nc) * 0.2,
+              "labels": torch.randint(0, cfg.d_out, (n,), generator=g,
+                                      device=device).int(),
+              "label_mask": torch.ones(n, device=device)}
+    return b
+
+
+def sampled_batch(cfg, seed: int, device, smoke: bool) -> tuple[dict, str]:
+    """GraphSAGE's minibatch_lg batch as the reference's layout describes
+    it: ``fanout_sample`` of 1,024 seeds, fanout 15 then 10, on the CSR of a
+    seeded graph of Reddit's size (232,965 nodes, 114,615,892 edges,
+    degrees skewed), the seeds and both hops as one padded edge list;
+    features seeded normals, the loss on the seeds.  Returns the batch and
+    a line for the log."""
+    import torch
+
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.graphs.csr import build_csr
+    from repro_torch.graphs.sampler import fanout_sample
+
+    n_graph, e_graph, seeds, fan = ((4_000, 40_000, 32, [5, 3]) if smoke else
+                                    (REDDIT_NODES, REDDIT_EDGES, 1024, [15, 10]))
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    w = rng.random(n_graph) ** 3
+    src = np.repeat(np.arange(n_graph), rng.multinomial(e_graph, w / w.sum()))
+    dst = rng.integers(0, n_graph, e_graph)
+    indptr, indices = build_csr(src, dst, n_graph)
+    del src, dst
+    t1 = time.perf_counter()
+    blocks = fanout_sample(indptr, indices, rng.choice(n_graph, seeds, replace=False),
+                           fan, seed=seed)
+    t2 = time.perf_counter()
+    frontier = [blocks.seeds] + [nb.reshape(-1) for nb in blocks.nbr]
+    nodes = np.concatenate(frontier)
+    offs = np.cumsum([0] + [len(f) for f in frontier])
+    e_src = np.concatenate([offs[h + 1] + np.arange(nb.size)
+                            for h, nb in enumerate(blocks.nbr)])
+    e_dst = np.concatenate([np.repeat(offs[h] + np.arange(nb.shape[0]), nb.shape[1])
+                            for h, nb in enumerate(blocks.nbr)])
+    e_mask = np.concatenate([m.reshape(-1) for m in blocks.nbr_mask])
+    shp = GNN_SHAPES["minibatch_lg"]
+    n_pad = len(nodes) if smoke else shp.n_nodes_pad
+    e_pad = len(e_src) if smoke else shp.n_edges_pad
+    pad = e_pad - len(e_src)
+    g = torch.Generator(device=device).manual_seed(seed)
+    feats = torch.randn((n_graph, cfg.d_in), generator=g, device=device)
+    x = torch.zeros((n_pad, cfg.d_in), device=device)
+    x[:len(nodes)] = feats[torch.as_tensor(nodes, device=device)]
+    as_t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    batch = {"x": x,
+             "edge_src": as_t(np.r_[e_src, np.zeros(pad, np.int64)]).int(),
+             "edge_dst": as_t(np.r_[e_dst, np.zeros(pad, np.int64)]).int(),
+             "edge_mask": as_t(np.r_[e_mask, np.zeros(pad, bool)]),
+             "labels": torch.randint(0, cfg.n_classes, (n_pad,), generator=g,
+                                     device=device).int(),
+             "label_mask": (torch.arange(n_pad, device=device) < seeds).float()}
+    line = (f"fanout_sample of {seeds} seeds, fanout {fan}, on a CSR of "
+            f"{n_graph:,} nodes and {e_graph:,} edges (built in {t1 - t0:.4f} "
+            f"s, sampled in {t2 - t1:.4f} s): {len(nodes):,} nodes and "
+            f"{int(e_mask.sum()):,} live of {len(e_src):,} edges, padded to "
+            f"{n_pad:,} x {e_pad:,}")
+    return batch, line
+
+
+def cut_shape(shp, n: int, e: int, share: float, smoke: bool):
+    """The cell's shape with ``share`` of its ``n`` nodes and ``e`` edges
+    (the cell's own, round budgets applied; multiples of 2,048); a CPU
+    rehearsal takes at most 4,096 nodes and 16,384 edges."""
+    import dataclasses
+
+    if smoke:
+        n, e = min(n, 4096), min(e, 16_384)
+    if share < 1:
+        n = max(2048, int(n * share) // 2048 * 2048)
+        e = max(2048, int(e * share) // 2048 * 2048)
+    return dataclasses.replace(shp, n_nodes=n, n_edges=e)
+
+
+def cell_sizes(arch: str, cfg, shp) -> tuple[int, int]:
+    """(nodes, edges) of the cell's abstract batch (the round budgets
+    applied)."""
+    from repro_torch.configs.registry import GNN_KEY, _gnn_batch
+
+    batch, _ = _gnn_batch(GNN_KEY[arch], cfg, shp)
+    return batch["x" if "x" in batch else "pos"].shape[0], batch["edge_src"].shape[0]
+
+
+def train_three(tag: str, label: str, step, state, batch, device,
+                flops: float, n_items: int, unit: str, falling: bool = True
+                ) -> dict:
+    """Three steps of ``step`` on one batch, the third under the profiler:
+    the losses finite (and with ``falling``, falling), the first two
+    steps' ms, items/s at the better one, ``flops / (step s x 67
+    TFLOP/s)`` and the peak memory."""
+    import torch
+
+    losses, step_ms = [], []
+    for i in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        if i < 2:
+            state, m = step(state, batch)
+        else:
+            box = {}
+
+            def run():
+                box["out"] = step(state, batch)
+            if device.type == "cuda":
+                profile(f"{label} step", run, device, top=6)
+            else:
+                run()
+            state, m = box["out"]
+        sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), f"{label}: losses {losses}")
+    check(not falling or losses[0] > losses[1] > losses[2],
+          f"{label}: the loss does not fall over 3 steps on one batch: {losses}")
+    best = min(step_ms[:2])
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    log(f"[{tag}] {label}: losses {', '.join(f'{x:.6f}' for x in losses)} "
+        f"({'falling' if falling else 'finite; not held to fall: OSCILLATES'}); "
+        f"step ms {step_ms[0]:.4f}, {step_ms[1]:.4f} (the third under the "
+        f"profiler: {step_ms[2]:.4f}); {n_items / best * 1e3:.4f} {unit}/s; "
+        f"model_flops {flops:.6g}, {flops / (best / 1e3) / PEAK_FP32_SIMT:.4%} of "
+        f"{PEAK_FP32_SIMT / 1e12:.0f} TFLOP/s fp32; peak memory "
+        f"{peak / 2**30:.4f} GiB")
+    return {"state": state, "losses": losses, "step_ms": best, "peak": peak}
+
+
+def descent_check(label: str, loss_fn, params, batch) -> None:
+    """The gradient points downhill at full width: a plain step of
+    ``-eta g`` with ``eta = 1e-4 / max|g|`` (no entry moves by more than
+    1e-4) lowers the loss, by about ``eta |g|**2``."""
+    import torch
+
+    from repro_torch.train.optimizer import leaves_as_tree, param_leaves
+
+    l0, grads = tree_grads(loss_fn, params, batch)
+    top = max(float(g.abs().max()) for g in grads.values())
+    eta = 1e-4 / top
+    with torch.no_grad():
+        moved = leaves_as_tree({n: p.detach() - eta * grads[n] for n, p in
+                                param_leaves(params).items()}, params)
+        l1 = float(loss_fn(moved, batch))
+    expect = eta * sum(float(torch.sum(g.float() ** 2)) for g in grads.values())
+    check(np.isfinite(l1) and l1 < l0, f"{label}: a step down the gradient "
+          f"moves the loss from {l0} to {l1}")
+    log(f"[gnn] {label}: a step of -{eta:.3g} g (max|g| {top:.4g}) moves the "
+        f"loss {l0:.6f} -> {l1:.6f} (first order: -{expect:.4g})")
+
+
+def phase_gnn_smoke(device, seed: int) -> None:
+    """Phase 21 (a): the four GNN archs' smoke configs through their
+    ``molecule`` cell's step (float32) on a seeded graph of 1,024 nodes and
+    8,192 edges (skewed destinations) on the card against the CPU port
+    (``hold_steps``)."""
+    import dataclasses
+
+    from repro_torch.configs import list_cells
+    from repro_torch.configs.registry import _GNN_INIT, _GNN_LOSS, GNN_KEY
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.distributed import Sharder
+
+    shp = dataclasses.replace(GNN_SHAPES["molecule"], n_nodes=GNN_SMOKE_NODES,
+                              n_edges=GNN_SMOKE_EDGES)
+    for arch, key in GNN_KEY.items():
+        cell = list_cells(arch, smoke=True)["molecule"]
+        cfg = cell.config
+        batch = gnn_batch(arch, cfg, shp, GNN_SMOKE_NODES, GNN_SMOKE_EDGES, seed,
+                          "cpu")
+        params = _GNN_INIT[key](cfg, seed=seed, device="cpu")
+        loss_fn = lambda p, b, cfg=cfg, key=key: _GNN_LOSS[key](p, b, cfg)  # noqa: E731
+        t0 = time.perf_counter()
+        line = hold_steps(f"{arch} smoke", cell.make_step(Sharder(None)), loss_fn,
+                          params, batch, device)
+        log(f"[gnn] {arch} smoke (float32, molecule cell, {GNN_SMOKE_NODES:,} "
+            f"nodes, {GNN_SMOKE_EDGES:,} edges) on {device} against the CPU "
+            f"port in {time.perf_counter() - t0:.4f} s: {line}")
+
+
+def phase_gnn_full(device, seed: int, smoke: bool) -> list[dict]:
+    """Phase 21 (b): each cell of ``GNN_CELLS`` at the arch's full config
+    (the smoke config in a CPU rehearsal): fresh seeded weights, one seeded
+    batch (GraphSAGE's minibatch_lg through the fanout sampler), 3 steps
+    of the cell's train step (``train_three``; DimeNet's losses are held
+    finite and its gradient to ``descent_check``, ``OSCILLATES``).  A cell that runs out of card memory is retried at the
+    next share of its nodes and edges in ``CUT_SHARES`` until it fits, and
+    the cut is logged as reduced.  Returns one record per cell."""
+    import torch
+
+    from repro_torch.configs import list_cells
+    from repro_torch.configs.registry import (
+        _GNN_INIT,
+        _GNN_LOSS,
+        GNN_KEY,
+        _gnn_flops,
+    )
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.distributed import Sharder
+    from repro_torch.train import TrainState, adamw_init
+
+    out = []
+    for arch, shape in GNN_CELLS:
+        cell = list_cells(arch, smoke=smoke)[shape]
+        cfg = cell.config
+        shp = GNN_SHAPES[shape]
+        n_full, e_full = cell_sizes(arch, cfg, shp)
+        shares, rec = iter(CUT_SHARES), None
+        t_cell = time.perf_counter()
+        while rec is None:
+            share = next(shares, None)
+            check(share is not None, f"{arch}/{shape} does not fit at "
+                  f"{CUT_SHARES[-1]} of its nodes and edges")
+            cut = cut_shape(shp, n_full, e_full, share, smoke)
+            n, e = cell_sizes(arch, cfg, cut)
+            try:
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats(device)
+                t0 = time.perf_counter()
+                if arch == "graphsage-reddit" and shape == "minibatch_lg":
+                    batch, how = sampled_batch(cfg, seed, device, smoke)
+                else:
+                    batch = gnn_batch(arch, cfg, cut, n, e, seed, device)
+                    how = f"{n:,} nodes, {e:,} edges"
+                sync(device)
+                made = time.perf_counter() - t0
+                params = _GNN_INIT[GNN_KEY[arch]](cfg, seed=seed, device=device)
+                oscillates = GNN_KEY[arch] in OSCILLATES
+                if oscillates:
+                    descent_check(f"{arch}/{shape}", lambda p, b, cfg=cfg, arch=arch:
+                                  _GNN_LOSS[GNN_KEY[arch]](p, b, cfg), params, batch)
+                state = TrainState(params, adamw_init(params), seed)
+                flops = _gnn_flops(GNN_KEY[arch], cfg, cut)
+                rec = train_three("gnn", f"{arch}/{shape}",
+                                  cell.make_step(Sharder(None)), state, batch,
+                                  device, flops, n, "nodes", falling=not oscillates)
+            except torch.cuda.OutOfMemoryError:
+                rec = None
+            if rec is None:
+                # out of the except block: its traceback no longer holds
+                # the failed step's tensors
+                batch = params = state = None
+                log(f"[gnn] {arch}/{shape}: {n:,} nodes x {e:,} edges do not "
+                    "fit one card")
+        if (n, e) != (n_full, e_full) and not smoke:
+            log(f"[gnn] reduced: {arch}/{shape} {n_full:,} nodes x {e_full:,} "
+                f"edges -> {n:,} x {e:,} ({share:g}: the largest share of "
+                f"{CUT_SHARES} that fits one 80 GB card; widths and depth as "
+                "published)")
+        log(f"[gnn] {arch}/{shape}: batch ({how}) made in {made:.4f} s; the "
+            f"cell took {time.perf_counter() - t_cell:.4f} s in all")
+        out.append({"cell": f"{arch}/{shape}", "nodes": n, "edges": e,
+                    "share": share, "step_ms": rec["step_ms"], "peak": rec["peak"]})
+        del rec, state, params, batch
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def halo_inputs(arch: str, cfg, n: int, e: int, n_dev: int, seed: int, device):
+    """A locality graph (destinations within 4 of their sources, a fifth
+    anywhere), partitioned over ``n_dev`` devices with a halo budget that
+    drops no edge: the gather batch and the halo batch as tensors on
+    ``device``, and the budget.  EquiformerV2's Wigner inputs are seeded
+    normals times 0.2 drawn on ``device``, each edge's in its receiver's
+    edge slot."""
+    import torch
+
+    from repro_torch.configs.registry import GNN_KEY
+    from repro_torch.graphs.halo import build_partitioned_batch
+
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e)
+    dst = np.clip(src + rng.integers(-4, 5, e), 0, n - 1)
+    dst = np.where(rng.random(e) < 0.2, rng.integers(0, n, e), dst)
+    x = rng.normal(size=(n, cfg.d_in)).astype(np.float32)
+    n_cls = cfg.n_classes if hasattr(cfg, "n_classes") else cfg.d_out
+    labels = rng.integers(0, n_cls, n)
+    n_loc = -(-n // n_dev)
+    so, do = np.minimum(src // n_loc, n_dev - 1), np.minimum(dst // n_loc, n_dev - 1)
+    # the edges between two devices bound the sources one sends the other
+    halo = int(np.bincount((so * n_dev + do)[so != do], minlength=n_dev * n_dev).max())
+    pg = build_partitioned_batch(src, dst, x, labels, n_dev, halo=halo)
+    check(int(pg.edge_mask.sum()) == e, "the halo budget dropped edges")
+    put = lambda b: {k: torch.as_tensor(v, device=device) for k, v in b.items()}  # noqa: E731
+    gather = put({"x": x, "edge_src": src, "edge_dst": dst, "labels": labels,
+                  "label_mask": np.ones(n, np.float32)})
+    halo_b = put(pg.device_batch())
+    if GNN_KEY[arch] == "equiformer":
+        nc = cfg.n_coeff
+        g = torch.Generator(device=device).manual_seed(seed)
+        wig = torch.randn((e, nc, nc), generator=g, device=device) * 0.2
+        wig_p = torch.zeros((n_dev, pg.edge_src_ext.shape[1], nc, nc), device=device)
+        for d in range(n_dev):
+            mine = torch.as_tensor(np.flatnonzero(do == d), device=device)
+            wig_p[d, :len(mine)] = wig[mine]
+        gather["wigner"], halo_b["wigner"] = wig, wig_p
+    return gather, halo_b, halo
+
+
+def phase_halo(device, seed: int, smoke: bool) -> None:
+    """Phase 21 (c): ``sage_loss_halo`` and ``eqv2_loss_halo`` at their full
+    configs (``d_in`` 100, ogb_products' features) over a 2 x 4 ``("data",
+    "model")`` mesh of ``[cuda:0] * 8`` (one shard per card round-robin
+    where there are several) against the gather losses on the first card,
+    within the reference's bounds (2e-5, 3e-5), forward only."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import gnn
+
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    devs = [torch.device(device.type, i % cards) if device.type == "cuda"
+            else device for i in range(8)]
+    mesh = make_mesh((2, 4), ("data", "model"), devs)
+    fns = {"graphsage-reddit": (gnn.init_sage, gnn.sage_loss, gnn.sage_loss_halo),
+           "equiformer-v2": (gnn.init_eqv2, gnn.eqv2_loss, gnn.eqv2_loss_halo)}
+    for arch, (init, loss, loss_halo) in fns.items():
+        a = get_arch(arch)
+        cfg = dataclasses.replace(a.smoke_config() if smoke else a.full_config(),
+                                  d_in=16 if smoke else 100)
+        n, e = (256, 2048) if smoke else HALO_SIZES[arch]
+        t0 = time.perf_counter()
+        gather, halo_b, halo = halo_inputs(arch, cfg, n, e, 8, seed, devs[0])
+        sync(device)
+        made = time.perf_counter() - t0
+        params = init(cfg, seed=seed, device=devs[0])
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            lh = float(loss_halo(params, halo_b, cfg, mesh, ("data", "model")))
+            sync(device)
+            t_halo = time.perf_counter() - t0
+            del halo_b
+            t0 = time.perf_counter()
+            lg = float(loss(params, gather, cfg))
+            sync(device)
+            t_gather = time.perf_counter() - t0
+        check(np.isfinite(lh) and abs(lh - lg) < HALO_TOL[arch],
+              f"{arch}: halo loss {lh} vs gather loss {lg} (bound {HALO_TOL[arch]})")
+        log(f"[halo] {arch} (d {cfg.d_hidden}, {n:,} nodes, {e:,} edges, halo "
+            f"{halo:,} rows a device pair, partitioned in {made:.4f} s) over "
+            f"{len(set(map(str, devs)))} distinct device(s) as 8 shards: halo "
+            f"loss {lh:.8f} ({t_halo:.4f} s) vs gather {lg:.8f} ({t_gather:.4f} "
+            f"s), gap {abs(lh - lg):.3g} (bound {HALO_TOL[arch]})")
+        if arch == "equiformer-v2" and not smoke:
+            log(f"[halo] reduced: {arch} at {e:,} edges (GraphSAGE at "
+                f"{HALO_SIZES['graphsage-reddit'][1]:,}): its gather loss "
+                "holds [E, 49, 128] float32 stacks, 25.7 GB each at 2**20 edges")
+        del params, gather
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_gnn(device, seed: int, *, smoke: bool) -> list[dict]:
+    """Phase 21: GNN training; (a) the smoke configs against the CPU port,
+    (b) the cells at full width, (c) the halo losses."""
+    phase_gnn_smoke(device, seed)
+    cells = phase_gnn_full(device, seed, smoke)
+    phase_halo(device, seed, smoke)
+    return cells
+
+
+def click_ids(cfg, b: int, gen, device):
+    """``b`` rows of per-field ids, skewed (``floor(V u**3)``: hot rows, as
+    Criteo's are)."""
+    import torch
+
+    u = torch.rand((b, cfg.n_sparse), generator=gen, device=device)
+    return (cfg.vocab_per_field * u ** 3).long().clamp_(max=cfg.vocab_per_field - 1).int()
+
+
+def serve_times(fn, device, reps: int) -> tuple[float, float]:
+    """p50 and p99 ms of ``reps`` calls of ``fn`` (CUDA events each; the
+    host clock on the CPU), after one warm-up call."""
+    import torch
+
+    fn()
+    ms = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def phase_xdeepfm(device, seed: int, *, smoke: bool) -> dict:
+    """Phase 22: xDeepFM.  (a) The smoke config's train_batch step (float32,
+    256 rows of skewed ids) on the card against the CPU port
+    (``hold_steps``); serving and candidate scores (``chunk`` below the
+    candidates) within rtol = atol = 1e-4.  (b) The full config (39 fields
+    of 1,000,000 rows, CIN 200-200-200): 3 steps of train_batch on one
+    seeded batch of 65,536 rows (the loss falling), then serve_p99 (512
+    rows), serve_bulk (262,144 rows) and retrieval_cand (1,001,472
+    candidates) through each cell's step: ms, rows/s, peak memory and
+    ``model_flops / (s x 67 TFLOP/s)``."""
+    import torch
+
+    from repro_torch.configs import get_arch, list_cells
+    from repro_torch.configs.registry import _xdfm_flops
+    from repro_torch.configs.shapes import RECSYS_SHAPES, pad_to
+    from repro_torch.distributed import Sharder
+    from repro_torch.models.recsys import init_xdeepfm
+    from repro_torch.models.recsys.xdeepfm import (
+        xdeepfm_forward,
+        xdeepfm_loss,
+        xdeepfm_score_candidates,
+    )
+    from repro_torch.train import TrainState, adamw_init
+    from repro_torch.train.optimizer import param_leaves
+
+    # (a)
+    scfg = get_arch("xdeepfm").smoke_config()
+    cells = list_cells("xdeepfm", smoke=True)
+    g = torch.Generator().manual_seed(seed)
+    batch = {"ids": click_ids(scfg, 256, g, "cpu"),
+             "clicks": (torch.rand(256, generator=g) < 0.25).float()}
+    params = init_xdeepfm(scfg, seed=seed, device="cpu")
+    line = hold_steps("xdeepfm smoke", cells["train_batch"].make_step(Sharder(None)),
+                      lambda p, b: xdeepfm_loss(p, b, scfg), params, batch, device)
+    card = tree_copy(params, device)
+    ids = batch["ids"][:64]
+    want = xdeepfm_forward(params, {"ids": ids}, scfg).detach()
+    got = cells["serve_p99"].make_step(Sharder(None))(card, {"ids": ids.to(device)})
+    err = float((got.cpu() - want).abs().max())
+    check(bool(torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)),
+          f"xdeepfm smoke serve: card and CPU differ by {err}")
+    cand = {"user_ids": ids[0, :3], "cand_ids": click_ids(scfg, 100, g, "cpu")[:, 3:]}
+    with torch.no_grad():
+        want = xdeepfm_score_candidates(params, cand, scfg, chunk=32)
+        got = xdeepfm_score_candidates(card, {k: v.to(device) for k, v in cand.items()},
+                                       scfg, chunk=32)
+    err_c = float((got.cpu() - want).abs().max())
+    check(bool(torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)),
+          f"xdeepfm smoke retrieval: card and CPU differ by {err_c}")
+    log(f"[xdeepfm] smoke (float32, 256 rows) on {device} against the CPU port: "
+        f"{line}; serve max abs err {err:.3g}, candidate scores (100 in slabs of "
+        f"32) {err_c:.3g}")
+    del params, card
+
+    # (b)
+    arch = get_arch("xdeepfm")
+    cfg = arch.smoke_config() if smoke else arch.full_config()
+    cells = list_cells("xdeepfm", smoke=smoke)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = init_xdeepfm(cfg, seed=seed, device=device)
+    state = TrainState(params, adamw_init(params), seed)
+    sync(device)
+    n_params = sum(t.numel() for t in param_leaves(params).values())
+    log(f"[xdeepfm] {cfg.n_sparse} fields x {cfg.vocab_per_field:,} rows, embed "
+        f"{cfg.embed_dim}, CIN {cfg.cin_layers}, MLP {cfg.mlp_dims}: "
+        f"{n_params:,} parameters and their float32 moments on {device} in "
+        f"{time.perf_counter() - t0:.4f} s")
+    g = torch.Generator(device=device).manual_seed(seed)
+    # a CPU rehearsal takes at most 4,096 rows a cell
+    rows = {name: min(b, 4096) if smoke else b
+            for name, (b, _) in RECSYS_SHAPES.items()}
+    b = rows["train_batch"]
+    batch = {"ids": click_ids(cfg, b, g, device),
+             "clicks": (torch.rand(b, generator=g, device=device) < 0.25).float()}
+    rec = train_three("xdeepfm", "train_batch",
+                      cells["train_batch"].make_step(Sharder(None)), state, batch,
+                      device, _xdfm_flops(cfg, b, "train"), b, "rows")
+    out = {"train_batch": rec["step_ms"]}
+    params = rec["state"].params
+    del rec, state, batch
+    # retrieval joins 19 user fields onto each candidate, which the smoke
+    # config's 8 fields cannot: a CPU rehearsal scores with 3
+    n_user = 19 if cfg.n_sparse > 19 else 3
+    for name in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        cell = cells[name]
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        if name == "retrieval_cand":
+            n = pad_to(rows[name])
+            inp = {"user_ids": click_ids(cfg, 1, g, device)[0, :n_user],
+                   "cand_ids": click_ids(cfg, n, g, device)[:, n_user:]}
+            step = (cell.make_step(Sharder(None)) if n_user == 19 else
+                    torch.no_grad()(lambda p, b: xdeepfm_score_candidates(p, b, cfg)))
+        else:
+            n = rows[name]
+            inp = {"ids": click_ids(cfg, n, g, device)}
+            step = cell.make_step(Sharder(None))
+        scores = step(params, inp)
+        check(scores.shape == (n,) and bool(torch.isfinite(scores).all())
+              and not scores.requires_grad,
+              f"xdeepfm/{name}: scores {tuple(scores.shape)} not finite")
+        p50, p99 = serve_times(lambda: step(params, inp), device,
+                               reps=50 if name == "serve_p99" else 3)
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        flops = _xdfm_flops(cfg, n, cell.kind)
+        log(f"[xdeepfm] {name} ({n:,} rows): p50 {p50:.4f} ms, p99 {p99:.4f} ms, "
+            f"{n / p50 * 1e3:.4f} rows/s at p50; model_flops {flops:.6g}, "
+            f"{flops / (p50 / 1e3) / PEAK_FP32_SIMT:.4%} of "
+            f"{PEAK_FP32_SIMT / 1e12:.0f} TFLOP/s fp32; peak memory "
+            f"{peak / 2**30:.4f} GiB")
+        out[name] = p50
+        if name == "serve_bulk" and device.type == "cuda":
+            profile(f"xdeepfm/{name}", lambda: step(params, inp), device, top=6)
+        del inp, scores
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 class PhaseClock:
     """Logs the wall time of each phase since the previous lap."""
 
@@ -3680,7 +4433,7 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
         alpha0: float = 1.02, tenant_unique: int = 50_000,
         serve_batch: int = SERVE_BATCH) -> list[dict]:
-    """Phases 0-20 on ``device``; returns the kernels records."""
+    """Phases 0-22 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -3808,6 +4561,20 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         clock.lap(f"{number} serve {arch_id}")
     trained = phase_train(device, seed, smoke=lm_smoke)
     clock.lap("20 LM training")
+    # phases 21-22 run none of K1-K4: their counts, set to 0 here, stay 0
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    kk.reset_launch_count()
+    k4.reset_launch_count()
+    phase_gnn(device, seed, smoke=lm_smoke)
+    clock.lap("21 GNN training")
+    phase_xdeepfm(device, seed, smoke=lm_smoke)
+    clock.lap("22 xDeepFM")
+    n_tpu = sum(kk.launch_count(k) for k in kk.KERNELS) + k4.launch_count()
+    check(n_tpu == 0, f"phases 21-22 launched K1-K4 {n_tpu} times")
+    log("[gnn] phases 21-22 launched none of K1-K4 (their counts stayed 0): "
+        "segment sums, gathers and GEMMs are torch's own")
     k4_launches = {f"{a} (serve)": v["launches"] for a, v in k4_serve.items()}
     k4_launches[f"{LM_ARCH} (train, 3 steps)"] = trained["launches"]
     src = "src/repro_torch/kernels/butterfly/csrc/"

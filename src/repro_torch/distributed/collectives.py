@@ -1,16 +1,19 @@
-"""The blocked-Gram ring of the distributed butterfly counter.
+"""Collectives of the port over a list of devices in one process.
 
-The port's counterpart of ``repro.distributed.collectives.ring_pair_count``.
-The reference runs it inside ``shard_map``: every device holds one row-block
+``ring_pair_count`` is the blocked-Gram ring of the distributed butterfly
+counter (``repro.distributed.collectives.ring_pair_count``).  The
+reference runs it inside ``shard_map``: every device holds one row-block
 of a biadjacency, the blocks circulate by ``collective_permute`` and a
 ``psum`` adds the devices' partials.  The port runs the same schedule in one
 process over a list of devices: each step moves every block to the next
 device (``.to(device, non_blocking=True)``; a no-op where the next device is
 the same one) and queues each device's partial on that device, so distinct
 cards work concurrently; the final sum on the first device stands for the
-``psum``.  The reference's gradient compression (``compress_grads``,
-``decompress_grads``, ``psum_mean_compressed``) belongs to training, which
-the port does not have yet.
+``psum``.  :func:`all_to_all` is ``lax.all_to_all`` (``split_axis=0``,
+``concat_axis=0``) over such a list, the halo exchange's collective.  The
+reference's gradient compression (``compress_grads``,
+``decompress_grads``, ``psum_mean_compressed``) is not ported yet (ROADMAP
+Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import torch
 
 from ..device import on_device
 
-__all__ = ["ring_pair_count"]
+__all__ = ["all_to_all", "ring_pair_count"]
 
 
 def ring_pair_count(blocks: Sequence[torch.Tensor],
@@ -63,3 +66,18 @@ def ring_pair_count(blocks: Sequence[torch.Tensor],
     for t in totals[1:]:
         total = total + t.to(home)
     return total
+
+
+def all_to_all(sends: Sequence[torch.Tensor],
+               devices: Sequence[torch.device]) -> list[torch.Tensor]:
+    """``sends[o]`` ``[n, ...]`` lies on ``devices[o]``; device ``d``
+    receives ``sends[o][d]`` from each ``o``, moved with
+    ``.to(devices[d])`` (a no-op where both are one device), stacked in
+    device order: ``[n, ...]`` on ``devices[d]``.  Autograd flows through
+    the moves."""
+    n = len(sends)
+    if len(devices) != n or any(s.shape[0] != n for s in sends):
+        raise ValueError(f"{n} sends of leading dim {[s.shape[0] for s in sends]} "
+                         f"over {len(devices)} devices")
+    return [torch.stack([sends[o][d].to(devices[d], non_blocking=True)
+                         for o in range(n)]) for d in range(n)]

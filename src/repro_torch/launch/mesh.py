@@ -63,6 +63,22 @@ class Mesh:
                     for a in self.axis_names)
         return list(self.devices[idx])
 
+    def shard_devices(self, axes) -> list[torch.device]:
+        """The devices a dim split over ``axes`` (one name or a tuple) lands
+        on, shard by shard: the grid with ``axes`` leading, in the order
+        given (the first axis major), at index 0 of every other axis (a
+        replica).  The order in which ``shard_map`` splits a dim over
+        ``PartitionSpec(axes)``."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        for a in axes:
+            if a not in self.axis_names:
+                raise ValueError(f"mesh has no axis {a!r}: {self.axis_names}")
+        rest = [a for a in self.axis_names if a not in axes]
+        order = [self.axis_names.index(a) for a in (*axes, *rest)]
+        grid = self.devices.transpose(order)
+        return list(grid[(Ellipsis,) + (0,) * len(rest)].ravel()) if rest \
+            else list(grid.ravel())
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={self.devices.ravel().tolist()})"
 

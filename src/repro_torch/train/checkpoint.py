@@ -47,6 +47,7 @@ __all__ = [
     "TreeDef",
     "tree_flatten",
     "tree_unflatten",
+    "tree_map",
     "save_checkpoint",
     "restore_checkpoint",
     "restore_latest_valid",
@@ -154,6 +155,13 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
                          f"{treedef.n_leaves}")
     it = iter(leaves)
     return build(treedef)
+
+
+def tree_map(fn, tree) -> Any:
+    """``fn`` applied to each leaf of ``tree`` (:func:`tree_flatten`'s
+    leaves), the structure kept: ``jax.tree.map`` over one tree."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [fn(x) for x in leaves])
 
 
 def _to_host(x) -> np.ndarray:

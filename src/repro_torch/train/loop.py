@@ -13,16 +13,11 @@ from typing import Callable
 
 import torch
 
+from .checkpoint import tree_map
 from .optimizer import adamw_update, param_leaves
 from .train_state import TrainState
 
 __all__ = ["make_train_step"]
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _value_and_grad(loss_fn: Callable, params, batch, leaves: dict
@@ -45,7 +40,7 @@ def make_train_step(
         def rs(x):
             mb = x.shape[0] // n_microbatches
             return x.reshape(n_microbatches, mb, *x.shape[1:])
-        return _tree_map(rs, batch)
+        return tree_map(rs, batch)
 
     def step(state: TrainState, batch):
         params = state.params
@@ -60,7 +55,7 @@ def make_train_step(
                      for p in leaves.values()]
             loss = None
             for i in range(n_microbatches):
-                mb = _tree_map(lambda x: x[i], micro)
+                mb = tree_map(lambda x: x[i], micro)
                 l, g = _value_and_grad(loss_fn, params, mb, leaves)
                 for acc, gi in zip(grads, g):
                     acc.add_(gi.float())

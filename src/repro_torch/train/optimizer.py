@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "global_norm",
-           "param_leaves"]
+           "leaves_as_tree", "param_leaves"]
 
 
 class AdamWState(NamedTuple):
@@ -26,19 +26,36 @@ class AdamWState(NamedTuple):
 
 def param_leaves(params) -> dict[str, torch.Tensor]:
     """The leaves of ``params`` by name: a module's ``named_parameters()``,
-    or a nested dict of tensors with its keys joined by ``.``."""
+    or a tree of dicts and lists of tensors in ``jax.tree``'s leaf order
+    (dict keys sorted, lists in order), with its keys and list indices
+    joined by ``.`` (``w_self.0``, ``proc.edge_mlp.w.1``)."""
     if isinstance(params, nn.Module):
         return dict(params.named_parameters())
     out: dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, x) -> None:
         if isinstance(x, dict):
-            for k, v in x.items():
-                walk(f"{prefix}{k}.", v)
+            for k in sorted(x):
+                walk(f"{prefix}{k}.", x[k])
+        elif isinstance(x, (list, tuple)):
+            for i, v in enumerate(x):
+                walk(f"{prefix}{i}.", v)
         else:
             out[prefix[:-1]] = x
     walk("", params)
     return out
+
+
+def leaves_as_tree(named: dict, like):
+    """The inverse of :func:`param_leaves` on a tree: the values of
+    ``named`` (keyed by leaf name) placed in the structure of ``like``."""
+    def build(prefix: str, x):
+        if isinstance(x, dict):
+            return {k: build(f"{prefix}{k}.", v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)([build(f"{prefix}{i}.", v) for i, v in enumerate(x)])
+        return named[prefix[:-1]]
+    return build("", like)
 
 
 def adamw_init(params) -> AdamWState:

@@ -1,9 +1,10 @@
-"""The port's cell registry against the reference's: every LM arch's and
-``sgrapp``'s cells (names, kinds, skips, donations, ``model_flops`` and the
-abstract inputs leaf by leaf), the ``Sharder``, and the ``sgrapp`` smoke
-steps against the reference's on the same lanes (numpy draws from a seed),
-with and without a mesh.  Window counts are exact integers in float32 at
-these sizes, so they are held equal."""
+"""The port's cell registry against the reference's: every arch's cells --
+the LMs, the GNNs, xDeepFM and ``sgrapp``, the reference's 11 -- (names,
+kinds, skips, donations, ``model_flops`` and the abstract inputs leaf by
+leaf), the ``Sharder``, and the ``sgrapp`` smoke steps against the
+reference's on the same lanes (numpy draws from a seed), with and without a
+mesh.  Window counts are exact integers in float32 at these sizes, so they
+are held equal."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +22,8 @@ from repro_torch.train.checkpoint import tree_flatten  # noqa: E402
 
 LM_ARCHS = ["phi4-mini-3.8b", "granite-8b", "minicpm3-4b", "phi3.5-moe-42b",
             "dbrx-132b"]
-ALL = LM_ARCHS + ["sgrapp"]
+GNN_ARCHS = ["graphsage-reddit", "graphcast", "dimenet", "equiformer-v2"]
+ALL = LM_ARCHS + GNN_ARCHS + ["xdeepfm", "sgrapp"]
 
 
 def dtype_name(d) -> str:
@@ -29,9 +31,12 @@ def dtype_name(d) -> str:
 
 
 def test_the_port_registers_the_lms_and_sgrapp():
-    assert set(ARCHS) == set(ALL)
+    """Every arch of the reference's registry, with its family."""
+    from repro.configs import ARCHS as J_ARCHS
+    assert set(ARCHS) == set(ALL) == set(J_ARCHS)
     assert get_arch("sgrapp").family == "stream"
     assert all(get_arch(a).family == "lm" for a in LM_ARCHS)
+    assert all(get_arch(a).family == J_ARCHS[a].family for a in ALL)
 
 
 @pytest.mark.parametrize("arch", ALL)
@@ -138,6 +143,17 @@ def test_lm_steps_refuse_a_mesh():
         cells["prefill_32k"].make_step(Sharder.for_mesh(mesh))
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         cells["train_4k"].in_shardings(Sharder.for_mesh(mesh))
+
+
+@pytest.mark.parametrize("arch", GNN_ARCHS + ["xdeepfm"])
+def test_gnn_and_recsys_steps_refuse_a_mesh(arch):
+    """Without a mesh each cell's step is built; on one, every step raises
+    naming the item that ports sharding."""
+    mesh = make_mesh((1, 1), ("data", "model"), ["cpu"])
+    for cell in list_cells(arch, smoke=True).values():
+        assert callable(cell.make_step(Sharder(None)))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            cell.make_step(Sharder.for_mesh(mesh))
 
 
 # -- the sgrapp cells ----------------------------------------------------------

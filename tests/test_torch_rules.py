@@ -18,6 +18,7 @@ from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.launch import serve_streams  # noqa: E402
 from repro_torch.launch.mesh import make_mesh, make_window_mesh  # noqa: E402
 from repro_torch.launch.serve import load_model, monitor_butterflies  # noqa: E402
+from repro_torch.models import gnn, recsys  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     init_cache,
     init_lm_params,
@@ -63,7 +64,10 @@ def test_scan_sees_every_module():
             "datasets.py", "analysis.py", "distributed.py", "mesh.py",
             "sharding.py", "collectives.py", "shapes.py", "sgrapp_paper.py",
             "optimizer.py", "train_state.py", "loop.py", "pipeline.py",
-            "train.py"} <= names
+            "train.py", "segment.py", "csr.py", "sampler.py", "halo.py",
+            "graphsage.py", "graphcast.py", "dimenet.py", "equiformer_v2.py",
+            "halo_loss.py", "embedding.py", "xdeepfm.py",
+            "graphsage_reddit.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/kernels/build.py",
             "src/repro_torch/kernels/butterfly/build.py",
@@ -87,7 +91,26 @@ def test_scan_sees_every_module():
             "src/repro_torch/train/train_state.py",
             "src/repro_torch/train/loop.py",
             "src/repro_torch/data/pipeline.py",
-            "src/repro_torch/launch/train.py"} <= rel
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/graphs/__init__.py",
+            "src/repro_torch/graphs/segment.py",
+            "src/repro_torch/graphs/csr.py",
+            "src/repro_torch/graphs/sampler.py",
+            "src/repro_torch/graphs/halo.py",
+            "src/repro_torch/models/gnn/__init__.py",
+            "src/repro_torch/models/gnn/graphsage.py",
+            "src/repro_torch/models/gnn/graphcast.py",
+            "src/repro_torch/models/gnn/dimenet.py",
+            "src/repro_torch/models/gnn/equiformer_v2.py",
+            "src/repro_torch/models/gnn/halo_loss.py",
+            "src/repro_torch/models/recsys/__init__.py",
+            "src/repro_torch/models/recsys/embedding.py",
+            "src/repro_torch/models/recsys/xdeepfm.py",
+            "src/repro_torch/configs/graphsage_reddit.py",
+            "src/repro_torch/configs/graphcast.py",
+            "src/repro_torch/configs/dimenet.py",
+            "src/repro_torch/configs/equiformer_v2.py",
+            "src/repro_torch/configs/xdeepfm.py"} <= rel
     assert imported_roots(ROOT / "tests" / "test_torch_engine.py") >= {
         "repro", "repro_torch"}
 
@@ -142,13 +165,27 @@ def small_batch():
     lambda: shard_batch({"tokens": np.zeros((1, 2), np.int32)}),
     lambda: train_launcher.main(["--arch", "phi4-mini-3.8b", "--smoke",
                                  "--steps", "1"]),
+    lambda: gnn.init_sage(get_arch("graphsage-reddit").smoke_config()),
+    lambda: gnn.init_graphcast(get_arch("graphcast").smoke_config()),
+    lambda: gnn.init_dimenet(get_arch("dimenet").smoke_config()),
+    lambda: gnn.init_eqv2(get_arch("equiformer-v2").smoke_config()),
+    lambda: recsys.init_xdeepfm(get_arch("xdeepfm").smoke_config()),
+    lambda: gnn.params_from_reference({"w": np.zeros(2, np.float32)}),
+    lambda: recsys.params_from_reference({"w": np.zeros(2, np.float32)}),
+    lambda: train_launcher.main(["--arch", "graphsage-reddit", "--smoke",
+                                 "--steps", "1"]),
+    lambda: train_launcher.main(["--arch", "xdeepfm", "--smoke", "--steps",
+                                 "1"]),
 ], ids=["run_sgrapp_pallas", "run_sgrapp_default", "run_sgrapp_x",
         "executor_pallas", "executor_numpy", "engine", "estimator",
         "resolve_cuda", "init_lm_params", "init_cache", "serve_load_model",
         "params_from_reference", "monitor_butterflies",
         "stream_server_default", "stream_server_pallas",
         "serve_streams_main", "sgrapp_win_cell", "sgrapp_estimator_cell",
-        "shard_batch", "train_main"])
+        "shard_batch", "train_main", "init_sage", "init_graphcast",
+        "init_dimenet", "init_eqv2", "init_xdeepfm",
+        "gnn_params_from_reference", "recsys_params_from_reference",
+        "train_main_gnn", "train_main_recsys"])
 def test_without_a_card_entry_points_raise(no_card, entry):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()

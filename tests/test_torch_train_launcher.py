@@ -1,8 +1,8 @@
 """The port's training launcher on the CPU (``--device cpu``): it trains an
-LM smoke config, checkpoints the reference's tree ``(params,
-AdamWState(step, m, v))`` with the layers stacked on ``[L]``, and a
-checkpoint restores across the packages in both directions with equal
-leaves.
+LM, GNN or xDeepFM smoke config, checkpoints the reference's tree
+``(params, AdamWState(step, m, v))`` with the layers stacked on ``[L]``,
+and a checkpoint restores across the packages in both directions with
+equal leaves.
 
 The launcher's ``train_4k`` cell is cut to 32-token sequences here (the
 smoke run shrinks the batch to 64 sequences as the reference's does; 4,096
@@ -11,6 +11,8 @@ tokens a sequence is the card's size).  The reference's
 writes for its own bf16 leaves to bfloat16 ("No cast function
 available"), so its side reads them with ``host=True`` as 2-byte records
 and the bits are compared."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -119,9 +121,99 @@ def test_synth_batch_draws_the_references_numbers():
     want = j_synth(j_abstract, np.random.default_rng(9))
     for k in abstract:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    # a cell's batch, whose keys are not sorted: the draws follow
+    # jax.tree.map's order (keys sorted)
+    from repro.configs import list_cells as j_list_cells
+    from repro_torch.configs import list_cells
+    for arch, shape in (("dimenet", "molecule"), ("phi4-mini-3.8b", "train_4k")):
+        g_abs = list_cells(arch, smoke=True)[shape].abstract_inputs()[1]
+        w_abs = j_list_cells(arch, smoke=True)[shape].abstract_inputs()[1]
+        assert list(g_abs) != sorted(g_abs)
+        small = lambda t: {k: type(v)((3,) + tuple(v.shape[1:]), v.dtype)  # noqa: E731
+                           for k, v in t.items()}
+        got = launcher.synth_batch(small(g_abs), np.random.default_rng(2), "cpu")
+        want = j_synth(small(w_abs), np.random.default_rng(2))
+        for k in g_abs:
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
 @pytest.mark.parametrize("arch", ["graphcast", "xdeepfm"])
-def test_gnn_and_recsys_wait_for_their_slice(arch):
-    with pytest.raises(SystemExit, match="Queue 1 item 4"):
-        launcher.main(["--arch", arch, "--smoke", "--device", "cpu"])
+def test_gnn_and_recsys_wait_for_their_slice(arch, capsys):
+    """They waited for their slice (ROADMAP Queue 1 item 4); now they train:
+    the launcher steps them with a finite loss."""
+    out = launcher.main(["--arch", arch, "--smoke", "--steps", "2",
+                         "--device", "cpu"])
+    assert "[train] done: 2 steps" in capsys.readouterr().out
+    assert int(out["metrics"]["step"]) == 2
+    assert np.isfinite(float(out["metrics"]["loss"]))
+
+
+@functools.lru_cache(maxsize=None)
+def j_tree_state(arch, seed):
+    """The reference's GNN or xDeepFM ``(params, AdamWState)`` after one
+    update, so the moments are not zero (under ``jax.jit``: one compile,
+    kept for both directions' tests)."""
+    from repro.configs import registry as j_registry
+    from repro.models.recsys import init_xdeepfm as j_init_xdeepfm
+
+    arch_ = j_get_arch(arch)
+    cell = next(c for c in arch_.cells(arch_.smoke_config()).values()
+                if c.kind == "train")
+    if arch_.family == "gnn":
+        key = {"graphsage-reddit": "graphsage", "equiformer-v2": "equiformer"}.get(
+            arch, arch)
+        init = j_registry._GNN_INIT[key]
+    else:
+        init = j_init_xdeepfm
+
+    @jax.jit
+    def make(k):
+        params = init(k, cell.config or arch_.smoke_config())
+        grads = jax.tree.map(lambda p: jnp.full(p.shape, 0.01, p.dtype), params)
+        params, opt, _ = j_adamw_update(grads, j_adamw_init(params), params)
+        return params, opt
+    return make(jax.random.PRNGKey(seed))
+
+
+TREE_ARCHS = ["graphsage-reddit", "graphcast", "dimenet", "equiformer-v2",
+              "xdeepfm"]
+
+
+@pytest.mark.parametrize("arch", TREE_ARCHS)
+def test_a_gnn_or_recsys_port_checkpoint_restores_in_the_reference(
+        tmp_path, capsys, arch):
+    d = str(tmp_path / "ck")
+    out = launcher.main(["--arch", arch, "--smoke", "--steps", "3",
+                         "--ckpt", d, "--ckpt_every", "3", "--device", "cpu"])
+    assert "[train] done: 3 steps" in capsys.readouterr().out
+    assert latest_step(d) == 3 and np.isfinite(float(out["metrics"]["loss"]))
+    template = jax.tree.map(np.asarray, j_tree_state(arch, 0))
+    restored, extra = j_restore(d, template)
+    assert extra == {"step": 3}
+    assert jax.tree.structure(restored) == jax.tree.structure(template)
+    got = jax.tree.leaves(restored)
+    want = jax.tree.leaves(launcher.state_to_reference(out["state"]))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), w)
+    assert int(restored[1].step) == 3
+
+
+@pytest.mark.parametrize("arch", TREE_ARCHS)
+def test_a_gnn_or_recsys_reference_checkpoint_restores_in_the_port(
+        tmp_path, capsys, arch):
+    d = str(tmp_path / "ck")
+    params, opt = j_tree_state(arch, 0)
+    j_save(d, 5, (params, opt), extra={"step": 5})
+    out = launcher.main(["--arch", arch, "--smoke", "--steps", "5",
+                         "--ckpt", d, "--device", "cpu"])
+    assert "[train] restored step 5" in capsys.readouterr().out
+    got = jax.tree.leaves(launcher.state_to_reference(out["state"]))
+    want = jax.tree.leaves((params, opt))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    out = launcher.main(["--arch", arch, "--smoke", "--steps", "6",
+                         "--ckpt", d, "--device", "cpu"])
+    assert int(out["metrics"]["step"]) == int(opt.step) + 1
+    assert np.isfinite(float(out["metrics"]["loss"]))
