@@ -22,8 +22,10 @@ SIGKILLed and recovered, WAL and checkpoints), runs the paper's SS3
 analysis, shards the executor's windows and the ring counter's Gram over
 several devices, serves phi4-mini-3.8b, minicpm3-4b (MLA),
 phi3.5-moe-42b and dbrx-132b (MoE) at full width (prefill attention
-through K4), trains phi4-mini-3.8b, the GNNs and xDeepFM at full width and
-checks the halo-exchange losses.  Every check
+through K4), trains phi4-mini-3.8b, the GNNs and xDeepFM at full width,
+checks the halo-exchange losses, and dry-runs the ``sgrapp`` cells on the
+production and tiny meshes and runs them on tiny meshes of the cards
+present.  Every check
 raises on failure, so the exit code is non-zero unless all phases pass.
 
 Phases (each path's launch counts are set to 0 just before it runs and read
@@ -223,12 +225,25 @@ just after):
    serve_bulk and retrieval_cand through their cells: p50/p99 ms, rows/s,
    peak memory, ``model_flops / (s x 67 TFLOP/s)``, a profile of
    serve_bulk.  Phases 21-22 launch none of K1-K4: their counts, set to 0
-   before phase 21, are checked to stay 0.
+   before phase 21, are checked to stay 0;
+23. the sgrapp cells on meshes (K1 in the estimator): (a) the dry-run
+   (``launch.dryrun``, no card) of ``win_8k``, ``win_64k`` and
+   ``estimator`` at full shape on the ``pod`` (16 x 16), ``multipod`` (2 x
+   16 x 16), ``tiny`` (2 x 4) and ``tiny_multipod`` (2 x 2 x 2) meshes of
+   ``meta`` positions: every record ``ok``, the win cells' collectives
+   above 0, flops and argument bytes equal to the shapes' analytic values
+   (``dryrun_expected``), each record's per-position memory beside 80 GB;
+   (b) ``win_8k`` (the ring over "model") and ``estimator`` (K1 on the
+   mesh's first card) on ``make_tiny_mesh()`` and ``make_tiny_mesh(
+   multi_pod=True)`` over the cards present repeated to 8 positions, on
+   phase 19's skewed draw: counts equal to the unsharded cell and the
+   int64 oracle, estimates equal to the unsharded cell and
+   ``sgrapp_x_estimate`` of the same counts, K1's launches counted.
 
 On a machine with several cards phase 15 also shards over the distinct
 cards (up to 4); the script needs one card.
 
-Phases 11-15 and 19 run after phase 8, before K4 and serving; phases
+Phases 11-15, 19 and 23 run after phase 8, before K4 and serving; phases
 16-18 and 20-22 run after phase 10.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
@@ -242,7 +257,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3271,6 +3288,180 @@ def phase_sgrapp_cells(device, seed: int, *, smoke: bool = False) -> tuple[int, 
     return launches, routes
 
 
+# --------------------------------------------------------------------------
+# phase 23: the sgrapp cells on the production and tiny meshes
+# --------------------------------------------------------------------------
+
+CARD_BYTES = 80e9   # an H100's memory, the budget each dry-run position has
+
+
+def repeated_cards(device, n: int) -> list:
+    """``n`` mesh positions over the cards present, repeated in order (the
+    CPU ``n`` times on a CPU rehearsal)."""
+    import torch
+
+    if device.type != "cuda":
+        return [device] * n
+    cards = [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
+    return [cards[k % len(cards)] for k in range(n)]
+
+
+def dryrun_expected(name: str, shape: tuple, mesh) -> dict:
+    """What ``launch.dryrun`` must record for sgrapp cell ``name`` of
+    ``shape`` on ``mesh``, from the shapes alone: the whole mesh's flops
+    (the win cells' half ring: ``n (n + 1) / 2`` block pairs of ``2 rows**2
+    n_j`` a window over a ring of ``n`` = the "model" size; the estimator's
+    K1 operations), and the busiest position's argument bytes (its windows'
+    int32 / int32 / bool lanes; the estimator's replicated ``[W]`` lanes
+    and ``alpha0``)."""
+    W, cap, n_i, n_j = shape
+    rows = math.prod(size for a, size in mesh.shape.items() if a != "model")
+    if name.startswith("win"):
+        n = mesh.shape["model"]
+        br = -(-n_i // n)
+        return {"flops": W * n * (n + 1) // 2 * 2 * br * br * n_j,
+                "arguments": W // rows * cap * 9}
+    g, k = min(n_i, n_j), max(n_i, n_j)
+    return {"flops": 2 * W * g * (g - 1) // 2 * k,
+            "arguments": W // rows * cap * 9 + W * 9 + 4}
+
+
+def phase_meshes(device, seed: int, *, smoke: bool = False) -> tuple[int, dict]:
+    """Phase 23: (a) ``launch.dryrun`` of ``sgrapp``'s three cells at full
+    shape on the ``pod``, ``multipod``, ``tiny`` and ``tiny_multipod``
+    meshes of ``meta`` positions (the tiny meshes only in a rehearsal):
+    every record ``ok``, the win cells' collectives above 0, the flops and
+    argument bytes equal to :func:`dryrun_expected`, each record's
+    per-position total beside 80 GB; (b) ``win_8k`` and ``estimator`` run
+    on ``make_tiny_mesh()`` and ``make_tiny_mesh(multi_pod=True)`` over
+    the cards present repeated to 8 positions, on phase 19's skewed draw:
+    the sharded counts equal to the unsharded cell (phase 19's path, K1)
+    and the int64 oracle as phase 19 holds them; the estimator (K1 on the
+    mesh's first card, launches counted just around its run) equal to the
+    unsharded cell and to ``sgrapp_x_estimate`` of the same counts.
+    Returns K1's launches and routes in (b)'s estimator runs."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch, list_cells
+    from repro_torch.configs.registry import STACK_BYTES, window_counter
+    from repro_torch.core.sgrapp import sgrapp_x_estimate
+    from repro_torch.distributed import Sharder
+    from repro_torch.kernels.butterfly import butterfly_kernel as kk
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_tiny_mesh
+
+    full = get_arch("sgrapp").full_config()["shapes"]
+    kinds = dryrun.MESHES if not smoke else ("tiny", "tiny_multipod")
+    with tempfile.TemporaryDirectory() as out:
+        for kind in kinds:
+            mesh = dryrun.make_meta_mesh(kind)
+            for name in ("win_8k", "win_64k", "estimator"):
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rec = dryrun.run_cell("sgrapp", name, kind, out, force=True)
+                sec = time.perf_counter() - t0
+                check(rec["status"] == "ok",
+                      f"dryrun sgrapp/{name}@{kind}: {rec.get('error')}")
+                want = dryrun_expected(name, full[name], mesh)
+                mem, hlo = rec["memory"], rec["hlo"]
+                check(rec["cost"]["flops"] == want["flops"],
+                      f"dryrun sgrapp/{name}@{kind}: flops "
+                      f"{rec['cost']['flops']}, want {want['flops']}")
+                check(mem["argument_size_bytes"] == want["arguments"],
+                      f"dryrun sgrapp/{name}@{kind}: argument bytes "
+                      f"{mem['argument_size_bytes']}, want {want['arguments']}")
+                if name.startswith("win"):
+                    check(rec["collectives"]["total"] > 0,
+                          f"dryrun sgrapp/{name}@{kind}: no collective")
+                total = (mem["argument_size_bytes"] + mem["output_size_bytes"]
+                         + mem["temp_size_bytes"])
+                log(f"[dryrun] sgrapp/{name}@{kind} ({rec['n_devices']} meta "
+                    f"positions): traced in {rec['trace_s']:.4f} s ({sec:.4f} s "
+                    f"with the record); per position {mem['position']}: "
+                    f"arguments {mem['argument_size_bytes']} B, outputs "
+                    f"{mem['output_size_bytes']} B, temporaries "
+                    f"{mem['temp_size_bytes']} B, total {total} B = "
+                    f"{total / CARD_BYTES:.4%} of 80 GB "
+                    f"({'fits' if total <= CARD_BYTES else 'DOES NOT FIT'}); "
+                    f"flops {rec['cost']['flops']:.6g} on the mesh, "
+                    f"{hlo['flops']:.6g} at the busiest position "
+                    f"{hlo['busiest_position']}; collectives on the mesh "
+                    f"{rec['collectives']}, at that position "
+                    f"{hlo['collectives']}")
+
+    cfg = get_arch("sgrapp").smoke_config() if smoke else \
+        get_arch("sgrapp").full_config()
+    cells = list_cells("sgrapp", smoke=smoke)
+    launches, routes = 0, dict.fromkeys(k1_routes(kk), 0)
+    for multi in (False, True):
+        mesh = make_tiny_mesh(multi_pod=multi,
+                              devices=repeated_cards(device, 8))
+        shard = Sharder.for_mesh(mesh)
+        kind = "tiny_multipod" if multi else "tiny"
+        for name in ("win_8k", "estimator"):
+            W, cap, n_i, n_j = cfg["shapes"][name]
+            cell = cells[name]
+            lanes = skewed_lanes(W, cap, n_i, n_j, seed + 1)
+            extra = ()
+            if name == "estimator":
+                cum = np.cumsum(lanes[2].sum(1)).astype(np.float32)
+                truths = (cum.astype(np.float64) ** 1.5).astype(np.float32)
+                extra = (cum, truths, np.arange(W) < W // 8, 1.02)
+            step = cell.make_step(shard)
+            sync(device)
+            kk.reset_launch_count()
+            t0 = time.perf_counter()
+            out = step(*lanes, *extra)
+            sync(device)
+            sec = time.perf_counter() - t0
+            n_k1, r = kk.launch_count("K1"), k1_routes(kk)
+            plain = cell.make_step(Sharder(None), device=device)(*lanes, *extra)
+            what = f"sgrapp/{name} on {kind} {mesh.shape}"
+            if name == "estimator":
+                per = max(1, STACK_BYTES // (n_i * n_j))
+                want_launches = -(-W // per) if device.type == "cuda" else 0
+                check(n_k1 == want_launches and r["wgmma"] == n_k1,
+                      f"{what}: K1 launches {n_k1} by route {r}, want "
+                      f"{want_launches} on wgmma")
+                launches += n_k1
+                routes = add_routes(routes, r)
+                est, alpha = out
+                counts = window_counter(n_i, n_j, device)(*lanes)
+                cum, truths, tmask, alpha0 = extra
+                want_est, want_alpha = sgrapp_x_estimate(
+                    counts, cum, alpha0, truths, tmask, device=device)
+                check(est.shape == (W,) and bool(torch.isfinite(est).all()),
+                      f"{what}: estimates not finite [{W}]")
+                check(torch.equal(est, want_est) and
+                      float(alpha) == float(want_alpha) and
+                      torch.equal(est, plain[0]),
+                      f"{what}: estimates differ from the unsharded cell or "
+                      "sgrapp_x_estimate of the same counts")
+                held = hold_counts(counts.cpu().numpy(), lanes, 1, what)
+            else:
+                check(n_k1 == 0, f"{what}: the ring launched K1 {n_k1} times")
+                counts = out
+                check(counts.shape == (W,) and counts.dtype == torch.float32
+                      and counts.device == mesh.devices.flat[0],
+                      f"{what}: counts {tuple(counts.shape)} {counts.dtype} "
+                      f"on {counts.device}")
+                held = hold_counts(counts.cpu().numpy(), lanes, 1, what)
+                hold_counts(plain.cpu().numpy(), lanes, 1, f"{what} unsharded")
+                c, p = counts.cpu().numpy(), plain.cpu().numpy()
+                small = p < 2**24
+                check(bool((c[small] == p[small]).all()),
+                      f"{what}: sharded counts differ from the unsharded cell")
+            log(f"[mesh] {what} over {len(set(mesh.devices.flat))} distinct "
+                f"device(s): {sec:.4f} s, {W / sec:.4f} windows/s, K1 launches "
+                f"{n_k1} by route {r}; {held[0]} windows held to the int64 "
+                f"oracle ({held[1]} equal below 2**24, max rel {held[2]:.3g}) "
+                "and equal to the unsharded cell")
+            del lanes, out, plain
+    return launches, routes
+
+
 def lm_batch(cfg, b: int, s: int, seed: int, device) -> dict:
     """``b`` sequences of ``s`` tokens of ``data.token_batches`` (copy
     structure, so a model can learn it) as tensors on ``device``."""
@@ -4433,7 +4624,7 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
         alpha0: float = 1.02, tenant_unique: int = 50_000,
         serve_batch: int = SERVE_BATCH) -> list[dict]:
-    """Phases 0-22 on ``device``; returns the kernels records."""
+    """Phases 0-23 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -4522,14 +4713,16 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     clock.lap("15 (c) ring counter")
     k1_19 = phase_sgrapp_cells(device, seed, smoke=lm_smoke)
     clock.lap("19 sgrapp cells")
+    k1_23 = phase_meshes(device, seed, smoke=lm_smoke)
+    clock.lap("23 sgrapp cells on meshes")
     # K1's and K2's launches on their paths, each with its routes as read
     # after its run: the replay, the entries, the fleets, the server and
     # the sharded executor for K1; the multiset stream, the fleets, the
     # server and the sharded executor for K2
     k1_launches += (n11 + fleets["K1"][0] + serving["K1"][0] + k1_15[0]
-                    + k1_19[0])
+                    + k1_19[0] + k1_23[0])
     k1_routes = add_routes(k1_routes, r11, fleets["K1"][1], serving["K1"][1],
-                           k1_15[1], k1_19[1])
+                           k1_15[1], k1_19[1], k1_23[1])
     k2_launches += fleets["K2"][0] + serving["K2"][0] + k2_15[0]
     k2_routes = add_routes(k2_routes, fleets["K2"][1], serving["K2"][1],
                            k2_15[1])

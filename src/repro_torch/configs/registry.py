@@ -200,6 +200,7 @@ def lm_cells(cfg: LMConfig, *, n_microbatches: int = 8,
 
         if kind == "train":
             def make_step(shard, cfg=cfg, nm=n_microbatches):
+                _no_mesh(shard)
                 loss = lambda p, b: lm_loss(p, b, cfg, shard)
                 return make_train_step(loss, n_microbatches=nm)
 
@@ -529,8 +530,11 @@ def window_counter(n_i: int, n_j: int, device=None) -> Callable:
 def sgrapp_cells(cfg: dict) -> dict:
     """cfg: ``{"name": ..., "shapes": {...}}`` (see ``sgrapp_paper.py``).
     A cell's ``make_step(shard, device=None)`` counts on ``device`` without
-    a mesh (:func:`window_counter`) and over ``shard.mesh`` with one
-    (``core.distributed.make_distributed_window_counter``)."""
+    a mesh (:func:`window_counter`).  With one, the win cells split the
+    windows over the data axes and each Gram over "model"
+    (``core.distributed.make_distributed_window_counter``), and the
+    estimator counts each window whole on the mesh's first device, as the
+    reference's scan does."""
     from ..core.sgrapp import sgrapp_x_estimate
 
     cells = {}
@@ -554,7 +558,9 @@ def sgrapp_cells(cfg: dict) -> dict:
         else:  # estimator: counts + sGrapp-x scan
             def make_step(shard, device=None, n_i=n_i, n_j=n_j):
                 # as the reference's, the scan counts each window whole
-                # whatever the mesh
+                # whatever the mesh, here on the mesh's first device
+                if device is None and shard.mesh is not None:
+                    device = shard.mesh.devices.flat[0]
                 counter = window_counter(n_i, n_j, device)
 
                 def step(ei, ej, v, cum_edges, truths, tmask, alpha0):

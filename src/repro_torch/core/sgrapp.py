@@ -129,7 +129,7 @@ def estimator_init(alpha0, *, device=None) -> tuple:
     dev = resolve_device(device)
     return (
         torch.zeros((), dtype=torch.float32, device=dev),
-        torch.tensor(alpha0, dtype=torch.float32, device=dev),
+        torch.as_tensor(alpha0, dtype=torch.float32, device=dev),
         torch.zeros((), dtype=torch.float32, device=dev),
         torch.zeros((), dtype=torch.bool, device=dev),
     )
@@ -170,12 +170,14 @@ def estimator_run(step_fn, carry: tuple, window_counts, cum_edges, truths,
     ``has_truth`` to bool, all moved to the carry's device at once, and
     ``step_fn`` runs per window in order.  Returns the new carry and the
     ``[n]`` float32 estimates on the device.  Replay runs all windows in one
-    call, the engine one flush per call: the arithmetic is the same."""
+    call, the engine one flush per call: the arithmetic is the same.  A
+    tensor moves to the device as it is, without a trip through the host
+    (so ``meta`` inputs trace)."""
     dev = carry[0].device
-    wc = torch.as_tensor(np.asarray(window_counts, np.float32), device=dev)
-    ce = torch.as_tensor(np.asarray(cum_edges, np.float32), device=dev)
-    tr = torch.as_tensor(np.asarray(truths, np.float32), device=dev)
-    tm = torch.as_tensor(np.asarray(has_truth, bool), device=dev)
+    wc = _on(window_counts, torch.float32, dev)
+    ce = _on(cum_edges, torch.float32, dev)
+    tr = _on(truths, torch.float32, dev)
+    tm = _on(has_truth, torch.bool, dev)
     ks = torch.arange(k0, k0 + wc.shape[0], dtype=torch.int32, device=dev)
     est = []
     for n in range(wc.shape[0]):
@@ -184,6 +186,15 @@ def estimator_run(step_fn, carry: tuple, window_counts, cum_edges, truths,
     out = (torch.stack(est) if est
            else torch.zeros(0, dtype=torch.float32, device=dev))
     return carry, out
+
+
+_NP_DTYPES = {torch.float32: np.float32, torch.bool: bool}
+
+
+def _on(x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(dev, dtype)
+    return torch.as_tensor(np.asarray(x, _NP_DTYPES[dtype]), device=dev)
 
 
 def _host(x) -> np.ndarray:
@@ -222,8 +233,8 @@ def sgrapp_x_estimate(window_counts, cum_edges, alpha0, truths, truth_mask, *,
     estimate using window k-1's error (Algorithm 5's ordering)."""
     step_fn = estimator_step(float(tol), float(step), resolve_device(device))
     (_, alpha_f, _, _), est = estimator_run(
-        step_fn, estimator_init(alpha0, device=device), _host(window_counts),
-        _host(cum_edges), _host(truths), _host(truth_mask))
+        step_fn, estimator_init(alpha0, device=device), window_counts,
+        cum_edges, truths, truth_mask)
     return est, alpha_f
 
 

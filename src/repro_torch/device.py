@@ -11,10 +11,17 @@ __all__ = ["resolve_device", "canonical_device", "same_device", "on_device"]
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller names
     another.  Raises instead of running on the CPU when no card is present
-    and the caller did not ask for ``device="cpu"`` explicitly."""
+    and the caller did not ask for ``device="cpu"`` explicitly.
+
+    ``meta`` is admitted only where the caller names it: a placeholder
+    device (shapes and dtypes, no memory, no work), the port's counterpart
+    of XLA's placeholder host devices, on which the dry-run traces a step
+    (``launch.dryrun``).  It is never a default and never stands in for a
+    missing card."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be a CUDA or CPU device, got {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"device must be a CUDA or CPU device (or meta, "
+                         f"named explicitly), got {dev}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
@@ -48,7 +55,8 @@ def same_device(a, b) -> bool:
 
 def on_device(device: torch.device):
     """The context that makes ``device`` current, so that its current
-    stream takes the kernels queued inside; nothing for the CPU."""
+    stream takes the kernels queued inside; nothing for the CPU or
+    ``meta``."""
     if device.type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()

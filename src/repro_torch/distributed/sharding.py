@@ -14,20 +14,25 @@ Logical axes:
   None     -> a replicated dim
 
 The port shards windows over a mesh (``core.distributed``, the executor's
-``devices=`` / ``mesh=``) but not yet an LM's parameters and activations:
-on a mesh :meth:`Sharder.named`, :meth:`Sharder.act` and
-:meth:`Sharder.params` raise ``NotImplementedError`` (ROADMAP Queue 1
-item 3) rather than return something that is quietly unsharded.
+``devices=`` / ``mesh=``) but not yet an LM's parameters and activations.
+On a mesh :meth:`Sharder.named` gives a :class:`NamedSharding` (which the
+registry's ``Cell.in_shardings`` and the dry-run use to place a cell's
+inputs), while :meth:`Sharder.act` and :meth:`Sharder.params` raise
+``NotImplementedError`` (ROADMAP Queue 1 item 3) rather than return
+something that is quietly unsharded.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+
+import torch
 
 from ..launch.mesh import Mesh
 
 NO_SHARD = None
 
-__all__ = ["Sharder", "NO_SHARD", "batch_partition_axes"]
+__all__ = ["NamedSharding", "Sharder", "NO_SHARD", "batch_partition_axes"]
 
 # axis names that are data-parallel, as the reference resolves them
 _DATA_AXES = ("pod", "data", "replica")
@@ -42,6 +47,65 @@ def batch_partition_axes(mesh: Mesh) -> tuple:
     any axis name is fully data-parallel)."""
     axes = tuple(a for a in mesh.axis_names if a in _DATA_AXES)
     return axes if axes else tuple(mesh.axis_names)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a resolved spec, the counterpart of
+    ``jax.sharding.NamedSharding``: ``spec[d]`` is the mesh axis (or tuple
+    of axes, the first major) that dim ``d`` splits over, or None where it
+    is replicated; dims past the spec are replicated."""
+    mesh: Mesh
+    spec: tuple
+
+    def _dim_axes(self, ndim: int) -> list[tuple]:
+        if len(self.spec) > ndim:
+            raise ValueError(f"spec {self.spec} has more dims than a "
+                             f"{ndim}-d array")
+        out = []
+        for a in tuple(self.spec) + (None,) * (ndim - len(self.spec)):
+            axes = () if a is None else ((a,) if isinstance(a, str)
+                                         else tuple(a))
+            for name in axes:
+                if name not in self.mesh.axis_names:
+                    raise ValueError(f"mesh has no axis {name!r}: "
+                                     f"{self.mesh.axis_names}")
+            out.append(axes)
+        return out
+
+    def shard_shape(self, shape) -> tuple:
+        """The shape each position holds of a global ``shape``; a split dim
+        must divide by its axes' size, as jax requires of an input."""
+        sizes = self.mesh.shape
+        out = []
+        for n, axes in zip(shape, self._dim_axes(len(shape))):
+            k = math.prod(sizes[a] for a in axes)
+            if n % k:
+                raise ValueError(f"dim of size {n} does not divide over "
+                                 f"{axes} ({k} shards)")
+            out.append(n // k)
+        return tuple(out)
+
+    def shard_slices(self, position: int, shape) -> tuple:
+        """Position ``position``'s slice of each dim of a global ``shape``:
+        the shard index of a dim split over ``(a, b)`` is ``i_a * size_b +
+        i_b`` (the first axis major)."""
+        sizes, at = self.mesh.shape, self.mesh.position_index(position)
+        out = []
+        for n, m, axes in zip(shape, self.shard_shape(shape),
+                              self._dim_axes(len(shape))):
+            k = 0
+            for a in axes:
+                k = k * sizes[a] + at[a]
+            out.append(slice(k * m, (k + 1) * m))
+        return tuple(out)
+
+    def place(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """``x``'s shards, one per position in flat order, each on its
+        position's device (a view where the device is ``x``'s own)."""
+        devs = self.mesh.devices.ravel()
+        return [x[self.shard_slices(p, x.shape)].to(devs[p])
+                for p in range(self.mesh.size)]
 
 
 @dataclass
@@ -83,10 +147,10 @@ class Sharder:
         ``PartitionSpec``, as a tuple)."""
         return tuple(self._resolve(a) for a in axes)
 
-    def named(self, *axes):
+    def named(self, *axes) -> NamedSharding | None:
         if self.mesh is None:
             return None
-        raise NotImplementedError(_LM_ON_A_MESH)
+        return NamedSharding(self.mesh, self.spec(*axes))
 
     # -- activation constraint --------------------------------------------------
     def act(self, x, *axes):

@@ -43,7 +43,12 @@ built at first use, see :mod:`.build`) or raises; it never falls back.  On
 a CPU tensor it runs the plain torch version of the same function, which
 the CPU tests and ``chip_smoke.py``'s comparisons use.  Each wrapper counts
 its own launches, in all and per route (:func:`launch_count`); the CPU
-path and empty stacks launch nothing and count nothing.
+path and empty stacks launch nothing and count nothing.  K1's wrapper also
+takes a ``meta`` stack (the dry-run's placeholder device): it returns
+K1's ``[B, T]`` float32 output on ``meta`` without launching, allocating
+or counting, after the checks the card would make, and reports K1's
+operations and bytes to an observer (``distributed.observe``).  The other
+wrappers raise on ``meta``.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from ...core.butterfly import (
     n_limbs,
     split_limbs,
 )
+from ...distributed.observe import note_kernel
 
 __all__ = ["butterfly_pairs_windows_kernel_call",
            "butterfly_pairs_windows_plain",
@@ -68,6 +74,7 @@ __all__ = ["butterfly_pairs_windows_kernel_call",
            "MAX_VERTEX_SQ",
            "butterfly_pairs_kernel_call", "butterfly_pairs_plain",
            "triangle_pairs", "n_tile_pairs", "tma_ready", "tma_copy",
+           "k1_operations",
            "KERNELS", "ROUTES", "K2_ROUTES", "launch_count",
            "reset_launch_count"]
 
@@ -347,6 +354,11 @@ def _launch_output(kernel: str, adjs: torch.Tensor,
     and plane (K2)."""
     if adjs.device.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA or CPU tensors, got {adjs.device}")
+    return _output_within_limits(kernel, adjs, block_i)
+
+
+def _output_within_limits(kernel: str, adjs: torch.Tensor,
+                          block_i: int) -> torch.Tensor:
     if not adjs.is_contiguous():
         raise ValueError("adjs must be contiguous")
     b, n, k = adjs.shape[0], adjs.shape[-2], adjs.shape[-1]
@@ -357,6 +369,24 @@ def _launch_output(kernel: str, adjs: torch.Tensor,
             f"({_MAX_WINDOWS} windows, {elems} elements per window)")
     return torch.empty((b, n_tile_pairs(n, block_i)), dtype=torch.float32,
                        device=adjs.device)
+
+
+def k1_operations(adjs: torch.Tensor) -> float:
+    """K1's operations on a ``[B, n, k]`` stack: the strict upper triangle
+    of each window's Gram, ``2 B (n (n - 1) / 2) k`` (the count
+    ``chip_smoke.py``'s bound takes)."""
+    b, n, k = adjs.shape
+    return 2.0 * b * n * (n - 1) / 2 * k
+
+
+def _traced_k1(adjs: torch.Tensor, block_i: int) -> torch.Tensor:
+    """K1 on a ``meta`` stack: its output's shape and dtype, no launch and
+    no count; K1's operations and bytes (the stack read once at its element
+    size, the partials written once, as its bound reckons them) go to an
+    observer."""
+    out = _output_within_limits("K1", adjs, block_i)
+    note_kernel("K1", k1_operations(adjs), adjs.nbytes + out.nbytes)
+    return out
 
 
 def _launch_k1(kernel: str, adjs: torch.Tensor, block_i: int) -> torch.Tensor:
@@ -442,10 +472,12 @@ def butterfly_pairs_windows_kernel_call(adjs: torch.Tensor, *,
                                         block_i: int = 256) -> torch.Tensor:
     """K1's wrapper: ``[B, n, k]`` uint8 or float32 0/1 stack -> ``[B, T]``
     float32 partials (one launch for the whole stack; see
-    :func:`_launch_k1`)."""
+    :func:`_launch_k1`; on ``meta``, :func:`_traced_k1`)."""
     _check(adjs, block_i)
     if adjs.device.type == "cpu":
         return butterfly_pairs_windows_plain(adjs, block_i=block_i)
+    if adjs.device.type == "meta":
+        return _traced_k1(adjs, block_i)
     return _launch_k1("K1", adjs, block_i)
 
 
@@ -476,6 +508,8 @@ def butterfly_pairs_windows_multiset_kernel_call(
     _check(adjs, block_i, dtypes=_K2_DTYPES)
     if adjs.device.type == "cpu":
         return butterfly_pairs_windows_multiset_plain(adjs, block_i=block_i)
+    if adjs.device.type != "cuda":
+        raise ValueError(f"K2 runs on CUDA or CPU tensors, got {adjs.device}")
     m, top = _integer_stack(adjs)
     lw, ls = stack_limbs(top)
     planes = split_limbs(m, lw, ls)

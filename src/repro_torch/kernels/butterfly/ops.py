@@ -111,7 +111,8 @@ def butterfly_count_pallas_windows(adjs: torch.Tensor, *,
     the tile clamped to its Gram side.  A uint8 stack stays uint8; any other
     dtype is cast to float32 (as the reference kernel casts), which K1
     reads through one uint8 copy.  No padding to the tile: K1 masks the
-    ragged edge.
+    ragged edge.  A ``meta`` stack (the dry-run's) gives ``[B]`` float32 on
+    ``meta``, with nothing launched or allocated.
     """
     a = oriented(adjs)
     partials = butterfly_pairs_windows_kernel_call(

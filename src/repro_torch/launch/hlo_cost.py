@@ -1,0 +1,227 @@
+"""Per-position cost model of a traced step (the port's counterpart of
+``repro.launch.hlo_cost``).
+
+The reference parses XLA's optimized HLO text, where a step is one program
+per device with loop trip counts, and sums each instruction's cost.  A
+torch step has no such text: it is Python that dispatches aten ops one at a
+time, on devices a mesh may share.  So the port observes the step while
+it runs (on ``meta`` positions in the dry-run: shapes and dtypes, no
+memory, no work).  A :class:`CostModel` is a ``TorchDispatchMode`` that
+sees every aten op, and an observer (``distributed.observe``) that the
+sharded code tells which mesh position is at work, which moves cross
+positions and which kernel launches a dispatch cannot see.  Per position
+it sums:
+
+  flops        ``2 M N K`` per matmul, by ``torch.utils.flop_counter``'s
+               formulas (``mm``, ``bmm``, ``addmm``, convolutions, SDPA), as
+               ``analyze_hlo`` counts dots; plus each unseen kernel's
+               operations as its bound reckons them (K1 on ``meta``: the
+               strict upper triangle of each window's Gram)
+  bytes        operands plus results of every op; views and allocations
+               (``empty``) move nothing and count nothing
+  collectives  the bytes each position receives, by kind (XLA's names)
+  live bytes   each storage an op makes (not a view, not in place) is live
+               at the position that made it from its creation until it is
+               released; the peak of each position, past its arguments
+
+Work outside any position is the mesh's first position's (position 0),
+where the port gathers results.  Per device means the busiest position;
+the mesh's totals come beside it.  ``analyze_hlo``'s
+``promoted_f32_bytes`` / ``promoted_f32_loop_bytes`` (copies XLA's CPU
+backend inserts around bf16 dots) and ``n_computations`` (HLO
+computations) have no counterpart in a torch step and are left out.
+"""
+from __future__ import annotations
+
+import contextlib
+import weakref
+from collections import defaultdict
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+from ..distributed.observe import current_position, observing
+
+__all__ = ["CostModel", "traced"]
+
+_aten = torch.ops.aten
+# ops that only allocate: no bytes move
+_ALLOCATIONS = {_aten.empty, _aten.empty_like, _aten.empty_strided,
+                _aten.new_empty, _aten.new_empty_strided}
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
+def _tensors(x, out: list) -> list:
+    """The tensors in ``x`` (a tensor, or lists, tuples and dicts of
+    them), appended to ``out`` in order."""
+    if isinstance(x, torch.Tensor):
+        out.append(x)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            _tensors(v, out)
+    elif isinstance(x, dict):
+        for v in x.values():
+            _tensors(v, out)
+    return out
+
+
+class CostModel(TorchDispatchMode):
+    """Flops, bytes, collectives and live bytes per mesh position of what
+    runs inside ``with traced(n) as model`` (see the module docstring)."""
+
+    def __init__(self, n_positions: int):
+        super().__init__()
+        self.n = int(n_positions)
+        self.flops = [0.0] * self.n
+        self.bytes = [0.0] * self.n
+        self.received = [defaultdict(int) for _ in range(self.n)]
+        self.kernels: dict[str, dict] = {}
+        self.n_ops = 0
+        self._owner: dict[int, tuple[int, int]] = {}
+        self._refs: dict[int, weakref.ref] = {}
+        self._mutable: dict = {}
+        # (position, +-bytes, storage key) in the order they happened
+        self.events: list[tuple[int, int, int]] = []
+
+    # -- where work happens ----------------------------------------------------
+    def _position(self) -> int:
+        p = current_position()
+        p = 0 if p is None else p
+        if not 0 <= p < self.n:
+            raise ValueError(f"position {p} outside a mesh of {self.n}")
+        return p
+
+    # -- observer protocol (distributed.observe) -------------------------------
+    def move(self, kind: str, src: int, dst: int, nbytes: int) -> None:
+        self.received[dst][kind] += nbytes
+
+    def kernel(self, name: str, flops: float, nbytes: int) -> None:
+        p = self._position()
+        self.flops[p] += flops
+        self.bytes[p] += nbytes
+        k = self.kernels.setdefault(name, {"launches": 0, "flops": 0.0})
+        k["launches"] += 1
+        k["flops"] += flops
+
+    # -- live bytes ---------------------------------------------------------------
+    def _made(self, t: torch.Tensor, p: int) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._owner:
+            return
+        n = st.nbytes()
+        self._owner[key] = (p, n)
+        self.events.append((p, n, key))
+        self._refs[key] = weakref.ref(st, lambda _, key=key: self._released(key))
+
+    def _released(self, key: int) -> None:
+        self._refs.pop(key, None)
+        got = self._owner.pop(key, None)
+        if got is not None:
+            self.events.append((got[0], -got[1], key))
+
+    def peaks(self, exclude: set = frozenset()) -> list[int]:
+        """Each position's peak of live bytes, not counting the storages
+        keyed in ``exclude`` (a step's outputs)."""
+        live, peak = [0] * self.n, [0] * self.n
+        for p, d, key in self.events:
+            if key in exclude:
+                continue
+            live[p] += d
+            peak[p] = max(peak[p], live[p])
+        return peak
+
+    # -- the dispatch ---------------------------------------------------------------
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        p = self._position()
+        self.n_ops += 1
+        ins = _tensors(kwargs, _tensors(args, []))
+        outs = _tensors(out, [])
+        in_keys = {_storage_key(t) for t in ins}
+        fresh = [t for t in outs if _storage_key(t) not in in_keys]
+        packet = func.overloadpacket
+        formula = flop_registry.get(packet)
+        if formula is not None:
+            self.flops[p] += float(formula(*args, **kwargs, out_val=out))
+        mutable = self._mutable.get(func)
+        if mutable is None:
+            mutable = self._mutable[func] = func._schema.is_mutable
+        if (fresh or mutable) and packet not in _ALLOCATIONS:
+            self.bytes[p] += sum(t.nbytes for t in ins) + sum(
+                t.nbytes for t in outs)
+        for t in fresh:
+            self._made(t, p)
+        return out
+
+    # -- summaries -------------------------------------------------------------------
+    def collectives(self, p: int | None = None) -> dict:
+        """Bytes received by kind at position ``p`` (the mesh's total
+        without ``p``), with their ``total``."""
+        got: dict[str, int] = defaultdict(int)
+        for q, by_kind in enumerate(self.received):
+            if p is None or q == p:
+                for k, v in by_kind.items():
+                    got[k] += v
+        out = dict(sorted(got.items()))
+        out["total"] = sum(got.values())
+        return out
+
+    def busiest(self) -> int:
+        """The position with the most flops (then bytes, then the lowest)."""
+        return max(range(self.n), key=lambda q: (self.flops[q], self.bytes[q],
+                                                 -q))
+
+    def summary(self) -> dict:
+        """``analyze_hlo``'s keys for the busiest position, and the
+        mesh's totals."""
+        p = self.busiest()
+        return {
+            "flops": self.flops[p],
+            "bytes": self.bytes[p],
+            "collectives": self.collectives(p),
+            "busiest_position": p,
+            "positions": self.n,
+            "n_ops": self.n_ops,
+            "kernels": {k: dict(v) for k, v in sorted(self.kernels.items())},
+            "mesh": {"flops": sum(self.flops), "bytes": sum(self.bytes),
+                     "collectives": self.collectives()},
+        }
+
+    def memory(self, argument_bytes, outputs) -> dict:
+        """Per-position memory of the step: ``argument_bytes[p]`` (its
+        shards of the inputs), the bytes of ``outputs`` (tensors) whose
+        storage position ``p``'s ops made, and its peak of live bytes
+        other than those outputs.  Returns the figures of the position
+        whose total is largest, with that position."""
+        out_bytes = [0] * self.n
+        out_keys = set()
+        for t in _tensors(outputs, []):
+            key = _storage_key(t)
+            owner = self._owner.get(key)
+            if owner is not None and key not in out_keys:
+                out_keys.add(key)
+                out_bytes[owner[0]] += owner[1]
+        temp = self.peaks(out_keys)
+        totals = [argument_bytes[q] + out_bytes[q] + temp[q]
+                  for q in range(self.n)]
+        p = max(range(self.n), key=lambda q: (totals[q], -q))
+        return {"argument_size_bytes": int(argument_bytes[p]),
+                "output_size_bytes": int(out_bytes[p]),
+                "temp_size_bytes": int(temp[p]),
+                "generated_code_size_bytes": None,
+                "position": p}
+
+
+@contextlib.contextmanager
+def traced(n_positions: int):
+    """Observe what runs inside on a mesh of ``n_positions``: every aten op
+    and every note of ``distributed.observe``."""
+    model = CostModel(n_positions)
+    with observing(model), model:
+        yield model

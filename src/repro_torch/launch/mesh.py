@@ -6,12 +6,15 @@ and moves each shard's tensors to its device itself.  One device may appear
 more than once in a grid (``[cpu] * 4``, ``[cuda:0] * 2``), the port's
 counterpart of XLA's forced host device count: the CPU tests and a machine
 with one card run N shards that way, one after another.  Sharded code
-therefore keys a shard by its index in the grid, never by its device.
+therefore keys a shard by its index in the grid (its *position*, a flat
+row-major index), never by its device.  A grid of ``meta`` devices is a
+mesh of placeholders, on which the dry-run (``launch.dryrun``) traces a
+step without memory or work.
 
 ``make_window_mesh`` builds the executor's 1-D window mesh, as the
-reference's.  The reference's production and tiny meshes
-(``make_production_mesh``, ``make_tiny_mesh``) serve its dry-run launcher,
-which the port does not have yet.
+reference's.  ``make_production_mesh`` and ``make_tiny_mesh`` have the
+reference's shapes and axis names; the dry-run builds them of ``meta``
+positions, ``chip_smoke.py`` of the cards present, repeated.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import torch
 
 from ..device import canonical_device
 
-__all__ = ["Mesh", "make_mesh", "make_window_mesh"]
+__all__ = ["Mesh", "make_mesh", "make_production_mesh", "make_tiny_mesh",
+           "make_window_mesh"]
 
 
 class Mesh:
@@ -54,14 +58,24 @@ class Mesh:
     def size(self) -> int:
         return self.devices.size
 
+    def _line(self, grid: np.ndarray, axis: str, at: dict) -> list:
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh has no axis {axis!r}: {self.axis_names}")
+        idx = tuple(slice(None) if a == axis else int(at.get(a, 0))
+                    for a in self.axis_names)
+        return list(grid[idx])
+
+    def _positions(self) -> np.ndarray:
+        return np.arange(self.size).reshape(self.devices.shape)
+
     def axis_devices(self, axis: str, **at) -> list[torch.device]:
         """The devices along ``axis`` with every other axis at index ``at``
         (default 0): one line of the grid."""
-        if axis not in self.axis_names:
-            raise ValueError(f"mesh has no axis {axis!r}: {self.axis_names}")
-        idx = tuple(slice(None) if a == axis else at.get(a, 0)
-                    for a in self.axis_names)
-        return list(self.devices[idx])
+        return self._line(self.devices, axis, at)
+
+    def axis_positions(self, axis: str, **at) -> list[int]:
+        """The positions of :meth:`axis_devices`' line."""
+        return [int(p) for p in self._line(self._positions(), axis, at)]
 
     def shard_devices(self, axes) -> list[torch.device]:
         """The devices a dim split over ``axes`` (one name or a tuple) lands
@@ -78,6 +92,11 @@ class Mesh:
         grid = self.devices.transpose(order)
         return list(grid[(Ellipsis,) + (0,) * len(rest)].ravel()) if rest \
             else list(grid.ravel())
+
+    def position_index(self, position: int) -> dict:
+        """Axis name -> index of flat position ``position``."""
+        idx = np.unravel_index(int(position), self.devices.shape)
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={self.devices.ravel().tolist()})"
@@ -133,3 +152,23 @@ def make_window_mesh(devices=None, *, axis: str = "data") -> Mesh:
         if not devs:
             raise ValueError("empty device sequence")
     return make_mesh((len(devs),), (axis,), devs)
+
+
+def make_production_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """16 x 16 = 256 positions ("data", "model"); ``multi_pod`` prepends a
+    2-way "pod" axis (512), as the reference's.  ``devices`` is a sequence
+    of exactly that many devices (it may repeat one; ``["meta"] * 256`` is
+    the dry-run's placeholder mesh); the default, every card, raises
+    unless their count is exact."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
+
+
+def make_tiny_mesh(*, multi_pod: bool = False, devices=None) -> Mesh:
+    """The reference's reduced mesh of 8 positions: (2, 4) ("data",
+    "model"), or (2, 2, 2) ("pod", "data", "model"); ``devices`` as
+    :func:`make_production_mesh` takes them."""
+    shape = (2, 2, 2) if multi_pod else (2, 4)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)

@@ -110,8 +110,9 @@ def test_sharder_for_mesh_matches_the_reference(shape, axes):
         assert got.spec(logical) == tuple(want.spec(logical))
     if got.model_axis is not None:
         assert got.spec("flat") == tuple(want.spec("flat"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        got.named("batch")
+    named = got.named("batch", None)
+    assert named.mesh is mesh
+    assert named.spec == tuple(want.named("batch", None).spec)
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         got.act(torch.zeros(2), "batch")
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
@@ -142,7 +143,7 @@ def test_lm_steps_refuse_a_mesh():
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         cells["prefill_32k"].make_step(Sharder.for_mesh(mesh))
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        cells["train_4k"].in_shardings(Sharder.for_mesh(mesh))
+        cells["train_4k"].make_step(Sharder.for_mesh(mesh))
 
 
 @pytest.mark.parametrize("arch", GNN_ARCHS + ["xdeepfm"])

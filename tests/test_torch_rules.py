@@ -212,5 +212,7 @@ def test_explicit_cpu_runs(no_card):
     res = run_sgrapp(small_batch(), 1.02, tier="pallas", device="cpu")
     assert np.isfinite(res.estimates).all()
     assert resolve_device("cpu").type == "cpu"
+    # meta, the dry-run's placeholder, only where it is named
+    assert resolve_device("meta").type == "meta"
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        resolve_device("meta")
+        resolve_device("xpu")
