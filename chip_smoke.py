@@ -23,9 +23,10 @@ analysis, shards the executor's windows and the ring counter's Gram over
 several devices, serves phi4-mini-3.8b, minicpm3-4b (MLA),
 phi3.5-moe-42b and dbrx-132b (MoE) at full width (prefill attention
 through K4), trains phi4-mini-3.8b, the GNNs and xDeepFM at full width,
-checks the halo-exchange losses, and dry-runs the ``sgrapp`` cells on the
+checks the halo-exchange losses, dry-runs the ``sgrapp`` cells on the
 production and tiny meshes and runs them on tiny meshes of the cards
-present.  Every check
+present, and takes the data-parallel gradient mean with compression and a
+checkpoint restored onto another mesh layout.  Every check
 raises on failure, so the exit code is non-zero unless all phases pass.
 
 Phases (each path's launch counts are set to 0 just before it runs and read
@@ -238,13 +239,25 @@ just after):
    multi_pod=True)`` over the cards present repeated to 8 positions, on
    phase 19's skewed draw: counts equal to the unsharded cell and the
    int64 oracle, estimates equal to the unsharded cell and
-   ``sgrapp_x_estimate`` of the same counts, K1's launches counted.
+   ``sgrapp_x_estimate`` of the same counts, K1's launches counted;
+24. gradient compression and the elastic restore (no TPU kernel; it runs
+   after phase 22's check): (a) ``psum_mean_compressed`` over the tiny
+   mesh's "data" axis on the cards present repeated to 8 positions, for
+   None, bf16 and int8, on phi4-mini-3.8b's full-width gradient tree (8 of
+   its 32 layers, logged as ``reduced``): each data position holds the
+   float32 gradient of its own sequence of one 2 x 4,096 batch; every
+   position's mean held element by element to the same function in float64
+   on the host (``compress_reference``), each method's time and largest
+   normwise relative error logged; (b) that model's parameters saved from
+   the (2, 4) layout of ``lm_param_specs`` and restored with
+   ``shardings=`` onto the transposed (4, 2) mesh of card positions, every
+   shard and gathered leaf equal to the parameter.
 
 On a machine with several cards phase 15 also shards over the distinct
 cards (up to 4); the script needs one card.
 
 Phases 11-15, 19 and 23 run after phase 8, before K4 and serving; phases
-16-18 and 20-22 run after phase 10.  Each phase's wall
+16-18 and 20-22 and 24 run after phase 10.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -902,7 +915,7 @@ def phase_kernel_k2(seen, device) -> dict:
             check(want64.numel() == 0 or float(want64.abs().max()) < 2**24,
                   f"K2 case {what} passes 2**24: not an exactness case")
             kk.reset_launch_count()
-            got = kk.butterfly_pairs_windows_multiset_kernel_call(a,
+            got = kk.butterfly_pairs_windows_kernel_multiset_call(a,
                                                                   block_i=bi)
             want = kk.butterfly_pairs_windows_multiset_plain(a, block_i=bi)
             sync(device)
@@ -4607,6 +4620,205 @@ def phase_xdeepfm(device, seed: int, *, smoke: bool) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 24: gradient compression and the elastic re-shard restore
+# --------------------------------------------------------------------------
+
+# phase 24 takes phi4-mini-3.8b's gradient tree at full width over this many
+# of its 32 layers: each of the tiny mesh's 4 groups along "data" holds a
+# float32 mean of the whole tree, and at 32 layers 4 x 15.3 GB of means
+# beside the two 15.3 GB gradient trees do not fit one card
+COMPRESS_LAYERS = 8
+# elements of a leaf held against the host at a time
+COMPRESS_CHUNK = 1 << 26
+
+
+def compress_reference(xs: list, method, maxabs: list):
+    """The mean ``psum_mean_compressed`` computes, in float64 on the host,
+    of the members' float32 leaf slices ``xs`` (the reference's function
+    in exact arithmetic): ``(want, quantum)``, ``quantum`` the largest
+    float64 scale of an int8 leaf (from ``maxabs``, each member's largest
+    magnitude over its whole leaf) and 0 otherwise."""
+    import torch
+
+    scales = [max(m, 1e-9) / 127.0 for m in maxabs]
+    want = None
+    for x, s in zip(xs, scales):
+        v = (x.to(torch.bfloat16) if method == "bf16" else x).double()
+        if method == "int8":
+            v.div_(s).trunc_()
+        want = v if want is None else want.add_(v)
+    want.div_(len(xs))
+    if method != "int8":
+        return want, 0.0
+    return want.mul_(max(scales)), max(scales)
+
+
+def phase_compress(device, seed: int, *, smoke: bool) -> dict:
+    """Phase 24.  (a) ``psum_mean_compressed`` over the tiny mesh's "data"
+    axis, on the cards present repeated to its 8 positions, for None, bf16
+    and int8, on phi4-mini-3.8b's gradient tree at full width
+    (``COMPRESS_LAYERS`` layers): data position d holds the float32 gradient
+    of sequence d of one 2 x 4,096 batch (``grads_of``, phase 20's loss), as
+    a data-parallel step computes it.  Every position's mean is held, element
+    by element, to the same function in float64 on the host from the same
+    trees (``compress_reference``): None and bf16 within the float32 sum's
+    rounding, ``2**-23 * (|x_0| + |x_1|)`` of the summed values (as
+    tests/test_torch_collectives.py holds them); int8 within one
+    quantisation step, the largest scale (a float32 scale may put a value on
+    the other side of a truncation boundary than the float64 one; each of
+    the two members may), plus ``2**-21`` of the mean (the float32 scale's
+    roundings).  Logs each method's time and its largest
+    normwise relative error (``max |got - want| / max |want|`` of a leaf).
+    (b) The model's parameters saved from the (2, 4) layout of their
+    ``lm_param_specs`` and restored with ``shardings=`` onto the same specs
+    on the transposed (4, 2) mesh: every shard, and every leaf gathered,
+    equal to the parameter.  Returns the methods' ms and errors."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import Sharder
+    from repro_torch.distributed.collectives import (
+        axis_groups,
+        psum_mean_compressed,
+    )
+    from repro_torch.launch.mesh import make_mesh, make_tiny_mesh
+    from repro_torch.models.transformer import init_lm_params, lm_param_specs
+    from repro_torch.train import checkpoint as ck
+
+    arch = get_arch(LM_ARCH)
+    cfg = arch.smoke_config() if smoke else dataclasses.replace(
+        arch.full_config(), n_layers=COMPRESS_LAYERS)
+    seq = 96 if smoke else 4096
+    if not smoke:
+        log(f"[compress] reduced: {LM_ARCH} cut to {COMPRESS_LAYERS} of its "
+            "32 layers (4 float32 means of the whole tree beside two "
+            "gradient trees do not fit one card at 32)")
+    model = init_lm_params(cfg, seed=seed, device=device)
+    batch = lm_batch(cfg, 2, seq, seed + 2, device)
+    t0 = time.perf_counter()
+    grads = [grads_of(model, {k: v[d:d + 1] for k, v in batch.items()},
+                      cfg)[1] for d in range(2)]
+    for prm in model.parameters():
+        prm.requires_grad_(False)
+    sync(device)
+    n_elem = sum(g.numel() for g in grads[0].values())
+    log(f"[compress] two data positions' float32 gradients of {LM_ARCH} "
+        f"({cfg.n_layers} layers, d {cfg.d_model}; {len(grads[0])} leaves, "
+        f"{n_elem:,} elements each) in {time.perf_counter() - t0:.4f} s")
+    mesh = make_tiny_mesh(devices=repeated_cards(device, 8))
+    devs = mesh.devices.ravel()
+    trees = [{n: g.to(devs[p]) for n, g in
+              grads[mesh.position_index(p)["data"]].items()}
+             for p in range(mesh.size)]
+    groups = axis_groups(mesh, "data")
+    host = [{n: g.cpu() for n, g in t.items()} for t in grads]
+    maxabs = {n: [float(t[n].abs().amax()) for t in grads] for n in grads[0]}
+    out = {}
+    for method in (None, "bf16", "int8"):
+        sync(device)
+        t0 = time.perf_counter()
+        means = psum_mean_compressed(trees, mesh, "data", method)
+        sync_all(devs)
+        ms = (time.perf_counter() - t0) * 1e3
+        worst = 0.0
+        for name in grads[0]:
+            # every distinct tensor the positions hold (members on one card
+            # share one)
+            held = {}
+            for p in range(mesh.size):
+                t = means[p][name]
+                check(t.dtype == torch.float32 and t.device == devs[p]
+                      and t.shape == grads[0][name].shape,
+                      f"{method} {name} at {p}: {t.dtype} {t.device}")
+                held[(t.device, t.data_ptr())] = t.view(-1)
+            err = top = 0.0
+            for a in range(0, grads[0][name].numel(), COMPRESS_CHUNK):
+                b = a + COMPRESS_CHUNK
+                xs = [h[name].view(-1)[a:b] for h in host]
+                want, quantum = compress_reference(xs, method, maxabs[name])
+                on_card = {}     # (want, bound) on each card that holds one
+                for t in held.values():
+                    if t.device not in on_card:
+                        w = want.to(t.device)
+                        if method == "int8":
+                            bound = quantum * (1 + 2.0 ** -20) \
+                                + 2.0 ** -21 * w.abs()
+                        else:
+                            # the members' leaves, as the card holds them
+                            cast = [g[name].view(-1)[a:b].to(t.device)
+                                    for g in grads]
+                            if method == "bf16":
+                                cast = [x.to(torch.bfloat16) for x in cast]
+                            bound = 2.0 ** -23 * sum(x.double().abs()
+                                                     for x in cast)
+                        on_card[t.device] = (w, bound)
+                    w, bound = on_card[t.device]
+                    got = t[a:b].double()
+                    gap = (got - w).abs()
+                    bad = int((gap > bound).sum())
+                    check(bad == 0 and bool(torch.isfinite(got).all()),
+                          f"{method} {name}: {bad} elements beyond the "
+                          f"float64 host mean's bound")
+                    err = max(err, float(gap.max()))
+                    top = max(top, float(w.abs().max()))
+            worst = max(worst, err / top if top else err)
+        del means
+        log(f"[compress] psum_mean_compressed method {method}: {ms:.4f} ms "
+            f"over {len(groups)} groups of {groups.shape[1]} on "
+            f"{len(set(devs))} card(s) ({len(grads[0])} leaves, "
+            f"{n_elem:,} elements a tree); max normwise relative error "
+            f"against the float64 host mean {worst:.6e}")
+        out[str(method)] = {"ms": ms, "max_rel_err": worst}
+    del trees, grads, host
+
+    # (b) the elastic re-shard restore
+    params = {n: prm.detach() for n, prm in model.named_parameters()}
+    specs = lm_param_specs(cfg)
+
+    def spec_of(name: str) -> tuple:
+        parts = name.split(".")
+        return specs["layers"][parts[2]][1:] if parts[0] == "layers" \
+            else specs[name]
+
+    mesh_a = make_mesh((2, 4), ("data", "model"), repeated_cards(device, 8))
+    mesh_b = make_mesh((4, 2), ("data", "model"), repeated_cards(device, 8))
+    shard_a, shard_b = Sharder.for_mesh(mesh_a), Sharder.for_mesh(mesh_b)
+    saved = {n: shard_a.named(*spec_of(n)).put(prm)
+             for n, prm in params.items()}
+    layout = {n: shard_b.named(*spec_of(n)) for n in params}
+    n_bytes = sum(prm.nbytes for prm in params.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ck.save_checkpoint(tmp, 1, saved)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _ = ck.restore_checkpoint(tmp, params, shardings=layout)
+        sync_all(devs)
+        t_restore = time.perf_counter() - t0
+    for n, prm in params.items():
+        got = restored[n]
+        check(got.sharding == layout[n] and got.shape == tuple(prm.shape)
+              and got.dtype == prm.dtype, f"restored {n}: {got.sharding}")
+        for q, shard in enumerate(got.shards):
+            check(shard.device == mesh_b.devices.flat[q] and torch.equal(
+                shard, prm[layout[n].shard_slices(q, prm.shape)]),
+                f"restored {n}: position {q}'s shard differs")
+        check(torch.equal(got.gather(prm.device), prm),
+              f"restored {n} differs once gathered")
+    log(f"[compress] {len(params)} parameters ({n_bytes / 2**30:.4f} GiB, "
+        f"{cfg.dtype}) saved from the (2, 4) layout of lm_param_specs in "
+        f"{t_save:.4f} s and restored with shardings= onto the (4, 2) mesh "
+        f"in {t_restore:.4f} s: every shard and gathered leaf equal")
+    del restored, saved, params, model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 class PhaseClock:
     """Logs the wall time of each phase since the previous lap."""
 
@@ -4624,7 +4836,7 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
         alpha0: float = 1.02, tenant_unique: int = 50_000,
         serve_batch: int = SERVE_BATCH) -> list[dict]:
-    """Phases 0-23 on ``device``; returns the kernels records."""
+    """Phases 0-24 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -4768,6 +4980,8 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     check(n_tpu == 0, f"phases 21-22 launched K1-K4 {n_tpu} times")
     log("[gnn] phases 21-22 launched none of K1-K4 (their counts stayed 0): "
         "segment sums, gathers and GEMMs are torch's own")
+    phase_compress(device, seed, smoke=lm_smoke)
+    clock.lap("24 gradient compression and elastic restore")
     k4_launches = {f"{a} (serve)": v["launches"] for a, v in k4_serve.items()}
     k4_launches[f"{LM_ARCH} (train, 3 steps)"] = trained["launches"]
     src = "src/repro_torch/kernels/butterfly/csrc/"

@@ -557,8 +557,15 @@ def sgrapp_cells(cfg: dict) -> dict:
                 return (("batch", None), ("batch", None), ("batch", None))
         else:  # estimator: counts + sGrapp-x scan
             def make_step(shard, device=None, n_i=n_i, n_j=n_j):
-                # as the reference's, the scan counts each window whole
-                # whatever the mesh, here on the mesh's first device
+                # the scan counts each window whole whatever the mesh, here
+                # on the mesh's first device.  The reference's jit does not
+                # split it either: XLA all-gathers the windows' lanes to
+                # every device (its dry-run records the gathered W x cap x 9
+                # bytes as an all-gather) and each device runs the whole
+                # scan (per-device flops 2 W n_i^2 n_j).  The port counts
+                # once, gathers nothing and records no collective; status,
+                # kind, model flops, device count and argument bytes agree
+                # (tests/test_torch_dryrun.py)
                 if device is None and shard.mesh is not None:
                     device = shard.mesh.devices.flat[0]
                 counter = window_counter(n_i, n_j, device)

@@ -77,9 +77,21 @@ their index.  Counts equal the unsharded ones bit for bit on every tier,
 ``sampled`` included (its coins are keyed by window).  The mesh's first
 device is the executor's home ``device``, where ``count_edges`` counts and
 the estimators run.
+
+**Counters.**  A bucket's counter (the chunk loop of one bucket
+configuration: routed tier, id capacities, wedge capacity, chunk, tile
+edge, sampling knobs) is memoized for the process, as the reference
+memoizes its compiled per-bucket programs, so every executor and every
+flush shares one per configuration; a sharded executor's counter is keyed
+on its shard devices too.  The port compiles nothing per configuration
+(each kernel builds once per source), so the memo saves no compile; it
+keeps the reference's contract that steady-state streaming adds no new
+configuration, which :func:`compiled_bucket_cache_info` reports under the
+reference's keys.
 """
 from __future__ import annotations
 
+import functools
 import math
 import weakref
 from dataclasses import dataclass, field
@@ -109,7 +121,8 @@ from .windows import WindowBatch, pack_windows
 
 __all__ = ["TIERS", "MODES", "WindowExecutor", "ExecutorResult", "Bucket",
            "PendingCounts", "run", "route_tier", "route_decrement",
-           "bucket_capacity", "id_capacity", "expected_mape"]
+           "bucket_capacity", "id_capacity", "expected_mape",
+           "compiled_bucket_cache_info"]
 
 TIERS = ("numpy", "dense", "tiled", "pallas", "sparse", "auto", "sampled")
 MODES = ("tumbling", "sliding")
@@ -332,6 +345,107 @@ def _mult_range(batch: WindowBatch, b: Bucket) -> tuple[int, int]:
     return int(m.max()), int(top)
 
 
+def _chunk_counts(tier: str, cap_i: int, cap_j: int, cap_w: int,
+                  block_i: int, sampled: tuple | None, ei: torch.Tensor,
+                  ej: torch.Tensor, mm: torch.Tensor | None, v: torch.Tensor,
+                  mult_range: tuple[int, int]) -> torch.Tensor:
+    """``[c, cap_e]`` lanes of one chunk -> ``[c]`` float32 counts through
+    the routed ``tier``; ``mm`` is the multiplicity lane of a multiset batch
+    or the ``[c, 2]`` uid halves of a sampled bucket, else None,
+    ``mult_range`` the bucket's :func:`_mult_range` (read by K2) and
+    ``sampled`` the ``(capacity, gamma, seed)`` of a sampled bucket."""
+    if tier == "sampled":
+        capacity, gamma, seed = sampled
+        return count_butterflies_sampled_from_edges(
+            ei, ej, v, mm[:, 0], mm[:, 1], cap_i, cap_j,
+            capacity=capacity, gamma=gamma, seed=seed)
+    if tier == "sparse":
+        cap_w = max(cap_w, 1)
+        if mm is not None:
+            return count_butterflies_sparse_multiset(ei, ej, mm, v, cap_i,
+                                                     cap_j, cap_w)
+        return count_butterflies_sparse(ei, ej, v, cap_i, cap_j, cap_w)
+    if tier == "pallas":
+        from ..kernels.butterfly import ops
+
+        if mm is not None:
+            max_mult, max_vertex_sq = mult_range
+            return ops.butterfly_count_pallas_windows_multiset_lanes(
+                ei, ej, mm, v, cap_i, cap_j, max_mult=max_mult,
+                max_vertex_sq=max_vertex_sq, block_i=block_i)
+        return ops.butterfly_count_pallas_windows(
+            ops.oriented_biadjacency(ei, ej, v, cap_i, cap_j),
+            block_i=block_i)
+    adj = (build_biadjacency_multiset(ei, ej, mm, v, cap_i, cap_j)
+           if mm is not None else build_biadjacency(ei, ej, v, cap_i, cap_j))
+    if tier == "tiled":
+        tile = min(_TILE, cap_i, cap_j)
+        return (count_butterflies_tiled_multiset(adj, tile=tile)
+                if mm is not None else
+                count_butterflies_tiled(adj, tile=tile))
+    return (count_butterflies_dense_multiset(adj) if mm is not None
+            else count_butterflies_dense(adj))
+
+
+def _count_chunks(key: tuple, lanes, mult_range) -> torch.Tensor:
+    """A bucket's device lanes ``(edge_i, edge_j, [edge_mult | uid,]
+    valid)`` ``[n, cap_e]`` -> ``[n]`` float32 counts, counted ``chunk``
+    windows at a time in stream order (``key``: :meth:`WindowExecutor.
+    _bucket_key`).  A short last chunk simply runs short: nothing is
+    padded, so nothing is sliced off."""
+    tier, cap_i, cap_j, cap_w, chunk, block_i, sampled = key
+    ei, ej, v = lanes[0], lanes[1], lanes[-1]
+    mm = lanes[2] if len(lanes) == 4 else None
+    c = _chunk_size(chunk, ei.shape[0])
+    return torch.cat([_chunk_counts(
+        tier, cap_i, cap_j, cap_w, block_i, sampled, ei[s:s + c],
+        ej[s:s + c], None if mm is None else mm[s:s + c], v[s:s + c],
+        mult_range) for s in range(0, ei.shape[0], c)])
+
+
+def _chunk_size(chunk: int, n: int) -> int:
+    return max(1, min(chunk, n))
+
+
+@functools.lru_cache(maxsize=None)
+def _bucket_counter(*key):
+    """The counter of one bucket configuration on one device, memoized on
+    ``key`` (:meth:`WindowExecutor._bucket_key`): ``run(*lanes,
+    mult_range)`` -> ``[n]`` float32 counts."""
+    def run(*lanes, mult_range=(0, 0)):
+        return _count_chunks(key, lanes, mult_range)
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def _sharded_bucket_counter(*key_and_devices):
+    """The sharded twin of :func:`_bucket_counter`, memoized on the key and
+    the shard devices (the last item): ``run(shards, mult_range)`` counts
+    each shard's lanes on its device, every shard queued before anything
+    is read back, and returns the shards' counts."""
+    key, devices = key_and_devices[:-1], key_and_devices[-1]
+
+    def run(shards, mult_range=(0, 0)):
+        outs = []
+        for dev, lanes in zip(devices, shards):
+            with on_device(dev):
+                outs.append(_count_chunks(key, lanes, mult_range))
+        return outs
+    return run
+
+
+def compiled_bucket_cache_info() -> dict:
+    """Sizes of the process-wide bucket-counter memos, under the
+    reference's keys: ``single_device`` (unsharded executors) and
+    ``sharded``.  A recurring bucket shape reuses its counter, so the
+    sizes stay flat across the flushes of a stream whose shapes recur
+    (``tests/test_torch_engine.py``)."""
+    return {
+        "single_device": _bucket_counter.cache_info().currsize,
+        "sharded": _sharded_bucket_counter.cache_info().currsize,
+    }
+
+
 class WindowExecutor:
     """Counts closed windows through one tier (see module doc).
 
@@ -428,10 +542,8 @@ class WindowExecutor:
         # chunks dispatched to a device tier so far (one K1 or K2 launch
         # each on the pallas tier)
         self.chunks_dispatched = 0
-        # count_edges: its sampled windows' uid sequence, and the counter
-        # of its last capacity key
+        # count_edges: its sampled windows' uid sequence
         self._online_seq = 0
-        self._online_cache: tuple[tuple, object] | None = None
         self._plan_cache: tuple[weakref.ref, list[Bucket]] | None = None
         # pinned staging per (bucket shape, n windows): [slot_a, slot_b,
         # cursor], each slot [host lanes, events of its last copies]
@@ -524,69 +636,38 @@ class WindowExecutor:
 
     # -- counting -----------------------------------------------------------
 
-    def _chunk_counts(self, b: Bucket, ei: torch.Tensor, ej: torch.Tensor,
-                      mm: torch.Tensor | None, v: torch.Tensor,
-                      mult_range: tuple[int, int]) -> torch.Tensor:
-        """``[c, cap_e]`` lanes of one chunk -> ``[c]`` float32 counts;
-        ``mm`` is the multiplicity lane of a multiset batch or the ``[c, 2]``
-        uid halves of a sampled bucket, else None, and ``mult_range`` the
-        bucket's :func:`_mult_range` (read by K2)."""
+    def _bucket_key(self, b: Bucket) -> tuple:
+        """What a bucket's counter depends on: its routed tier, its id
+        capacities, its wedge capacity (``sparse``), the chunk, the tile
+        edge (``pallas``) and the sampling knobs (``sampled``)."""
         tier = self.bucket_tier(b)
-        ci, cj = b.cap_i, b.cap_j
-        if tier == "sampled":
-            return count_butterflies_sampled_from_edges(
-                ei, ej, v, mm[:, 0], mm[:, 1], ci, cj,
-                capacity=self.capacity, gamma=self.gamma, seed=self.seed)
-        if tier == "sparse":
-            cap_w = max(b.cap_w, 1)
-            if mm is not None:
-                return count_butterflies_sparse_multiset(ei, ej, mm, v, ci, cj,
-                                                         cap_w)
-            return count_butterflies_sparse(ei, ej, v, ci, cj, cap_w)
-        if tier == "pallas":
-            from ..kernels.butterfly import ops
+        return (tier, b.cap_i, b.cap_j, b.cap_w if tier == "sparse" else 0,
+                self.chunk, self.block_i if tier == "pallas" else 0,
+                (self.capacity, self.gamma, self.seed) if tier == "sampled"
+                else None)
 
-            if mm is not None:
-                max_mult, max_vertex_sq = mult_range
-                return ops.butterfly_count_pallas_windows_multiset_lanes(
-                    ei, ej, mm, v, ci, cj, max_mult=max_mult,
-                    max_vertex_sq=max_vertex_sq, block_i=self.block_i)
-            return ops.butterfly_count_pallas_windows(
-                ops.oriented_biadjacency(ei, ej, v, ci, cj),
-                block_i=self.block_i)
-        adj = (build_biadjacency_multiset(ei, ej, mm, v, ci, cj)
-               if mm is not None else build_biadjacency(ei, ej, v, ci, cj))
-        if tier == "tiled":
-            tile = min(_TILE, ci, cj)
-            return (count_butterflies_tiled_multiset(adj, tile=tile)
-                    if mm is not None else
-                    count_butterflies_tiled(adj, tile=tile))
-        return (count_butterflies_dense_multiset(adj) if mm is not None
-                else count_butterflies_dense(adj))
-
-    def _counter(self, b: Bucket, mult_range: tuple[int, int] = (0, 0)):
-        """The counter for one bucket: device lanes ``(edge_i, edge_j,
-        [edge_mult,] valid)`` ``[n, cap_e]`` -> ``[n]`` float32 counts,
-        counted ``chunk`` windows at a time in stream order.  A short last
-        chunk simply runs short: nothing is padded, so nothing is sliced
-        off.  ``mult_range`` bounds a multiset bucket's multiplicities
-        (:func:`_mult_range`).  A sampled bucket takes ``(edge_i, edge_j,
-        uid, valid)`` with ``uid`` its ``[n, 2]`` uid halves."""
-        def run(*lanes):
-            ei, ej = lanes[0], lanes[1]
-            mm = lanes[2] if len(lanes) == 4 else None
-            v = lanes[-1]
-            n = ei.shape[0]
-            c = max(1, min(self.chunk, n))
-            outs = []
-            for s in range(0, n, c):
-                outs.append(self._chunk_counts(
-                    b, ei[s:s + c], ej[s:s + c],
-                    None if mm is None else mm[s:s + c], v[s:s + c],
-                    mult_range))
-                self.chunks_dispatched += 1
-            return torch.cat(outs)
-        return run
+    def _count_shards(self, b: Bucket, shards: list[tuple],
+                      mult_range: tuple[int, int] = (0, 0),
+                      devices: tuple | None = None) -> list[torch.Tensor]:
+        """Count bucket ``b``'s lanes, one lane tuple per shard on
+        ``devices`` (default the executor's shard devices; a tuple of one
+        counts unsharded), through the memoized counter; returns each
+        shard's ``[n]`` float32 counts.  ``mult_range`` bounds a multiset
+        bucket's multiplicities (:func:`_mult_range`); a sampled bucket's
+        lanes carry its ``[n, 2]`` uid halves in place of the
+        multiplicities."""
+        devices = self.shard_devices if devices is None else devices
+        key = self._bucket_key(b)
+        if len(devices) > 1:
+            outs = _sharded_bucket_counter(*key, devices)(shards, mult_range)
+        else:
+            with on_device(devices[0]):
+                outs = [_bucket_counter(*key)(*shards[0],
+                                              mult_range=mult_range)]
+        for lanes in shards:
+            n = lanes[0].shape[0]
+            self.chunks_dispatched += -(-n // _chunk_size(self.chunk, n))
+        return outs
 
     def _staged_lanes(self, batch: WindowBatch, b: Bucket, multiset: bool,
                       uids: np.ndarray | None) -> list[tuple]:
@@ -695,17 +776,16 @@ class WindowExecutor:
         counts: list[list[torch.Tensor]] = [[] for _ in self.shard_devices]
         index: list[list[np.ndarray]] = [[] for _ in self.shard_devices]
         for b in buckets:
-            counter = self._counter(
-                b, _mult_range(batch, b) if multiset else (0, 0))
             shards = self._staged_lanes(batch, b, multiset, uids)
             per = shards[0][0].shape[0]
             win = np.concatenate([b.windows, np.full(
                 per * self.n_shards - len(b.windows), -1, np.int64)])
             # every shard holding a window is dispatched before anything is
             # read back
-            for k, (dev, lanes) in enumerate(zip(self.shard_devices, shards)):
-                with on_device(dev):
-                    counts[k].append(counter(*lanes))
+            outs = self._count_shards(
+                b, shards, _mult_range(batch, b) if multiset else (0, 0))
+            for k, out in enumerate(outs):
+                counts[k].append(out)
                 index[k].append(win[k * per:(k + 1) * per])
         hosts, events = [], []
         for dev, parts in zip(self.shard_devices, counts):
@@ -759,11 +839,11 @@ class WindowExecutor:
                 lanes.append(np.zeros((1, 2), np.int64))
             lanes.append(np.zeros((1, cap_e), bool))
             lanes = _pad_window_axis(*lanes, multiple=self.n_shards)
-            counter = self._counter(b)
-            for k, dev in enumerate(self.shard_devices):
-                with on_device(dev):
-                    counter(*(torch.from_numpy(a[k:k + 1]).to(dev)
-                              for a in lanes)).cpu()
+            shards = [tuple(torch.from_numpy(a[k:k + 1]).to(dev)
+                            for a in lanes)
+                      for k, dev in enumerate(self.shard_devices)]
+            for out in self._count_shards(b, shards):
+                out.cpu()
             done += 1
         return done
 
@@ -834,10 +914,10 @@ class WindowExecutor:
         of any int64 range.  Relabels to a compact id space (before the tier
         branch, so every tier takes the same ids), picks the window's
         bucket and dispatches it as a batch of one (on ``pallas``: K1 on a
-        ``[1, cap_i, cap_j]`` uint8 stack).  The counter is memoized on the
-        capacity key ``(cap_e, cap_i, cap_j, cap_w)``, so a run of same-rung
-        windows skips the routing.  On ``sampled`` each call draws its own
-        coins: a per-executor sequence number is the window's uid."""
+        ``[1, cap_i, cap_j]`` uint8 stack) through the memoized counter of
+        its configuration, so a run of same-rung windows reuses one.  On
+        ``sampled`` each call draws its own coins: a per-executor sequence
+        number is the window's uid."""
         ei = np.asarray(edge_i, dtype=np.int64)
         ej = np.asarray(edge_j, dtype=np.int64)
         if ei.size == 0:
@@ -856,14 +936,8 @@ class WindowExecutor:
                 np.unique(inv_i * (len(uj) + 1) + inv_j) % (len(uj) + 1))
             cap_w = bucket_capacity(int((d * (d - 1) // 2).sum()),
                                     align=self.align, growth=self.growth)
-        key = (cap_e, cap_i, cap_j, cap_w)
-        if self._online_cache is not None and self._online_cache[0] == key:
-            b, counter = self._online_cache[1]
-        else:
-            b = Bucket(cap_e, cap_i, cap_j, np.arange(1, dtype=np.int64),
-                       cap_w=cap_w)
-            counter = self._counter(b)
-            self._online_cache = (key, (b, counter))
+        b = Bucket(cap_e, cap_i, cap_j, np.arange(1, dtype=np.int64),
+                   cap_w=cap_w)
         dev = self.device
         pi = torch.zeros((1, cap_e), dtype=torch.int32)
         pj = torch.zeros((1, cap_e), dtype=torch.int32)
@@ -880,7 +954,8 @@ class WindowExecutor:
                     [[(uid >> 32) & 0xFFFFFFFF, uid & 0xFFFFFFFF]],
                     dtype=torch.int64, device=dev))
         lanes.append(pv.to(dev))
-        return float(counter(*lanes)[0])
+        out, = self._count_shards(b, [tuple(lanes)], devices=(dev,))
+        return float(out[0])
 
     # -- the single entry point ---------------------------------------------
 

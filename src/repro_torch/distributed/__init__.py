@@ -2,6 +2,13 @@
 
 ``shard_map_compat`` has no counterpart: the port's sharded code runs in
 one process and places each shard on its device itself."""
-from .sharding import NO_SHARD, NamedSharding, Sharder, batch_partition_axes
+from .sharding import (
+    NO_SHARD,
+    NamedSharding,
+    ShardedTensor,
+    Sharder,
+    batch_partition_axes,
+)
 
-__all__ = ["NO_SHARD", "NamedSharding", "Sharder", "batch_partition_axes"]
+__all__ = ["NO_SHARD", "NamedSharding", "ShardedTensor", "Sharder",
+           "batch_partition_axes"]

@@ -13,21 +13,146 @@ cards work concurrently; the final sum on the first device stands for the
 ``concat_axis=0``) over such a list, the halo exchange's collective.  Both
 run each position's work inside ``observe.at_position`` and report every
 move between positions (``observe.note_move``), so that an observer (the
-dry-run's cost model) can tell positions that share a device apart.  The
-reference's gradient compression (``compress_grads``,
-``decompress_grads``, ``psum_mean_compressed``) is not ported yet (ROADMAP
-Queue 1 item 3).
+dry-run's cost model) can tell positions that share a device apart.
+
+:func:`compress_grads` and :func:`decompress_grads` are the reference's
+gradient compression (bf16, or int8 with a per-tensor scale), and
+:func:`psum_mean_compressed` its data-parallel mean around them.  The
+reference's ``psum`` over a named axis runs inside ``shard_map`` on one
+tree per device; the port takes one tree per mesh position, reduces each
+group of positions along the axis at the group's first position and places
+the mean back on every member, as the halo losses
+(``models.gnn.halo_loss``) sum over their devices.
 """
 from __future__ import annotations
 
+import math
 from collections.abc import Callable, Sequence
 
+import numpy as np
 import torch
 
 from ..device import on_device
+from ..launch.mesh import Mesh
+from ..train.checkpoint import tree_flatten, tree_map, tree_unflatten
 from .observe import at_position, note_move
 
-__all__ = ["all_to_all", "ring_pair_count"]
+__all__ = ["all_to_all", "compress_grads", "decompress_grads",
+           "psum_mean_compressed", "ring_pair_count"]
+
+
+def compress_grads(tree, method: str | None) -> tuple:
+    """``(compressed tree, scales)``, the reference's ``compress_grads``:
+    ``None`` gives ``tree`` itself and no scales, ``"bf16"`` every leaf cast
+    to bfloat16 and no scales, ``"int8"`` every leaf divided by its
+    per-tensor scale ``max(max|g|, 1e-9) / 127`` (a 0-d tensor of the
+    leaf's dtype) and cast to int8 (toward zero, as XLA converts), with the
+    tree of those scales.  The scale is taken as a product with ``1 / 127``,
+    as XLA compiles the reference's ``/ 127.0``, so that it equals the
+    compiled reference's bit for bit (a quotient differs in the last bit of
+    a few float32 scales).  A tensor is a tree of one leaf."""
+    if method is None:
+        return tree, None
+    if method == "bf16":
+        return tree_map(lambda g: g.to(torch.bfloat16), tree), None
+    if method == "int8":
+        leaves, treedef = tree_flatten(tree)
+        scales = [torch.clamp_min(g.abs().amax(), 1e-9) * (1.0 / 127.0)
+                  for g in leaves]
+        qs = [(g / s).to(torch.int8) for g, s in zip(leaves, scales)]
+        return tree_unflatten(treedef, qs), tree_unflatten(treedef, scales)
+    raise ValueError(f"unknown compression {method!r}")
+
+
+def decompress_grads(tree, scales, method: str | None,
+                     dtype: torch.dtype = torch.float32):
+    """The inverse of :func:`compress_grads` (the reference's
+    ``decompress_grads``): leaves cast to ``dtype``, and for int8 times
+    their scales."""
+    if method is None:
+        return tree
+    if method == "bf16":
+        return tree_map(lambda g: g.to(dtype), tree)
+    if method == "int8":
+        leaves, treedef = tree_flatten(tree)
+        s_leaves, _ = tree_flatten(scales)
+        return tree_unflatten(treedef, [g.to(dtype) * s for g, s in
+                                        zip(leaves, s_leaves)])
+    raise ValueError(f"unknown compression {method!r}")
+
+
+def axis_groups(mesh: Mesh, axes) -> np.ndarray:
+    """``[n_groups, group_size]`` positions: each row the positions that
+    share every index but those of ``axes`` (one name or a tuple), in
+    ``Mesh.shard_devices``' order (the first axis major); rows by the other
+    axes' indices, row-major."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    for a in axes:
+        if a not in mesh.axis_names:
+            raise ValueError(f"mesh has no axis {a!r}: {mesh.axis_names}")
+    names = mesh.axis_names
+    rest = [a for a in names if a not in axes]
+    order = [names.index(a) for a in (*rest, *axes)]
+    size = math.prod(mesh.shape[a] for a in axes)
+    return np.arange(mesh.size).reshape(mesh.devices.shape).transpose(
+        order).reshape(-1, size)
+
+
+def psum_mean_compressed(trees: Sequence, mesh: Mesh, axis_name,
+                         method: str | None = None) -> list:
+    """The data-parallel mean with optional on-the-wire compression, the
+    reference's ``psum_mean_compressed`` over ``mesh`` in one process.
+
+    ``trees[p]`` is mesh position ``p``'s tree (flat row-major, its leaves
+    on ``mesh.devices.flat[p]``); every tree has one structure.
+    ``axis_name`` is a mesh axis or a tuple of them; the positions that
+    differ only along it form a group (:func:`axis_groups`).  Leaf by
+    leaf, each member compresses its leaf (:func:`compress_grads`), the
+    compressed leaf moves to the group's first position, which casts it to
+    float32 and sums in group order, divides by the group's size and, for
+    int8, multiplies by the group's largest scale (the reference's
+    ``pmax``); the mean then moves to each member's device.  Returns one
+    tree of float32 means per position, in position order; members on one
+    device share one tensor.  Every move between positions is reported as
+    an ``all-reduce`` (``observe.note_move``)."""
+    if len(trees) != mesh.size:
+        raise ValueError(f"{len(trees)} trees for a mesh of {mesh.size} "
+                         "positions")
+    groups = axis_groups(mesh, axis_name)
+    flat = [tree_flatten(t) for t in trees]
+    treedef = flat[0][1]
+    if any(str(d) != str(treedef) for _, d in flat):
+        raise ValueError("the positions' trees differ in structure")
+    devs = mesh.devices.ravel()
+    out = [[None] * treedef.n_leaves for _ in range(mesh.size)]
+    for group in groups:
+        home = int(group[0])
+        dev = devs[home]
+        for i in range(treedef.n_leaves):
+            acc = smax = None
+            for p in (int(q) for q in group):
+                with at_position(p):
+                    q, s = compress_grads(flat[p][0][i], method)
+                if p != home:
+                    note_move("all-reduce", p, home, q.nbytes + (
+                        0 if s is None else s.nbytes))
+                with on_device(dev), at_position(home):
+                    if acc is None:
+                        acc = q.to(dev, torch.float32, copy=True)
+                    else:
+                        acc.add_(q.to(dev))
+                    if s is not None:
+                        s = s.to(dev)
+                        smax = s if smax is None else torch.maximum(smax, s)
+            with on_device(dev), at_position(home):
+                acc.div_(len(group))
+                if smax is not None:
+                    acc.mul_(smax)
+            for p in (int(q) for q in group):
+                if p != home:
+                    note_move("all-reduce", home, p, acc.nbytes)
+                out[p][i] = acc.to(devs[p])
+    return [tree_unflatten(treedef, leaves) for leaves in out]
 
 
 def ring_pair_count(blocks: Sequence[torch.Tensor],

@@ -32,7 +32,8 @@ from ..launch.mesh import Mesh
 
 NO_SHARD = None
 
-__all__ = ["NamedSharding", "Sharder", "NO_SHARD", "batch_partition_axes"]
+__all__ = ["NamedSharding", "ShardedTensor", "Sharder", "NO_SHARD",
+           "batch_partition_axes"]
 
 # axis names that are data-parallel, as the reference resolves them
 _DATA_AXES = ("pod", "data", "replica")
@@ -106,6 +107,39 @@ class NamedSharding:
         devs = self.mesh.devices.ravel()
         return [x[self.shard_slices(p, x.shape)].to(devs[p])
                 for p in range(self.mesh.size)]
+
+    def put(self, x: torch.Tensor) -> "ShardedTensor":
+        """``x`` placed (:meth:`place`) as one :class:`ShardedTensor`, the
+        counterpart of ``jax.device_put(x, sharding)``."""
+        return ShardedTensor(self, tuple(x.shape), tuple(self.place(x)))
+
+
+@dataclass(frozen=True, eq=False)
+class ShardedTensor:
+    """A global tensor as the positions of a mesh hold it, the counterpart
+    of a ``jax.Array`` placed with a ``NamedSharding``: ``shards[p]``, on
+    position ``p``'s device, is ``sharding.shard_slices(p, shape)`` of it.
+    A leaf of a tree (``train.checkpoint`` saves its gathered value)."""
+    sharding: NamedSharding
+    shape: tuple
+    shards: tuple
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    def gather(self, device="cpu") -> torch.Tensor:
+        """The global tensor on ``device``, each distinct slice copied
+        once from the first position that holds it."""
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        seen = set()
+        for p, shard in enumerate(self.shards):
+            idx = self.sharding.shard_slices(p, self.shape)
+            key = tuple((s.start, s.stop) for s in idx)
+            if key not in seen:
+                seen.add(key)
+                out[idx] = shard.to(device)
+        return out
 
 
 @dataclass

@@ -2,7 +2,7 @@ from .butterfly_kernel import (
     butterfly_pairs_kernel_call,
     butterfly_pairs_plain,
     butterfly_pairs_windows_kernel_call,
-    butterfly_pairs_windows_multiset_kernel_call,
+    butterfly_pairs_windows_kernel_multiset_call,
     butterfly_pairs_windows_multiset_plain,
     butterfly_pairs_windows_plain,
 )
@@ -19,7 +19,7 @@ __all__ = [
     "butterfly_pairs_kernel_call",
     "butterfly_pairs_plain",
     "butterfly_pairs_windows_kernel_call",
-    "butterfly_pairs_windows_multiset_kernel_call",
+    "butterfly_pairs_windows_kernel_multiset_call",
     "butterfly_pairs_windows_multiset_plain",
     "butterfly_pairs_windows_plain",
     "butterfly_count_pallas",

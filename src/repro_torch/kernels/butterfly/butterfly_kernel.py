@@ -31,7 +31,7 @@ uint8 limb planes (``core.butterfly.build_biadjacency_limbs``), computes
 ``W`` and ``S`` exactly on the int8 tensor cores and rounds each once; the
 per-entry values are multiples of 0.5, summed exactly and rounded once.
 The pallas tier's limb scatter hands it such a stack (route
-``wgmma_limbs``); :func:`butterfly_pairs_windows_multiset_kernel_call`
+``wgmma_limbs``); :func:`butterfly_pairs_windows_kernel_multiset_call`
 takes a float32 stack through one limb split (route ``wgmma_limbs_copy``).
 
 :func:`butterfly_pairs_kernel_call` (K3, the reference's ``_kernel``) is K1
@@ -67,7 +67,7 @@ from ...distributed.observe import note_kernel
 
 __all__ = ["butterfly_pairs_windows_kernel_call",
            "butterfly_pairs_windows_plain",
-           "butterfly_pairs_windows_multiset_kernel_call",
+           "butterfly_pairs_windows_kernel_multiset_call",
            "butterfly_pairs_windows_multiset_limbs_call",
            "butterfly_pairs_windows_multiset_plain",
            "stack_limbs", "check_no_wrap", "vertex_sq", "round_split_sums",
@@ -498,7 +498,7 @@ def butterfly_pairs_windows_multiset_limbs_call(
     return _launch_k2(planes, masks, lw, block_i, "wgmma_limbs")
 
 
-def butterfly_pairs_windows_multiset_kernel_call(
+def butterfly_pairs_windows_kernel_multiset_call(
         adjs: torch.Tensor, *, block_i: int = 256) -> torch.Tensor:
     """K2's wrapper on a ``[B, n, k]`` float32 stack of net multiplicities
     -> ``[B, T]`` float32 partials: one host synchronization refuses what

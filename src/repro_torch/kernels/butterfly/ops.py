@@ -23,7 +23,7 @@ from ...device import resolve_device
 from .butterfly_kernel import (
     butterfly_pairs_kernel_call,
     butterfly_pairs_windows_kernel_call,
-    butterfly_pairs_windows_multiset_kernel_call,
+    butterfly_pairs_windows_kernel_multiset_call,
     butterfly_pairs_windows_multiset_limbs_call,
     check_no_wrap,
     stack_limbs,
@@ -129,7 +129,7 @@ def butterfly_count_pallas_windows_multiset(adjs: torch.Tensor, *,
     ONE launch of K2 on the stack's limb split (any dtype is cast to
     float32 first)."""
     a = oriented(adjs).to(torch.float32)
-    partials = butterfly_pairs_windows_multiset_kernel_call(
+    partials = butterfly_pairs_windows_kernel_multiset_call(
         a, block_i=clamp_block_i(block_i, a.shape[1]))
     return window_sums(partials)
 

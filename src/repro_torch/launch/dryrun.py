@@ -26,6 +26,12 @@ Per cell it prints and records, in ``<out>/<mesh>/<arch>__<shape>.json``:
 A cell whose step raises is recorded as ``"error"`` with its message: the
 LM, GNN and xDeepFM steps on a mesh (ROADMAP Queue 1 item 3).
 
+The reference's ``collective_bytes`` has no counterpart: it sums the
+result bytes of the collectives in XLA's HLO text, which a torch step does
+not have.  The record's ``collectives`` come from the moves the sharded
+code reports to the cost model (``CostModel.collectives``), in the same
+``{kind: bytes, "total": ...}`` form.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch sgrapp \\
       --shape win_8k --mesh tiny --out experiments/dryrun

@@ -15,12 +15,12 @@ from .model import (
     param_shapes,
     prefill,
 )
-from .moe import MoERoute, init_moe, moe_apply, moe_route
+from .moe import MoERoute, init_moe, moe_apply, moe_param_specs, moe_route
 
 __all__ = [
     "LMConfig", "MoEConfig", "MLAConfig", "TransformerLM", "Block",
     "init_lm_params", "lm_forward", "prefill", "decode_step", "init_cache",
     "layer_keys", "lm_loss", "lm_param_specs", "param_shapes",
     "params_from_reference", "params_to_reference", "MoERoute", "init_moe",
-    "moe_apply", "moe_route",
+    "moe_apply", "moe_param_specs", "moe_route",
 ]

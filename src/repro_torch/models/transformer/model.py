@@ -34,7 +34,7 @@ from .attention import (
     mla_decode_attention,
 )
 from .config import LMConfig
-from .moe import MOE_KEYS, init_moe, moe_apply
+from .moe import MOE_KEYS, init_moe, moe_apply, moe_param_specs
 from .rope import apply_rope, rope_freqs
 
 __all__ = ["TransformerLM", "Block", "init_lm_params", "lm_forward",
@@ -178,10 +178,15 @@ def lm_param_specs(cfg: LMConfig) -> dict:
         attn = {"wq": (None, dp, "model"), "wk": (None, dp, "model"),
                 "wv": (None, dp, "model"), "wo": (None, "model", dp)}
     if cfg.moe is not None:
-        ffn = {"moe": {"w_router": (None, None, None),
-                       "wi": (None, "model", dp, None),
-                       "wg": (None, "model", dp, None),
-                       "wo": (None, "model", None, dp)}}
+        # one layer's specs under the stacked layer axis; with FSDP each
+        # expert weight's d_model dim (wi's and wg's rows, wo's columns)
+        # also over "data"
+        ffn = {"moe": {}}
+        for k, spec in moe_param_specs().items():
+            spec = list(spec)
+            if k != "w_router":
+                spec[1 if k in ("wi", "wg") else 2] = dp
+            ffn["moe"][k] = (None, *spec)
     else:
         ffn = {"wi": (None, dp, "model"), "wg": (None, dp, "model"),
                "wo_mlp": (None, "model", dp)}

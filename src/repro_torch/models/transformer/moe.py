@@ -19,13 +19,25 @@ import torch.nn.functional as F
 
 from ..common import Split, dense_init
 
-__all__ = ["MoERoute", "init_moe", "moe_route", "moe_apply", "MOE_KEYS",
-           "SLAB"]
+__all__ = ["MoERoute", "init_moe", "moe_route", "moe_apply",
+           "moe_param_specs", "MOE_KEYS", "SLAB"]
 
 MOE_KEYS = ("w_router", "wi", "wg", "wo")
 # tokens per dispatch when a long input splits into slabs (the reference's
 # ``moe_apply(..., slab=8192)``)
 SLAB = 8192
+
+
+def moe_param_specs() -> dict:
+    """Logical axes of one MoE layer's parameters (the reference's
+    ``moe_param_specs``): the experts over "model", the router
+    replicated."""
+    return {
+        "w_router": (None, None),
+        "wi": ("model", None, None),
+        "wg": ("model", None, None),
+        "wo": ("model", None, None),
+    }
 
 
 class MoERoute(NamedTuple):

@@ -21,8 +21,11 @@ steps newest-first past any truncated, bit-flipped or corrupt step.
 ``save_checkpoint`` traverses the ``disk_full`` and ``pre_checkpoint_rename``
 fault points (:mod:`repro_torch.streams.faults`); :func:`gc_tmp_dirs` sweeps
 the stale ``.tmp_step_*`` dirs a crash between them leaves.  Restore returns
-numpy leaves (``host=True``, at the template's dtypes, 64-bit widths kept)
-or torch tensors on ``device`` (default ``cuda``).  A bf16 leaf is stored
+numpy leaves (``host=True``, at the template's dtypes, 64-bit widths kept),
+torch tensors on ``device`` (default ``cuda``), or with ``shardings=`` each
+leaf placed on a mesh (``distributed.sharding.ShardedTensor``), which may
+differ from the mesh the leaves were saved from (an elastic restart); a
+``ShardedTensor`` leaf is saved as its gathered value.  A bf16 leaf is stored
 as the 2-byte records of its bits (``|V2``), which is how ``np.savez``
 stores the reference's bf16 leaves.  ``AsyncCheckpointer``
 runs saves on a worker thread.
@@ -41,6 +44,7 @@ import torch
 
 from ..arrays import BF16_BITS, tensor_from_numpy, tensor_to_numpy
 from ..device import resolve_device
+from ..distributed.sharding import NamedSharding, ShardedTensor
 from .fault import fault_point
 
 __all__ = [
@@ -165,12 +169,16 @@ def tree_map(fn, tree) -> Any:
 
 
 def _to_host(x) -> np.ndarray:
+    if isinstance(x, ShardedTensor):
+        x = x.gather("cpu")
     if isinstance(x, torch.Tensor):
         return tensor_to_numpy(x)
     return np.asarray(x)
 
 
 def _np_dtype(x) -> np.dtype:
+    if isinstance(x, ShardedTensor):
+        x = x.shards[0]
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             return BF16_BITS
@@ -298,8 +306,24 @@ def verify_checkpoint(ckpt_dir: str, step: int) -> dict:
     return manifest
 
 
+def _sharding_leaves(shardings) -> list:
+    """The leaves of a tree of :class:`NamedSharding` or None, in
+    :func:`tree_flatten`'s order, None a leaf (the reference's
+    ``is_leaf=lambda x: x is None or hasattr(x, "spec")``)."""
+    if shardings is None or isinstance(shardings, NamedSharding):
+        return [shardings]
+    if isinstance(shardings, dict):
+        return [x for k in sorted(shardings)
+                for x in _sharding_leaves(shardings[k])]
+    if isinstance(shardings, (list, tuple)):
+        return [x for v in shardings for x in _sharding_leaves(v)]
+    raise TypeError(f"a shardings tree holds NamedSharding or None, got "
+                    f"{type(shardings).__name__}")
+
+
 def restore_checkpoint(ckpt_dir: str, template: Any, *,
                        step: int | None = None, device=None,
+                       shardings: Any = None,
                        host: bool = False) -> tuple[Any, dict]:
     """Restore into the structure of ``template``; returns ``(tree,
     extra)``.  The stored leaves pair with the template's by position.
@@ -307,7 +331,13 @@ def restore_checkpoint(ckpt_dir: str, template: Any, *,
     ``host=True`` returns numpy leaves cast to the template's dtypes (the
     streaming engines' ``state_dict`` is host state with 64-bit leaves);
     otherwise each leaf is a torch tensor on ``device`` (default ``cuda``;
-    raises without a card unless ``device="cpu"``).
+    raises without a card unless ``device="cpu"``).  ``shardings`` (a tree
+    matching ``template`` of :class:`NamedSharding` or None) places each
+    leaf on the *current* mesh, which may differ from the mesh at save
+    time (elastic restarts): a sharded leaf as a :class:`ShardedTensor`
+    (``NamedSharding.put``), a None leaf as a tensor on the first device
+    of the tree's mesh (the default ``cuda`` where no leaf names one).  It
+    places every leaf, so it takes no ``device=``, and no ``host=True``.
     """
     if step is None:
         step = latest_step(ckpt_dir)
@@ -326,8 +356,25 @@ def restore_checkpoint(ckpt_dir: str, template: Any, *,
     if host:
         if device is not None:
             raise ValueError("host=True is mutually exclusive with device=")
+        if shardings is not None:
+            raise ValueError("host=True is mutually exclusive with shardings=")
         placed = [np.asarray(h, dtype=_np_dtype(t))
                   for h, t in zip(loaded, t_leaves)]
+    elif shardings is not None:
+        if device is not None:
+            raise ValueError("shardings= places every leaf; pass no device=")
+        s_leaves = _sharding_leaves(shardings)
+        if len(s_leaves) != len(t_leaves):
+            raise ValueError(f"shardings has {len(s_leaves)} leaves, template "
+                             f"expects {len(t_leaves)}")
+        home = next((s.mesh.devices.flat[0] for s in s_leaves
+                     if s is not None), None)
+        dev = resolve_device(home)
+        placed = []
+        for h, t, sh in zip(loaded, t_leaves, s_leaves):
+            x = np.asarray(h, dtype=_np_dtype(t))
+            placed.append(tensor_from_numpy(x, dev) if sh is None
+                          else sh.put(tensor_from_numpy(x, "cpu")))
     else:
         dev = resolve_device(device)
         placed = [tensor_from_numpy(np.asarray(h, dtype=_np_dtype(t)), dev)
@@ -336,10 +383,12 @@ def restore_checkpoint(ckpt_dir: str, template: Any, *,
 
 
 def restore_latest_valid(ckpt_dir: str, template: Any, *, device=None,
-                         host: bool = False
+                         shardings: Any = None, host: bool = False
                          ) -> tuple[Any, dict, int, list[int]]:
     """Restore the newest step that passes :func:`verify_checkpoint` *and*
-    loads against ``template``, skipping corrupt ones newest-first.
+    loads against ``template``, skipping corrupt ones newest-first;
+    ``device``, ``shardings`` and ``host`` as :func:`restore_checkpoint`
+    takes them.
 
     Returns ``(state, extra, step, skipped)`` where ``skipped`` lists the
     corrupt steps passed over.  Raises ``FileNotFoundError`` when no step
@@ -355,7 +404,8 @@ def restore_latest_valid(ckpt_dir: str, template: Any, *, device=None,
         try:
             verify_checkpoint(ckpt_dir, step)
             state, extra = restore_checkpoint(
-                ckpt_dir, template, step=step, device=device, host=host)
+                ckpt_dir, template, step=step, device=device,
+                shardings=shardings, host=host)
             return state, extra, step, skipped
         except (CheckpointCorruption, OSError, ValueError) as e:
             skipped.append(step)

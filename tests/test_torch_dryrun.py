@@ -305,25 +305,55 @@ def test_k1_on_meta_launches_nothing():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kk.butterfly_pairs_kernel_call(adj[0], block_i=8)
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        kk.butterfly_pairs_windows_multiset_kernel_call(
+        kk.butterfly_pairs_windows_kernel_multiset_call(
             adj.to(torch.float32), block_i=8)
 
 
 # -- against the reference's record ----------------------------------------------------------
 
-@pytest.fixture(scope="module", params=TINY)
-def reference_record(request, tmp_path_factory):
-    """The reference's own dry-run of ``sgrapp/win_8k``, run as
-    ``tests/test_launchers_distributed.py`` runs it."""
-    out = tmp_path_factory.mktemp(f"ref_{request.param}")
+def reference_dryrun(tmp_path_factory, shape: str, mesh: str) -> dict:
+    """The reference's own dry-run of ``sgrapp/<shape>`` on ``mesh``, run
+    as ``tests/test_launchers_distributed.py`` runs it."""
+    out = tmp_path_factory.mktemp(f"ref_{shape}_{mesh}")
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
     r = subprocess.run(
         [sys.executable, "-m", "repro.launch.dryrun", "--arch", "sgrapp",
-         "--shape", "win_8k", "--mesh", request.param, "--out", str(out)],
+         "--shape", shape, "--mesh", mesh, "--out", str(out)],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
     assert r.returncode == 0, (r.stdout[-1000:], r.stderr[-2000:])
-    with open(out / request.param / "sgrapp__win_8k.json") as f:
-        return request.param, json.load(f)
+    with open(out / mesh / f"sgrapp__{shape}.json") as f:
+        return json.load(f)
+
+
+@pytest.fixture(scope="module", params=TINY)
+def reference_record(request, tmp_path_factory):
+    """The reference's own dry-run of ``sgrapp/win_8k``."""
+    return request.param, reference_dryrun(tmp_path_factory, "win_8k",
+                                           request.param)
+
+
+@pytest.mark.parametrize("mesh", TINY)
+def test_dryrun_estimator_agrees_with_the_reference_record(
+        records, tmp_path_factory, mesh):
+    """The estimator's record against the reference's: ``status``,
+    ``kind``, ``model_flops``, ``n_devices`` and the argument bytes agree.
+    The rest differs by design: the reference's jit does not split the
+    scan over the data axes but all-gathers the windows' lanes to every
+    device (an all-gather of the W x cap x 9 lane bytes) and runs the whole
+    scan on each (per-device flops 2 W n_i^2 n_j), where the port counts
+    once, on the first position, and gathers nothing."""
+    want = reference_dryrun(tmp_path_factory, "estimator", mesh)
+    got = records[("estimator", mesh)]
+    for key in ("status", "kind", "model_flops", "n_devices"):
+        assert got[key] == want[key], key
+    assert got["memory"]["argument_size_bytes"] == \
+        want["memory"]["argument_size_bytes"]
+    W, cap, n_i, n_j = SHAPES["estimator"]
+    assert want["hlo"]["collectives"] == {"all-gather": W * cap * 9,
+                                          "total": W * cap * 9}
+    assert want["hlo"]["flops"] == 2 * W * n_i * n_i * n_j
+    assert got["collectives"] == {"total": 0}
+    assert got["hlo"]["busiest_position"] == 0
 
 
 def test_dryrun_agrees_with_the_reference_record(records, reference_record):

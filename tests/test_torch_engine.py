@@ -206,3 +206,57 @@ def test_push_after_finalize_and_bad_order_raise():
     eng.finalize()
     with pytest.raises(RuntimeError, match="finalize"):
         eng.push(3.0, 0, 0)
+
+
+def push_in_batches(eng, s, mb):
+    return push(eng, s, mb).finalize()
+
+
+@pytest.mark.parametrize("devices", [None, [CPU] * 2])
+def test_flush_reuses_compiled_buckets(devices):
+    """``tests/test_streaming_engine.py``'s test on the port: after the
+    first flush has met this stream's bucket shapes, further flushes (and a
+    second engine on the same stream shape) add no new counter, sharded or
+    not."""
+    from repro_torch.core.executor import compiled_bucket_cache_info
+
+    s = make_stream()
+    eng = StreamingSGrapp(NT_W, 0.95, config=cfg("dense", flush_every=2,
+                                                 devices=devices))
+    eng.push(s.tau[:750], s.edge_i[:750], s.edge_j[:750])
+    eng.flush()
+    before = compiled_bucket_cache_info()
+    eng.push(s.tau[750:], s.edge_i[750:], s.edge_j[750:])
+    eng.finalize()
+    eng2 = StreamingSGrapp(NT_W, 0.95, config=cfg("dense", flush_every=4,
+                                                  devices=devices))
+    push_in_batches(eng2, s, 50)
+    assert compiled_bucket_cache_info() == before
+
+
+def test_warmup_leaves_the_compiled_buckets_flat():
+    """The warmup half of ``tests/test_streaming_engine.py``'s
+    ``test_shared_executor_across_engines``: an engine warmed on the rungs
+    a probe planned adds no counter while it streams, and equals the
+    probe."""
+    from repro_torch.core.executor import compiled_bucket_cache_info
+
+    s = make_stream()
+    probe = StreamingSGrapp(NT_W, 0.95, config=cfg("numpy", flush_every=3))
+    rungs = set()
+    orig = probe.executor.window_counts_submit
+
+    def recording(batch):
+        rungs.update((b.cap_e, b.cap_i, b.cap_j)
+                     for b in probe.executor.plan(batch))
+        return orig(batch)
+
+    probe.executor.window_counts_submit = recording
+    ref = push_in_batches(probe, s, 33)
+    assert rungs
+    eng = StreamingSGrapp(NT_W, 0.95, config=cfg(
+        "dense", flush_every=3, warmup=tuple(sorted(rungs))))
+    after_warmup = compiled_bucket_cache_info()
+    res = push_in_batches(eng, s, 33)
+    assert compiled_bucket_cache_info() == after_warmup
+    assert_same(res, ref)

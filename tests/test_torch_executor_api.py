@@ -155,16 +155,22 @@ def test_count_edges_on_arbitrary_int64_ids(tier, seed):
 
 
 def test_count_edges_memoizes_its_counter_and_stays_on_the_plain_k1():
+    """The counter is the process-wide one of the window's configuration
+    (``compiled_bucket_cache_info``), emptied here first."""
+    tex._bucket_counter.cache_clear()
     ex = tex.WindowExecutor("pallas", device=CPU)
     assert ex.count_edges([], []) == 0.0
     k1.reset_launch_count()
     e = np.asarray(ADVERSARIAL["complete_k9_7"], dtype=np.int64)
     first = ex.count_edges(e[:, 0], e[:, 1])
-    cached = ex._online_cache
+    cached = tex.compiled_bucket_cache_info()
+    assert cached["single_device"] == 1
     assert ex.count_edges(e[::-1, 0], e[::-1, 1]) == first == 756
-    assert ex._online_cache is cached            # same rung: same counter
+    assert tex.compiled_bucket_cache_info() == cached  # same rung: same counter
     ex.count_edges([0, 0, 1, 1] * 50, [0, 1, 0, 1] * 50)
-    assert ex._online_cache is not cached        # a new rung
+    assert tex.compiled_bucket_cache_info() == cached  # edge rung: same ids
+    ex.count_edges(np.repeat(np.arange(80), 2), [0, 1] * 80)
+    assert tex.compiled_bucket_cache_info()["single_device"] == 2  # a new rung
     assert k1.launch_count() == 0                # CPU: K1's plain version
 
 

@@ -210,7 +210,7 @@ def test_k2_partials_equal_plain_at_small_multiplicities(cuda, b, n, k,
                                                      dtype=torch.float64)
     if want.numel():
         assert float(want.max()) < 2**24
-    got = k1.butterfly_pairs_windows_multiset_kernel_call(a, block_i=block_i)
+    got = k1.butterfly_pairs_windows_kernel_multiset_call(a, block_i=block_i)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.double(), want, rtol=0, atol=0)
     # and bit for bit the plain version of its own arithmetic
@@ -222,7 +222,7 @@ def test_k2_past_2_24_within_rtol(cuda):
     """Multiplicities up to 1000 put W^2 and S far past 2**24: K2 is held
     to the float64 plain version within rtol 1e-5 per partial."""
     a = weighted(2, 512, 2048, 0.05, 1000, seed=7).to(cuda)
-    got = k1.butterfly_pairs_windows_multiset_kernel_call(a, block_i=256)
+    got = k1.butterfly_pairs_windows_kernel_multiset_call(a, block_i=256)
     want = k1.butterfly_pairs_windows_multiset_plain(a, block_i=256,
                                                      dtype=torch.float64)
     assert float(want.max()) > 2**24
@@ -233,7 +233,7 @@ def test_k2_equals_plain_bit_for_bit_past_2_24(cuda):
     """Past 2**24 too, K2 and its plain version compute the same exact
     Grams, float32 epilogue and exact sums: the same bits."""
     a = weighted(2, 512, 2048, 0.05, 1000, seed=7).to(cuda)
-    got = k1.butterfly_pairs_windows_multiset_kernel_call(a, block_i=256)
+    got = k1.butterfly_pairs_windows_kernel_multiset_call(a, block_i=256)
     torch.cuda.synchronize()
     want = k1.butterfly_pairs_windows_multiset_plain(a, block_i=256)
     assert float(want.max()) > 2**24
@@ -247,7 +247,7 @@ def test_k2_exact_sums_past_2_64(cuda, value, shape):
     """Dense windows of equal multiplicities, up to every vertex at K2's
     limit: partials up to about 2**76, the split sums rounded once."""
     a = torch.full(shape, value, device=cuda)
-    got = k1.butterfly_pairs_windows_multiset_kernel_call(a, block_i=256)
+    got = k1.butterfly_pairs_windows_kernel_multiset_call(a, block_i=256)
     torch.cuda.synchronize()
     assert torch.equal(got, k1.butterfly_pairs_windows_multiset_plain(
         a, block_i=256))
@@ -291,10 +291,10 @@ def test_k2_window_counts_do_not_depend_on_the_stack(cuda):
 def test_k2_and_k3_count_their_own_launches(cuda):
     k1.reset_launch_count()
     a = weighted(2, 20, 30, 0.3, 4, seed=1)
-    k1.butterfly_pairs_windows_multiset_kernel_call(a, block_i=8)  # CPU
+    k1.butterfly_pairs_windows_kernel_multiset_call(a, block_i=8)  # CPU
     k1.butterfly_pairs_kernel_call(a[0], block_i=8)                # CPU
     assert k1.launch_count("K2") == k1.launch_count("K3") == 0
-    k1.butterfly_pairs_windows_multiset_kernel_call(a.to(cuda), block_i=8)
+    k1.butterfly_pairs_windows_kernel_multiset_call(a.to(cuda), block_i=8)
     ops.butterfly_count_pallas((a[0] > 0).float().to(cuda), block_i=8)
     assert (k1.launch_count("K1"), k1.launch_count("K2"),
             k1.launch_count("K3")) == (0, 1, 1)

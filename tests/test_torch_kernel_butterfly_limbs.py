@@ -250,11 +250,11 @@ def test_overflow_guard_raises_with_its_message():
     a = torch.zeros((2, 4, 64))
     a[1, 2, 3] = 46341.0                       # one edge: 46341**2 > 2**31
     with pytest.raises(ValueError, match=r"2\*\*31"):
-        kk.butterfly_pairs_windows_multiset_kernel_call(a, block_i=8)
+        kk.butterfly_pairs_windows_kernel_multiset_call(a, block_i=8)
     with pytest.raises(ValueError, match=r"2\*\*31"):
         ops.butterfly_count_pallas_windows_multiset(a, block_i=8)
     a[1, 2, 3] = 46340.0
-    assert kk.butterfly_pairs_windows_multiset_kernel_call(
+    assert kk.butterfly_pairs_windows_kernel_multiset_call(
         a, block_i=8).abs().sum() == 0
     # the bound is per vertex, on either side: many edges at one column
     b = torch.zeros((1, 64, 8))
@@ -270,10 +270,10 @@ def test_overflow_guard_raises_with_its_message():
             *lanes, 64, 8, max_mult=6000, max_vertex_sq=64 * 6000**2,
             block_i=8)
     with pytest.raises(ValueError, match="non-negative integers"):
-        kk.butterfly_pairs_windows_multiset_kernel_call(
+        kk.butterfly_pairs_windows_kernel_multiset_call(
             torch.full((1, 4, 4), 1.5), block_i=8)
     with pytest.raises(ValueError, match="non-negative integers"):
-        kk.butterfly_pairs_windows_multiset_kernel_call(
+        kk.butterfly_pairs_windows_kernel_multiset_call(
             torch.full((1, 4, 4), -2.0), block_i=8)
 
 

@@ -218,7 +218,7 @@ def test_oriented_keeps_uint8_and_k2_takes_float32_only():
     assert o.dtype == torch.uint8 and o.shape == (2, 24, 40)
     assert torch.equal(o, a.transpose(1, 2))
     with pytest.raises(ValueError, match="float32"):
-        k1.butterfly_pairs_windows_multiset_kernel_call(o, block_i=8)
+        k1.butterfly_pairs_windows_kernel_multiset_call(o, block_i=8)
     with pytest.raises(ValueError, match="float32 or float64"):
         k1.butterfly_pairs_windows_plain(o, block_i=8, dtype=torch.float16)
 

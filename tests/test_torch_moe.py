@@ -276,3 +276,28 @@ def test_init_moe_distributions():
                      dtype=torch.bfloat16)
     assert all(torch.equal(again[n], p[n]) for n in p)
     assert not torch.equal(p["wi"], p["wg"])
+
+
+def test_moe_param_specs_equal_the_reference():
+    from repro.models.transformer.moe import moe_param_specs as j_specs
+    from repro_torch.models.transformer import moe_param_specs
+
+    assert moe_param_specs() == j_specs()
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b", "dbrx-132b",
+                                  "phi4-mini-3.8b", "minicpm3-4b"])
+def test_lm_param_specs_equal_the_reference(arch, fsdp):
+    """``lm_param_specs`` (its MoE part built from ``moe_param_specs``)
+    equals the reference's tree, leaf for leaf, with and without FSDP."""
+    import dataclasses
+
+    from repro.configs import get_arch as j_get_arch
+    from repro.models.transformer.model import lm_param_specs as j_specs
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import lm_param_specs
+
+    cfg = dataclasses.replace(get_arch(arch).full_config(), fsdp=fsdp)
+    j_cfg = dataclasses.replace(j_get_arch(arch).full_config(), fsdp=fsdp)
+    assert lm_param_specs(cfg) == j_specs(j_cfg)

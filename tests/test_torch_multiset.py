@@ -198,7 +198,7 @@ def test_k2_plain_partials_equal_reference_kernel(b, n, k, block_i, block_k,
     np.testing.assert_array_equal(got.numpy(), want)
     # the wrapper's CPU path is the plain version
     np.testing.assert_array_equal(
-        kk.butterfly_pairs_windows_multiset_kernel_call(
+        kk.butterfly_pairs_windows_kernel_multiset_call(
             torch.from_numpy(a), block_i=block_i).numpy(), want)
 
 
@@ -263,7 +263,7 @@ def test_k3_partials_equal_k1_at_one_window():
 def test_cpu_paths_count_no_launch():
     kk.reset_launch_count()
     a = torch.from_numpy(weighted_stack(2, 16, 20, 0.3, 4, seed=2))
-    kk.butterfly_pairs_windows_multiset_kernel_call(a, block_i=8)
+    kk.butterfly_pairs_windows_kernel_multiset_call(a, block_i=8)
     kk.butterfly_pairs_kernel_call(a[0], block_i=8)
     assert {k: kk.launch_count(k) for k in kk.KERNELS} == dict.fromkeys(
         kk.KERNELS, 0)
@@ -381,3 +381,18 @@ def test_window_count_independent_of_chunk_past_2_24(tier):
         np.testing.assert_array_equal(r, runs[0])
     oracle = tex.WindowExecutor("numpy", device=CPU).window_counts(batch)
     np.testing.assert_allclose(runs[0], oracle, rtol=1e-4)
+
+
+def test_kernel_module_has_every_reference_name():
+    """Every public name of the reference's ``butterfly_kernel`` resolves
+    in the port's module of the same path, K2's wrapper by the reference's
+    own name, which the package exports and ``ops`` calls."""
+    import repro.kernels.butterfly.butterfly_kernel as jkk
+    import repro_torch.kernels.butterfly as tk
+
+    for name in jkk.__all__:
+        assert name in kk.__all__ and callable(getattr(kk, name)), name
+    name = "butterfly_pairs_windows_kernel_multiset_call"
+    assert name in tk.__all__
+    assert getattr(tk, name) is getattr(kk, name) is tops.__dict__[name]
+    assert not hasattr(kk, "butterfly_pairs_windows_multiset_kernel_call")
