@@ -25,8 +25,9 @@ phi3.5-moe-42b and dbrx-132b (MoE) at full width (prefill attention
 through K4), trains phi4-mini-3.8b, the GNNs and xDeepFM at full width,
 checks the halo-exchange losses, dry-runs the ``sgrapp`` cells on the
 production and tiny meshes and runs them on tiny meshes of the cards
-present, and takes the data-parallel gradient mean with compression and a
-checkpoint restored onto another mesh layout.  Every check
+present, takes the data-parallel gradient mean with compression and a
+checkpoint restored onto another mesh layout, and runs the LMs' prefill
+over a mesh of the card repeated to 8 positions.  Every check
 raises on failure, so the exit code is non-zero unless all phases pass.
 
 Phases (each path's launch counts are set to 0 just before it runs and read
@@ -252,12 +253,27 @@ just after):
    the (2, 4) layout of ``lm_param_specs`` and restored with
    ``shardings=`` onto the transposed (4, 2) mesh of card positions, every
    shard and gathered leaf equal to the parameter.
+25. prefill over a mesh (K4 on each position's heads): the registry's
+   ``prefill_32k`` step of phi4-mini-3.8b at full width and depth
+   (``models.transformer.sharded``: parameters placed by
+   ``lm_param_specs``, FSDP gathers over "data", tensor parallelism on
+   "model") over ``make_tiny_mesh`` of the cards present repeated to 8
+   positions at 2 x 32,768 tokens, over the multi-pod tiny mesh at 4 x
+   8,192, and at 2 x 4,096 in bf16 and in float32 from the same weights;
+   minicpm3-4b (MLA) and phi3.5-moe-42b (MoE, experts over "model") cut
+   to 2 layers at 4 x 4,096; each held to the unsharded port on the same
+   card and tokens (bf16: normwise ``MESH_NORMWISE`` on the last logits
+   and every cache leaf; float32: ``MESH_FLOAT32`` elementwise; greedy
+   tokens equal but at a near tie), and at 2 x 4,096 the sharded bf16
+   run no further from the float32 run than ``MESH_ACCURACY`` times the
+   unsharded one; K4's launches by route, wall times, moves by kind and
+   the busiest position's peak bytes beside 80 GB.
 
 On a machine with several cards phase 15 also shards over the distinct
 cards (up to 4); the script needs one card.
 
 Phases 11-15, 19 and 23 run after phase 8, before K4 and serving; phases
-16-18 and 20-22 and 24 run after phase 10.  Each phase's wall
+16-18 and 20-22, 24 and 25 run after phase 10.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -4819,6 +4835,282 @@ def phase_compress(device, seed: int, *, smoke: bool) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 25: the LMs' prefill over a mesh
+# --------------------------------------------------------------------------
+
+# the sharded prefill against the unsharded port on the same card, in bf16:
+# the normwise relative error ||got - want|| / ||want|| of each sequence's
+# last logits and of each cache leaf.  Both are bf16 roundings of one
+# function: on an H100, phi4-mini-3.8b's bf16 prefill (32 layers, 2 x
+# 4,096) lies 1.78e-2 (the unsharded port) and 1.74e-2 (the sharded one)
+# from the float32 prefill of the same weights, and the two runs 1.84e-2
+# apart (this phase at MESH_TRUTH; PERF.md, PR 27: a row-parallel sum of
+# float32 partials rounds to bf16 where cuBLAS's own reduction may land an
+# ulp away, and that difference travels through the layers as any bf16
+# rounding does).  Two runs each within 1.8e-2 of the float32 function lie
+# within 3.6e-2 of each other
+MESH_NORMWISE = 4e-2
+# the same in float32 at full width (K4's float32 variant): the LM tests'
+# float32 tolerance, elementwise
+MESH_FLOAT32 = dict(rtol=1e-4, atol=1e-4)
+# (a) phi4-mini-3.8b at full width and depth: (mesh, batch, prompt) -- one
+# sequence per data group; 2 x 32,768 is prefill_32k's length (its batch of
+# 32 cut to 2), whose unsharded logits alone are 26.2 GB in bf16; at 2 x
+# 4,096 also in float32 from the same weights (its unsharded logits 6.6
+# GB), the function both bf16 runs are held to
+MESH_PREFILL = (("tiny", 2, 32768), ("tiny_multipod", 4, 8192),
+                ("tiny", 2, 4096))
+MESH_TRUTH = ("tiny", 2, 4096)
+# the sharded bf16 run's normwise distance to the float32 run against the
+# unsharded bf16 run's: no less accurate, but for the spread of roundings
+MESH_ACCURACY = 1.25
+# (b) the MLA and MoE archs at full width, cut to 2 layers, on (2, 4)
+MESH_CELLS = (("minicpm3-4b", 2), ("phi3.5-moe-42b", 2))
+MESH_CELL_SIZE = (4, 4096)
+
+
+def leaf_normwise(got, want) -> float:
+    """``||got - want|| / ||want||`` of two ``[L, ...]`` leaves, in float32
+    one layer at a time."""
+    num = den = 0.0
+    for g, w in zip(got, want):
+        num += float((g.float() - w.float()).square().sum())
+        den += float(w.float().square().sum())
+    return (num / den) ** 0.5 if den else num ** 0.5
+
+
+class MoveLog:
+    """An observer of a sharded run: bytes moved by kind."""
+
+    def __init__(self):
+        self.kinds: dict = {}
+
+    def move(self, kind, src, dst, nbytes):
+        self.kinds[kind] = self.kinds.get(kind, 0) + nbytes
+
+    def kernel(self, name, flops, nbytes):
+        pass
+
+
+def mesh_prefill_once(device, seed: int, arch: str, cfg, model, kind: str,
+                      batch: int, prompt: int, *, profile_it: bool = False
+                      ) -> dict:
+    """One prefill of ``cfg`` over ``kind``'s mesh of the card repeated to
+    8 positions, held to the port's unsharded prefill on the same card and
+    the same ``make_prompts`` tokens: in bf16 each sequence's last logits
+    and every cache leaf within ``MESH_NORMWISE``, in float32 within
+    ``MESH_FLOAT32`` elementwise; the greedy token of every sequence
+    equal, but where the unsharded run's two top logits lie closer than
+    the two runs' largest logit gap of that sequence (a near tie that a
+    rounding decides), where the sharded token's unsharded logit must lie
+    within that gap of the top.  K4's launches are counted by route over
+    the sharded run (one a layer at each position that holds heads, each
+    on its head slice as it lies: ``wgmma`` in bf16, ``simt`` in
+    float32); the moves by kind from an observer; the busiest position's
+    peak bytes from a second run under the dry-run's cost model
+    (``launch.hlo_cost.traced``)."""
+    import torch
+
+    from repro_torch.distributed import Sharder
+    from repro_torch.distributed.observe import observing
+    from repro_torch.distributed.sharding import shard_bounds
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.launch.hlo_cost import traced
+    from repro_torch.launch.mesh import make_tiny_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.transformer import prefill
+
+    cuda = device.type == "cuda"
+    mesh = make_tiny_mesh(multi_pod=kind == "tiny_multipod",
+                          devices=repeated_cards(device, 8))
+    shard = Sharder.for_mesh(mesh)
+    what = f"{arch} over {kind} {mesh.shape}, {batch} x {prompt}, {cfg.dtype}"
+    toks = torch.as_tensor(make_prompts(cfg, batch, prompt, seed),
+                           device=device)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    k4.reset_launch_count()
+    sync(device)
+    t0 = time.perf_counter()
+    want, want_cache = prefill(model, toks, cfg, prompt)
+    sync(device)
+    plain_s = time.perf_counter() - t0
+    plain_k4 = k4.launch_count()
+    want = want.clone()          # the logits of all positions are freed
+    moves = MoveLog()
+    k4.reset_launch_count()
+    sync(device)
+    t0 = time.perf_counter()
+    with observing(moves):
+        got, got_cache = prefill(model, toks, cfg, prompt, shard)
+    sync_all(mesh.devices.flat)
+    mesh_s = time.perf_counter() - t0
+    launches = k4.launch_count()
+    routes = {v: k4.launch_count(v) for v in k4.VARIANTS}
+    card_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    cols = mesh.shape["model"]
+    holding = mesh.size // cols * sum(
+        hi > lo for lo, hi in shard_bounds(cfg.n_heads, cols))
+    bf16 = cfg.dtype == "bfloat16"
+    route = "wgmma" if bf16 else "simt"
+    want_launches = holding * cfg.n_layers if cuda else 0
+    check(launches == want_launches and routes[route] == launches,
+          f"{what}: K4 launches {launches} by route {routes}, want "
+          f"{want_launches} all on {route}")
+    last = got.gather(device)
+    errs = [leaf_normwise(last[b:b + 1], want[b:b + 1]) for b in range(batch)]
+    check(bool(torch.isfinite(last).all()), f"{what}: logits not finite")
+    if bf16:
+        check(max(errs) <= MESH_NORMWISE,
+              f"{what}: last logits normwise {errs} beyond {MESH_NORMWISE}")
+    else:
+        ok, err = within(last, want, MESH_FLOAT32)
+        check(ok, f"{what}: last logits beyond {MESH_FLOAT32} (max abs "
+              f"{err})")
+    v = cfg.vocab_size
+    lg, lw = last[:, :v].float(), want[:, :v].float()
+    top_got, top_want = lg.argmax(-1), lw.argmax(-1)
+    gaps = (lg - lw).abs().amax(-1)
+    top2 = lw.topk(2, dim=-1).values
+    margins = top2[:, 0] - top2[:, 1]
+    ties = 0
+    for b in range(batch):
+        if int(top_got[b]) == int(top_want[b]):
+            continue
+        ties += 1
+        check(float(margins[b]) <= float(gaps[b]) and float(
+            top2[b, 0] - lw[b, top_got[b]]) <= float(gaps[b]),
+            f"{what}: sequence {b}'s greedy token {int(top_got[b])} != "
+            f"unsharded {int(top_want[b])} (top-2 margin "
+            f"{float(margins[b])}, largest gap {float(gaps[b])})")
+    check(got_cache["len"] == prompt, f"{what}: cache len {got_cache['len']}")
+    cache_errs = {}
+    for name, leaf in got_cache.items():
+        if name == "len":
+            continue
+        g = leaf.gather(device)
+        cache_errs[name] = leaf_normwise(g, want_cache[name])
+        if bf16:
+            check(cache_errs[name] <= MESH_NORMWISE,
+                  f"{what}: cache {name} normwise {cache_errs[name]} beyond "
+                  f"{MESH_NORMWISE}")
+        else:
+            for i in range(cfg.n_layers):
+                ok, err = within(g[i], want_cache[name][i], MESH_FLOAT32)
+                check(ok, f"{what}: cache {name} layer {i} beyond "
+                      f"{MESH_FLOAT32} (max abs {err})")
+        del g
+    margin, gap = float(margins.min()), float(gaps.max())
+    del got, got_cache, want_cache, lg, lw
+    if cuda:
+        torch.cuda.empty_cache()
+    if profile_it:
+        profile(f"{what}, sharded prefill", lambda: prefill(
+            model, toks, cfg, prompt, shard), device)
+        if cuda:
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with traced(mesh.size) as model_cost:
+        out = prefill(model, toks, cfg, prompt, shard)
+    sync_all(mesh.devices.flat)
+    traced_s = time.perf_counter() - t0
+    peaks = model_cost.peaks()
+    busiest = max(range(mesh.size), key=lambda q: peaks[q])
+    del out
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"[mesh-prefill] {what} on {len(set(mesh.devices.flat))} distinct "
+        f"card(s): unsharded {plain_s:.4f} s (K4 {plain_k4} launches), "
+        f"sharded {mesh_s:.4f} s, K4 {launches} launches by route {routes} "
+        f"({holding} positions hold heads x {cfg.n_layers} layers); last "
+        f"logits normwise {max(errs):.6e} (per sequence "
+        f"{[f'{e:.3e}' for e in errs]}), max abs gap {gap:.6g}; greedy "
+        f"tokens {top_got.tolist()}, unsharded {top_want.tolist()} ({ties} "
+        f"decided by a near tie; smallest top-2 margin {margin:.6g}); cache "
+        f"normwise { {k: f'{e:.3e}' for k, e in cache_errs.items()} } "
+        f"(bound {MESH_NORMWISE if bf16 else MESH_FLOAT32}); moves by kind "
+        f"{dict(sorted(moves.kinds.items()))}"
+        f"; busiest position {busiest}: peak {peaks[busiest]} B live past "
+        f"its inputs = {peaks[busiest] / CARD_BYTES:.4%} of 80 GB (traced "
+        f"run {traced_s:.4f} s); card peak {card_peak / 2**30:.4f} GiB")
+    return {"launches": launches, "routes": routes, "mesh_s": mesh_s,
+            "plain_s": plain_s, "normwise": max(errs),
+            "cache_normwise": cache_errs, "moves": moves.kinds,
+            "peak_bytes": peaks[busiest], "dtype": cfg.dtype, "last": last,
+            "want": want}
+
+
+def phase_mesh_prefill(device, seed: int, *, smoke: bool) -> dict:
+    """Phase 25.  (a) phi4-mini-3.8b at full width and depth over
+    ``make_tiny_mesh`` of the card repeated to 8 positions, 2 x 32,768
+    tokens, over ``make_tiny_mesh(multi_pod=True)``, 4 x 8,192, and over
+    (2, 4) at 2 x 4,096, in bf16; at ``MESH_TRUTH`` also in float32 from the
+    same weights, where each bf16 run's normwise distance to the float32
+    unsharded run is logged and the sharded one's held within
+    ``MESH_ACCURACY`` times the unsharded one's; (b) minicpm3-4b (MLA) and
+    phi3.5-moe-42b (MoE) at full width cut to 2 layers (``reduced``) over
+    (2, 4), 4 x 4,096; each run through :func:`mesh_prefill_once`.  A CPU
+    rehearsal (``smoke``) runs the smoke configs at 2 x 96.  Returns K4's
+    launches and routes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.models.transformer import init_lm_params
+
+    launches, routes, out = 0, dict.fromkeys(k4.VARIANTS, 0), {}
+    runs = [(LM_ARCH, None, kind, b, s, (kind, b, s) == MESH_PREFILL[0])
+            for kind, b, s in MESH_PREFILL]
+    runs += [(arch, depth, "tiny", *MESH_CELL_SIZE, False)
+             for arch, depth in MESH_CELLS]
+    for arch, depth, kind, b, s, prof in runs:
+        cfg = get_arch(arch).smoke_config() if smoke else \
+            get_arch(arch).full_config()
+        truth = arch == LM_ARCH and (kind, b, s) == MESH_TRUTH
+        if smoke:
+            b, s, prof = 2, 96, False
+        elif depth is not None:
+            log(f"[mesh-prefill] reduced: {arch} keeps {depth} of its "
+                f"{cfg.n_layers} layers (dataclasses.replace(cfg, n_layers="
+                f"{depth})); every width as published")
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        if arch == LM_ARCH and not smoke:
+            log(f"[mesh-prefill] reduced: {arch} prefill_32k's 32 x 32,768 "
+                f"cut to {b} x {s} on {kind}")
+        model = init_lm_params(cfg, seed=seed, device=device)
+        results = [mesh_prefill_once(device, seed, arch, cfg, model, kind, b,
+                                     s, profile_it=prof)]
+        if truth:
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            model = model.float()
+            results.append(mesh_prefill_once(device, seed, arch, cfg32, model,
+                                             kind, b, s))
+            r16, r32 = results
+            far = [leaf_normwise(r16[k], r32["want"]) for k in ("want", "last")]
+            log(f"[mesh-prefill] {arch} on {kind}, {b} x {s}: normwise "
+                f"distance to the float32 unsharded run: unsharded bf16 "
+                f"{far[0]:.6e}, sharded bf16 {far[1]:.6e}; float32 sharded "
+                f"{r32['normwise']:.6e}")
+            check(far[1] <= MESH_ACCURACY * far[0],
+                  f"{arch} on {kind}: the sharded bf16 run is {far[1]} from "
+                  f"the float32 run, the unsharded {far[0]}")
+            out["float32_distance"] = {"unsharded": far[0], "sharded": far[1]}
+        del model
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        for r in results:
+            r.pop("last"), r.pop("want")
+            out[f"{arch}@{kind} {b}x{s} {r['dtype']}"] = r
+            launches += r["launches"]
+            routes = add_routes(routes, r["routes"])
+    out["launches"], out["routes"] = launches, routes
+    return out
+
+
 class PhaseClock:
     """Logs the wall time of each phase since the previous lap."""
 
@@ -4836,7 +5128,7 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
         alpha0: float = 1.02, tenant_unique: int = 50_000,
         serve_batch: int = SERVE_BATCH) -> list[dict]:
-    """Phases 0-24 on ``device``; returns the kernels records."""
+    """Phases 0-25 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -4982,8 +5274,11 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         "segment sums, gathers and GEMMs are torch's own")
     phase_compress(device, seed, smoke=lm_smoke)
     clock.lap("24 gradient compression and elastic restore")
+    meshed = phase_mesh_prefill(device, seed, smoke=lm_smoke)
+    clock.lap("25 prefill over a mesh")
     k4_launches = {f"{a} (serve)": v["launches"] for a, v in k4_serve.items()}
     k4_launches[f"{LM_ARCH} (train, 3 steps)"] = trained["launches"]
+    k4_launches["prefill over a mesh (phase 25)"] = meshed["launches"]
     src = "src/repro_torch/kernels/butterfly/csrc/"
     ref = "src/repro/kernels/butterfly/butterfly_kernel.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -216,8 +216,7 @@ def lm_cells(cfg: LMConfig, *, n_microbatches: int = 8,
             flops = _lm_flops(cfg, S * B, "train")
         elif kind == "prefill":
             def make_step(shard, cfg=cfg, S=S):
-                _no_mesh(shard)
-                return lambda p, toks: prefill(p, toks, cfg, S)
+                return lambda p, toks: prefill(p, toks, cfg, S, shard)
 
             def abstract_inputs(cfg=cfg, S=S, B=B):
                 return (_abstract(param_shapes(cfg)), sd((B, S), I32))

@@ -23,6 +23,13 @@ tree per device; the port takes one tree per mesh position, reduces each
 group of positions along the axis at the group's first position and places
 the mean back on every member, as the halo losses
 (``models.gnn.halo_loss``) sum over their devices.
+
+:func:`all_gather`, :func:`psum`, :func:`reduce_scatter` and
+:func:`resplit` are the collectives of the sharded LM trunk
+(``models.transformer.sharded``) over the groups of one mesh axis, on one
+tensor per position: each member's piece is concatenated in group order,
+summed at the group's first position in group order, or split anew, and
+every move between positions is reported under XLA's name.
 """
 from __future__ import annotations
 
@@ -36,9 +43,11 @@ from ..device import on_device
 from ..launch.mesh import Mesh
 from ..train.checkpoint import tree_flatten, tree_map, tree_unflatten
 from .observe import at_position, note_move
+from .sharding import shard_bounds, to_device
 
-__all__ = ["all_to_all", "compress_grads", "decompress_grads",
-           "psum_mean_compressed", "ring_pair_count"]
+__all__ = ["all_gather", "all_to_all", "axis_groups", "compress_grads",
+           "decompress_grads", "psum", "psum_mean_compressed",
+           "reduce_scatter", "resplit", "ring_pair_count"]
 
 
 def compress_grads(tree, method: str | None) -> tuple:
@@ -85,7 +94,10 @@ def axis_groups(mesh: Mesh, axes) -> np.ndarray:
     """``[n_groups, group_size]`` positions: each row the positions that
     share every index but those of ``axes`` (one name or a tuple), in
     ``Mesh.shard_devices``' order (the first axis major); rows by the other
-    axes' indices, row-major."""
+    axes' indices, row-major.  Where ``axes`` is None or empty (a mesh
+    without that axis) every position is a group of its own."""
+    if axes is None or axes == ():
+        return np.arange(mesh.size).reshape(-1, 1)
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     for a in axes:
         if a not in mesh.axis_names:
@@ -96,6 +108,120 @@ def axis_groups(mesh: Mesh, axes) -> np.ndarray:
     size = math.prod(mesh.shape[a] for a in axes)
     return np.arange(mesh.size).reshape(mesh.devices.shape).transpose(
         order).reshape(-1, size)
+
+
+def all_gather(pieces: Sequence[torch.Tensor], mesh: Mesh, axis,
+               dim: int) -> list[torch.Tensor]:
+    """``pieces[p]`` is mesh position ``p``'s block of a tensor split along
+    ``dim`` over ``axis`` (one name, a tuple, or None for no split); each
+    member of a group (:func:`axis_groups`) gets the group's blocks
+    concatenated along ``dim`` in group order, assembled on its own device.
+    Each block from another member is an ``all-gather`` move."""
+    devs = mesh.devices.ravel()
+    out: list = [None] * mesh.size
+    for group in axis_groups(mesh, axis):
+        for p in (int(q) for q in group):
+            for q in (int(r) for r in group):
+                if q != p:
+                    note_move("all-gather", q, p, pieces[q].nbytes)
+            with at_position(p):
+                out[p] = pieces[p] if len(group) == 1 else torch.cat(
+                    [to_device(pieces[int(q)], devs[p]) for q in group], dim=dim)
+    return out
+
+
+def _group_sum(pieces, group, kind: str, devs) -> torch.Tensor:
+    """The sum of the group's pieces at its first position, in group
+    order; each other member's piece is a ``kind`` move to it."""
+    home = int(group[0])
+    with on_device(devs[home]), at_position(home):
+        acc = pieces[home]
+        for q in (int(r) for r in group[1:]):
+            note_move(kind, q, home, pieces[q].nbytes)
+            acc = acc + to_device(pieces[q], devs[home])
+    return acc
+
+
+def psum(pieces: Sequence[torch.Tensor], mesh: Mesh, axis) -> list:
+    """The all-reduce sum over ``axis``: each group's pieces summed at its
+    first position in group order (in their dtype), the sum placed back on
+    every member's device (members on one device share one tensor).  Each
+    piece to the first position and each sum back is an ``all-reduce``
+    move."""
+    devs = mesh.devices.ravel()
+    out: list = [None] * mesh.size
+    for group in axis_groups(mesh, axis):
+        total = _group_sum(pieces, group, "all-reduce", devs)
+        home = int(group[0])
+        for p in (int(q) for q in group):
+            if p != home:
+                note_move("all-reduce", home, p, total.nbytes)
+            out[p] = to_device(total, devs[p])
+    return out
+
+
+def reduce_scatter(pieces: Sequence[torch.Tensor], mesh: Mesh, axis,
+                   dim: int) -> list:
+    """The sum over ``axis`` split along ``dim``: each group's pieces summed
+    at its first position in group order, member ``i`` of the group getting
+    block ``i`` of the sum (``ceil(n / k)`` a block, the last short or
+    empty) on its device.  Each piece to the first position and each block
+    back is a ``reduce-scatter`` move."""
+    devs = mesh.devices.ravel()
+    out: list = [None] * mesh.size
+    for group in axis_groups(mesh, axis):
+        total = _group_sum(pieces, group, "reduce-scatter", devs)
+        home = int(group[0])
+        bounds = shard_bounds(total.shape[dim], len(group))
+        for i, p in enumerate(int(q) for q in group):
+            block = total.narrow(dim, bounds[i][0], bounds[i][1] - bounds[i][0])
+            if p != home:
+                note_move("reduce-scatter", home, p, block.nbytes)
+            out[p] = to_device(block, devs[p])
+    return out
+
+
+def resplit(pieces: Sequence[torch.Tensor], mesh: Mesh, axis, dim: int,
+            sizes: Sequence[int]) -> list:
+    """Split a tensor anew along ``dim`` within each group along ``axis``:
+    the members' pieces are its consecutive blocks in group order, and
+    member ``i`` gets the ``sizes[i]`` elements from ``sum(sizes[:i])`` on,
+    assembled on its device from the blocks that overlap them.  Nothing
+    moves where every piece already has its size; otherwise each part
+    taken from another member is an ``all-to-all`` move."""
+    devs = mesh.devices.ravel()
+    out: list = [None] * mesh.size
+    for group in axis_groups(mesh, axis):
+        members = [int(q) for q in group]
+        have = [pieces[q].shape[dim] for q in members]
+        if list(have) == list(sizes):
+            for q in members:
+                out[q] = pieces[q]
+            continue
+        starts = np.cumsum([0] + have)
+        lo = 0
+        for i, p in enumerate(members):
+            hi = lo + sizes[i]
+            parts = []
+            with at_position(p):
+                for j, q in enumerate(members):
+                    a, b = max(lo, starts[j]), min(hi, starts[j + 1])
+                    if a >= b:
+                        continue
+                    part = pieces[q].narrow(dim, int(a - starts[j]), int(b - a))
+                    if q != p:
+                        note_move("all-to-all", q, p, part.nbytes)
+                    parts.append(to_device(part, devs[p]))
+                if len(parts) == 1:
+                    out[p] = parts[0]
+                elif parts:
+                    out[p] = torch.cat(parts, dim=dim)
+                else:
+                    shape = list(pieces[p].shape)
+                    shape[dim] = 0
+                    out[p] = pieces[p].new_empty(shape)
+            lo = hi
+    return out
 
 
 def psum_mean_compressed(trees: Sequence, mesh: Mesh, axis_name,

@@ -13,32 +13,37 @@ Logical axes:
   "flat"   -> every mesh axis (the GNN arrays' maximal 1-D partition)
   None     -> a replicated dim
 
-The port shards windows over a mesh (``core.distributed``, the executor's
-``devices=`` / ``mesh=``) but not yet an LM's parameters and activations.
-On a mesh :meth:`Sharder.named` gives a :class:`NamedSharding` (which the
-registry's ``Cell.in_shardings`` and the dry-run use to place a cell's
-inputs), while :meth:`Sharder.act` and :meth:`Sharder.params` raise
-``NotImplementedError`` (ROADMAP Queue 1 item 3) rather than return
-something that is quietly unsharded.
+On a mesh a global tensor is a :class:`ShardedTensor`: one shard per mesh
+position, each on its position's device.  :meth:`Sharder.params` resolves a
+tree of logical specs to a tree of :class:`NamedSharding` (the registry's
+``Cell.in_shardings`` and the dry-run place a cell's inputs by them) and
+:meth:`Sharder.place` puts a parameter tree by them.  :meth:`Sharder.act`
+is ``with_sharding_constraint``: it lays a tensor out as the logical axes
+say, moving the pieces each position lacks from the positions that hold
+them and reporting every move to the observer (``distributed.observe``).
+Parameters must divide over their axes, as jax requires of an input;
+activations may not, and then split as GSPMD pads them: ``ceil(n / k)``
+a shard, the last shards short or empty (``NamedSharding(uneven=True)``).
 """
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import math
 from dataclasses import dataclass
 
 import torch
 
 from ..launch.mesh import Mesh
+from .observe import at_position, note_move
 
 NO_SHARD = None
 
 __all__ = ["NamedSharding", "ShardedTensor", "Sharder", "NO_SHARD",
-           "batch_partition_axes"]
+           "batch_partition_axes", "reshard", "shard_bounds", "to_device"]
 
 # axis names that are data-parallel, as the reference resolves them
 _DATA_AXES = ("pod", "data", "replica")
-_LM_ON_A_MESH = ("sharding an LM's parameters and activations over a mesh "
-                 "is not ported yet (ROADMAP Queue 1 item 3)")
 
 
 def batch_partition_axes(mesh: Mesh) -> tuple:
@@ -50,14 +55,26 @@ def batch_partition_axes(mesh: Mesh) -> tuple:
     return axes if axes else tuple(mesh.axis_names)
 
 
+def shard_bounds(n: int, k: int) -> list[tuple[int, int]]:
+    """``[start, stop)`` of each of ``k`` shards of a dim of ``n``:
+    ``ceil(n / k)`` a shard, the last shards short or empty (the even
+    split where ``k`` divides ``n``)."""
+    c = -(-n // k)
+    return [(min(i * c, n), min((i + 1) * c, n)) for i in range(k)]
+
+
 @dataclass(frozen=True)
 class NamedSharding:
     """A mesh and a resolved spec, the counterpart of
     ``jax.sharding.NamedSharding``: ``spec[d]`` is the mesh axis (or tuple
     of axes, the first major) that dim ``d`` splits over, or None where it
-    is replicated; dims past the spec are replicated."""
+    is replicated; dims past the spec are replicated.  A split dim must
+    divide by its axes' size unless ``uneven``, the split GSPMD gives an
+    activation: ``ceil(n / k)`` a shard, the last shards short or
+    empty."""
     mesh: Mesh
     spec: tuple
+    uneven: bool = False
 
     def _dim_axes(self, ndim: int) -> list[tuple]:
         if len(self.spec) > ndim:
@@ -74,17 +91,30 @@ class NamedSharding:
             out.append(axes)
         return out
 
+    def divides(self, shape) -> bool:
+        """Whether every split dim of ``shape`` divides by its axes' size."""
+        sizes = self.mesh.shape
+        return all(n % math.prod(sizes[a] for a in axes) == 0
+                   for n, axes in zip(shape, self._dim_axes(len(shape))))
+
+    def fitted(self, shape) -> "NamedSharding":
+        """This sharding for an activation of ``shape``: itself where every
+        split dim divides, else its ``uneven`` form."""
+        return self if self.divides(shape) else dataclasses.replace(
+            self, uneven=True)
+
     def shard_shape(self, shape) -> tuple:
-        """The shape each position holds of a global ``shape``; a split dim
-        must divide by its axes' size, as jax requires of an input."""
+        """The shape each position holds of a global ``shape`` (under
+        ``uneven``, the largest: ``ceil(n / k)``); a split dim must divide
+        by its axes' size otherwise, as jax requires of an input."""
         sizes = self.mesh.shape
         out = []
         for n, axes in zip(shape, self._dim_axes(len(shape))):
             k = math.prod(sizes[a] for a in axes)
-            if n % k:
+            if n % k and not self.uneven:
                 raise ValueError(f"dim of size {n} does not divide over "
                                  f"{axes} ({k} shards)")
-            out.append(n // k)
+            out.append(-(-n // k))
         return tuple(out)
 
     def shard_slices(self, position: int, shape) -> tuple:
@@ -92,13 +122,14 @@ class NamedSharding:
         the shard index of a dim split over ``(a, b)`` is ``i_a * size_b +
         i_b`` (the first axis major)."""
         sizes, at = self.mesh.shape, self.mesh.position_index(position)
+        self.shard_shape(shape)     # raises where a split does not divide
         out = []
-        for n, m, axes in zip(shape, self.shard_shape(shape),
-                              self._dim_axes(len(shape))):
+        for n, axes in zip(shape, self._dim_axes(len(shape))):
             k = 0
             for a in axes:
                 k = k * sizes[a] + at[a]
-            out.append(slice(k * m, (k + 1) * m))
+            lo, hi = shard_bounds(n, math.prod(sizes[a] for a in axes))[k]
+            out.append(slice(lo, hi))
         return tuple(out)
 
     def place(self, x: torch.Tensor) -> list[torch.Tensor]:
@@ -140,6 +171,127 @@ class ShardedTensor:
                 seen.add(key)
                 out[idx] = shard.to(device)
         return out
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``: itself where it lies there (no op at all, which
+    keeps a traced step's op count down), else a copy."""
+    return t if t.device == device else t.to(device)
+
+
+def _move_kind(src: NamedSharding, dst: NamedSharding, ndim: int) -> str:
+    """XLA's name for the collective that takes ``src``'s layout to
+    ``dst``'s: an all-to-all where a mesh axis moves from one dim to
+    another, an all-gather where a split is dropped, an all-to-all for any
+    other re-split."""
+    s_axes, d_axes = src._dim_axes(ndim), dst._dim_axes(ndim)
+    for a in src.mesh.axis_names:
+        s_dims = {i for i, axes in enumerate(s_axes) if a in axes}
+        d_dims = {i for i, axes in enumerate(d_axes) if a in axes}
+        if s_dims and d_dims and s_dims != d_dims:
+            return "all-to-all"
+    if any(set(s) - set(d) for s, d in zip(s_axes, d_axes)):
+        return "all-gather"
+    return "all-to-all"
+
+
+def _overlap(a: slice, b: slice) -> slice | None:
+    lo, hi = max(a.start, b.start), min(a.stop, b.stop)
+    return slice(lo, hi) if lo < hi else None
+
+
+def reshard(x, target: NamedSharding) -> ShardedTensor:
+    """``x`` laid out by ``target``: a :class:`ShardedTensor`, or a tensor
+    that every position holds whole (each takes its slice; nothing moves).
+
+    Each position keeps what it holds; a piece it lacks comes from the
+    position that holds it (the lowest on the same device, else the
+    lowest), is reported to the observer as one move of the kind
+    :func:`_move_kind` names, and is assembled at the position (inside
+    ``observe.at_position``): a view where its own shard covers the target
+    slice, else a concatenation along the one dim the pieces tile, else a
+    copy into an empty shard."""
+    mesh = target.mesh
+    devs = mesh.devices.ravel()
+    if isinstance(x, torch.Tensor):
+        return ShardedTensor(target, tuple(x.shape), tuple(
+            to_device(x[target.shard_slices(p, x.shape)], devs[p])
+            for p in range(mesh.size)))
+    if x.sharding.mesh is not mesh:
+        raise ValueError("resharding across meshes is not supported")
+    shape, ndim = x.shape, len(x.shape)
+    src = x.sharding
+    have = [src.shard_slices(p, shape) for p in range(mesh.size)]
+    if all(have[p] == target.shard_slices(p, shape) for p in range(mesh.size)):
+        return ShardedTensor(target, shape, x.shards)
+    kind = _move_kind(src, target, ndim)
+    # the distinct source blocks: per dim its distinct intervals, and per
+    # block the positions that hold it
+    holders: dict = {}
+    for p, idx in enumerate(have):
+        holders.setdefault(tuple((s.start, s.stop) for s in idx), []).append(p)
+    intervals = [sorted({key[d] for key in holders}) for d in range(ndim)]
+    shards = []
+    for p in range(mesh.size):
+        want = target.shard_slices(p, shape)
+        mine = have[p]
+        rel = tuple(slice(w.start - m.start, w.stop - m.start)
+                    for w, m in zip(want, mine))
+        with at_position(p):
+            if any(w.start == w.stop for w in want):
+                shards.append(x.shards[p].new_empty(
+                    tuple(w.stop - w.start for w in want)))
+                continue
+            if all(m.start <= w.start and w.stop <= m.stop
+                   for w, m in zip(want, mine)):
+                shards.append(x.shards[p][rel])
+                continue
+            per_dim = [[(lo, hi) for lo, hi in intervals[d]
+                        if _overlap(slice(lo, hi), want[d])]
+                       for d in range(ndim)]
+            pieces = []
+            for key in itertools.product(*per_dim):
+                if key not in holders:
+                    continue
+                qs = holders[key]
+                q = p if p in qs else next(
+                    (r for r in qs if devs[r] == devs[p]), qs[0])
+                cut = tuple(_overlap(slice(*k), w) or slice(w.start, w.start)
+                            for k, w in zip(key, want))
+                piece = x.shards[q][tuple(slice(c.start - k[0], c.stop - k[0])
+                                          for c, k in zip(cut, key))]
+                if q != p and piece.numel():
+                    note_move(kind, q, p, piece.nbytes)
+                pieces.append((cut, to_device(piece, devs[p])))
+            shards.append(_assemble(pieces, want, x.dtype, devs[p]))
+    return ShardedTensor(target, shape, tuple(shards))
+
+
+def _assemble(pieces, want: tuple, dtype, device) -> torch.Tensor:
+    """The block ``want`` from ``(slices, tensor)`` pieces that tile it."""
+    size = tuple(w.stop - w.start for w in want)
+    varying = [d for d in range(len(want))
+               if any(c[d] != want[d] for c, _ in pieces)]
+    if len(varying) == 1:
+        d = varying[0]
+        parts = sorted(pieces, key=lambda cp: cp[0][d].start)
+        return torch.cat([t for _, t in parts], dim=d)
+    out = torch.empty(size, dtype=dtype, device=device)
+    for cut, t in pieces:
+        out[tuple(slice(c.start - w.start, c.stop - w.start)
+                  for c, w in zip(cut, want))] = t
+    return out
+
+
+def _map_specs(fn, spec_tree):
+    """``fn`` on each logical spec (a tuple of axis names) of a tree of
+    dicts, lists and tuples of them."""
+    if isinstance(spec_tree, tuple) and all(a is None or isinstance(a, str)
+                                            for a in spec_tree):
+        return fn(spec_tree)
+    if isinstance(spec_tree, dict):
+        return {k: _map_specs(fn, v) for k, v in spec_tree.items()}
+    return type(spec_tree)(_map_specs(fn, v) for v in spec_tree)
 
 
 @dataclass
@@ -188,16 +340,24 @@ class Sharder:
 
     # -- activation constraint --------------------------------------------------
     def act(self, x, *axes):
+        """``x`` laid out by the logical ``axes`` (the reference's
+        ``with_sharding_constraint``): ``x`` itself without a mesh; on one,
+        a :class:`ShardedTensor` by :meth:`named` (split unevenly where a
+        dim does not divide) from a ShardedTensor or from a tensor every
+        position holds whole, the moves reported (:func:`reshard`)."""
         if self.mesh is None:
             return x
-        raise NotImplementedError(_LM_ON_A_MESH)
+        return reshard(x, self.named(*axes).fitted(x.shape))
 
     # -- parameter sharding resolution -------------------------------------------
     def params(self, spec_tree, param_tree):
-        """A tree of ``None`` shaped like ``param_tree`` (dicts, lists and
-        tuples walked, anything else a leaf) without a mesh."""
+        """The tree of :class:`NamedSharding` of a tree of logical specs
+        (tuples are its leaves, as the reference's ``jax.tree.map`` takes
+        them); without a mesh a tree of ``None`` shaped like
+        ``param_tree`` (dicts, lists and tuples walked, anything else a
+        leaf)."""
         if self.mesh is not None:
-            raise NotImplementedError(_LM_ON_A_MESH)
+            return _map_specs(lambda axes: self.named(*axes), spec_tree)
 
         def nones(x):
             if isinstance(x, dict):
@@ -208,3 +368,19 @@ class Sharder:
                 return type(x)(*(nones(v) for v in x))
             return None
         return nones(param_tree)
+
+    def place(self, spec_tree, param_tree):
+        """``param_tree``'s tensors placed by :meth:`params` of
+        ``spec_tree`` (one structure): a tree of :class:`ShardedTensor`, on
+        a mesh; ``param_tree`` itself without one."""
+        if self.mesh is None:
+            return param_tree
+
+        def put(spec, x):
+            if isinstance(spec, tuple) and all(a is None or isinstance(a, str)
+                                               for a in spec):
+                return self.named(*spec).put(x)
+            if isinstance(spec, dict):
+                return {k: put(v, x[k]) for k, v in spec.items()}
+            return type(spec)(put(v, t) for v, t in zip(spec, x))
+        return put(spec_tree, param_tree)

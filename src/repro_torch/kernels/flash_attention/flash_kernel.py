@@ -27,9 +27,11 @@ zero-padded copy.  float32 inputs run the fp32 SIMT kernel
 (``csrc/flash_attention.cu``).  On a CPU tensor it runs
 :func:`flash_attention_plain`, the same online softmax in torch, block by
 block in the reference's order, which the CPU tests and ``chip_smoke.py``'s
-comparisons use.  The wrapper counts its own launches, in all and per
-variant (:func:`launch_count`); the CPU path and empty inputs launch
-nothing and count nothing.
+comparisons use.  On a ``meta`` tensor (the dry-run) it returns the
+output's shape and dtype and tells an observer (``distributed.observe``)
+K4's operations and bytes (:func:`k4_operations`).  The wrapper counts its
+own launches, in all and per variant (:func:`launch_count`); the CPU and
+``meta`` paths and empty inputs launch nothing and count nothing.
 
 :func:`flash_attention_call` keeps the reference's ``[BH, S, hd]`` entry and
 its ``ValueError`` when a length does not divide its block.
@@ -41,10 +43,11 @@ import ctypes
 import torch
 
 from ...core.butterfly import full_fp32_matmul
+from ...distributed.observe import note_kernel
 
 __all__ = ["flash_attention_bshd", "flash_attention_call",
            "flash_attention_plain", "check_blocks", "default_scale",
-           "launch_count",
+           "k4_operations", "launch_count",
            "reset_launch_count", "split_bf16_limbs", "tma_ready", "VARIANTS"]
 
 _NEG = -1e30
@@ -192,6 +195,37 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd_v).to(q.dtype)
 
 
+def k4_operations(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, q_offset: int = 0) -> float:
+    """K4's useful operations: ``2 pairs hd`` for QK^T plus ``2 pairs
+    hd_v`` for PV, ``pairs`` the (query, key) pairs the causal mask keeps
+    (query row ``r`` sees ``min(Skv, q_offset + r + 1)`` keys) times ``B
+    H``, the count ``chip_smoke.py``'s bound takes."""
+    b, sq, h, hd = q.shape
+    skv, hd_v = k.shape[1], v.shape[3]
+    if causal:
+        # rows whose window is still short, then rows that see every key
+        short = max(0, min(sq, skv - q_offset))
+        first = q_offset + 1
+        keys = short * (first + first + short - 1) // 2 + (sq - short) * skv
+    else:
+        keys = sq * skv
+    pairs = float(keys) * b * h
+    return 2.0 * pairs * (hd + hd_v)
+
+
+def _traced_k4(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool, q_offset: int) -> torch.Tensor:
+    """K4 on ``meta`` tensors: its output's shape and dtype, no launch and
+    no count; K4's operations (:func:`k4_operations`) and bytes (q, k, v
+    read once, the output written once) go to an observer."""
+    b, sq, h, _ = q.shape
+    out = torch.empty((b, sq, h, v.shape[3]), dtype=q.dtype, device="meta")
+    note_kernel("K4", k4_operations(q, k, v, causal=causal, q_offset=q_offset),
+                q.nbytes + k.nbytes + v.nbytes + out.nbytes)
+    return out
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, q_offset: int, scale: float) -> torch.Tensor:
     """Launch K4 on CUDA tensors and count one launch, in all and for its
@@ -260,6 +294,8 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
                                      block_q=block_q, block_k=block_k,
                                      scale=scale)
+    if q.device.type == "meta":
+        return _traced_k4(q, k, v, causal=causal, q_offset=q_offset)
     return _launch(q, k, v, causal=causal, q_offset=q_offset, scale=scale)
 
 

@@ -24,7 +24,9 @@ Per cell it prints and records, in ``<out>/<mesh>/<arch>__<shape>.json``:
   trace_s      the trace's wall time, in place of ``lower_s`` / ``compile_s``
 
 A cell whose step raises is recorded as ``"error"`` with its message: the
-LM, GNN and xDeepFM steps on a mesh (ROADMAP Queue 1 item 3).
+LMs' train and decode steps and the GNN and xDeepFM steps on a mesh
+(ROADMAP Queue 1 item 3).  The LMs' prefill cells trace over the mesh
+(``models.transformer.sharded``), K4 counted through ``note_kernel``.
 
 The reference's ``collective_bytes`` has no counterpart: it sums the
 result bytes of the collectives in XLA's HLO text, which a torch step does
@@ -36,6 +38,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch sgrapp \\
       --shape win_8k --mesh tiny --out experiments/dryrun
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch sgrapp --mesh pod
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b \\
+      --shape prefill_32k --mesh tiny
 """
 from __future__ import annotations
 

@@ -42,6 +42,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from ..distributed.observe import current_position, observing
+from ..distributed.sharding import ShardedTensor
 
 __all__ = ["CostModel", "traced"]
 
@@ -56,10 +57,12 @@ def _storage_key(t: torch.Tensor) -> int:
 
 
 def _tensors(x, out: list) -> list:
-    """The tensors in ``x`` (a tensor, or lists, tuples and dicts of
-    them), appended to ``out`` in order."""
+    """The tensors in ``x`` (a tensor, a ``ShardedTensor``'s shards, or
+    lists, tuples and dicts of them), appended to ``out`` in order."""
     if isinstance(x, torch.Tensor):
         out.append(x)
+    elif isinstance(x, ShardedTensor):
+        out.extend(x.shards)
     elif isinstance(x, (list, tuple)):
         for v in x:
             _tensors(v, out)

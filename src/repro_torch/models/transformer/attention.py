@@ -28,7 +28,8 @@ from ...kernels.flash_attention.flash_kernel import flash_attention_bshd
 from .rope import apply_rope, rope_freqs
 
 __all__ = ["attention_backward", "attention_scale", "gqa_attention_chunked",
-           "gqa_decode_attention", "mla_attention", "mla_decode_attention"]
+           "gqa_attention_heads", "gqa_decode_attention", "mla_attention",
+           "mla_decode_attention"]
 
 _NEG = -1e30
 
@@ -136,6 +137,32 @@ def gqa_attention_chunked(
     Differentiable in ``q``, ``k`` and ``v`` (:func:`attention_backward`)."""
     return _ChunkedAttention.apply(q, k, v, causal, q_offset, chunk_q,
                                    chunk_k, attention_scale(q.shape[-1]))
+
+
+def gqa_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        first: int, n_heads: int, *, chunk_q: int = 1024,
+                        chunk_k: int = 1024) -> torch.Tensor:
+    """Causal :func:`gqa_attention_chunked` on a slice of a layer's query
+    heads: ``q [B, S, h, hd]`` holds heads ``first .. first + h`` of
+    ``n_heads``, which read key/value head ``head // (n_heads // Hkv)`` of
+    ``k`` and ``v`` (all ``Hkv`` of them).  Where the slice is whole groups
+    the kernel takes their key/value heads as a block at the layer's
+    group size; where it straddles a group, each query head's own
+    key/value head (group size 1).  q, k and v reach the kernel
+    contiguous, so that K4 reads them through TMA as they lie.  No head:
+    an empty ``[B, S, 0, hd_v]``."""
+    b, s, h, _ = q.shape
+    g = n_heads // k.shape[2]
+    if h == 0:
+        return q.new_empty((b, s, 0, v.shape[3]))
+    if first % g == 0 and h % g == 0:
+        k, v = k[:, :, first // g:(first + h) // g], v[:, :, first // g:(first + h) // g]
+    else:
+        idx = torch.arange(first, first + h, device=k.device) // g
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return gqa_attention_chunked(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True,
+                                 chunk_q=chunk_q, chunk_k=chunk_k)
 
 
 def gqa_decode_attention(

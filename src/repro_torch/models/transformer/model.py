@@ -284,12 +284,12 @@ def lm_loss(params: TransformerLM, batch: dict, cfg: LMConfig,
     ``batch["mask"]`` when given) plus ``0.01 * aux``.  Differentiable in
     the parameters once they take a gradient; ``cfg.remat`` checkpoints
     each block.  ``shard`` is a
-    ``distributed.Sharder``: without a mesh it does nothing (on a mesh it
-    raises, as LM sharding is not ported yet)."""
-    tokens = batch["tokens"]
-    if shard is not None:
-        tokens = shard.act(tokens, "batch", None)
-    logits, aux = _trunk(params, tokens, cfg, None, None, cfg.remat)
+    ``distributed.Sharder``: without a mesh it does nothing; on a mesh it
+    raises, as the loss over a mesh is not ported yet."""
+    if shard is not None and shard.mesh is not None:
+        raise NotImplementedError("the training loss over a mesh is not "
+                                  "ported yet (ROADMAP Queue 1 item 3)")
+    logits, aux = _trunk(params, batch["tokens"], cfg, None, None, cfg.remat)
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = _NEG_LOGIT
     loss = cross_entropy(logits, batch["labels"], mask=batch.get("mask"))
@@ -339,11 +339,20 @@ def cache_specs(cfg: LMConfig) -> dict:
 
 @torch.inference_mode()
 def prefill(params: TransformerLM, tokens: torch.Tensor, cfg: LMConfig,
-            max_len: int) -> tuple[torch.Tensor, dict]:
+            max_len: int, shard=None) -> tuple[torch.Tensor, dict]:
     """Run the prompts ``[B, S]`` through the trunk (logits over all
     positions, as the reference computes them), write each layer's cache
     entries into a cache padded to ``max_len``, and return the last
-    position's logits ``[B, Vp]`` and the cache (``len = S``)."""
+    position's logits ``[B, Vp]`` and the cache (``len = S``).
+
+    ``shard`` is a ``distributed.Sharder``: on a mesh the trunk runs over
+    its positions (:func:`.sharded.prefill_on_mesh`; ``params`` may then
+    also be the reference's tree) and the logits and the cache's leaves
+    come back as ``ShardedTensor`` leaves; without one it does nothing."""
+    if shard is not None and shard.mesh is not None:
+        from .sharded import prefill_on_mesh
+
+        return prefill_on_mesh(params, tokens, cfg, max_len, shard)
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")

@@ -9,6 +9,16 @@ products over ``[E, C, D]``, and each token gathers its kept outputs back:
 the same function, since each slot holds at most one token and each
 token's choices name distinct experts.  Empty slots are zero rows, as the
 one-hot dispatch leaves them.
+
+:func:`moe_apply_mesh` is the same function over a mesh, laid out as the
+reference's ``shard.act`` calls lay it out: the experts over "model", and
+the capacity over the data axes where it reaches 1,024 slots.  Each data
+group routes its own tokens (gathering the choices of the tokens it
+shares a dispatch with), scatters them into capacity buffers, and the
+buffers' slots move to the positions that hold them and back by
+all-to-all; each position sums its experts' share of a token in float32
+and an all-reduce over "model" adds the shares.  Every shape is static,
+so the dry-run traces it on ``meta``.
 """
 from __future__ import annotations
 
@@ -17,9 +27,12 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ...distributed.collectives import axis_groups, psum
+from ...distributed.observe import at_position, note_move
+from ...distributed.sharding import shard_bounds, to_device
 from ..common import Split, dense_init
 
-__all__ = ["MoERoute", "init_moe", "moe_route", "moe_apply",
+__all__ = ["MoERoute", "init_moe", "moe_route", "moe_apply", "moe_apply_mesh",
            "moe_param_specs", "MOE_KEYS", "SLAB"]
 
 MOE_KEYS = ("w_router", "wi", "wg", "wo")
@@ -86,23 +99,42 @@ def moe_route(p, x: torch.Tensor, moe) -> MoERoute:
     queue position by a running count per expert over the ``T * k``
     choices, token major."""
     t = x.shape[0]
-    e, k = moe.n_experts, moe.top_k
-    cap = max(int(moe.capacity_factor * k * t / e + 0.5), 1)
-    logits = x.float() @ p.w_router
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
-                                     stable=True)
-    gate_vals, gate_idx = gate_vals[:, :k], gate_idx[:, :k]
-    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True),
-                                            1e-9)
+    e = moe.n_experts
+    cap = _capacity(t, moe)
+    probs, gate_vals, gate_idx = _gates(p.w_router, x, moe)
     # Switch balance term on the first choice: E * sum_e f_e * P_e
     fe = F.one_hot(gate_idx[:, 0], e).float().mean(dim=0)
     aux = e * torch.sum(fe * probs.mean(dim=0))
-    # [E, T*k]: each expert's running count along its own contiguous row
-    # (a scan down the T*k rows of [T*k, E] runs one thread per expert)
-    flat = F.one_hot(gate_idx.reshape(-1), e).t().contiguous()
-    pos = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(0).reshape(t, k)
+    pos = _queue(gate_idx[None], e)[0]
     return MoERoute(gate_idx, gate_vals, pos, pos < cap, cap, aux)
+
+
+def _capacity(t: int, moe) -> int:
+    return max(int(moe.capacity_factor * moe.top_k * t / moe.n_experts + 0.5),
+               1)
+
+
+def _gates(w_router: torch.Tensor, x: torch.Tensor, moe):
+    """``(probs, gate_vals, gate_idx)`` of tokens ``x [T, D]``: the float32
+    router softmax, its top ``k`` by a stable descending sort and the
+    gates normalised by ``max(sum, 1e-9)``."""
+    probs = torch.softmax(x.float() @ w_router, dim=-1)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals, gate_idx = gate_vals[:, :moe.top_k], gate_idx[:, :moe.top_k]
+    gate_vals = gate_vals / torch.clamp_min(gate_vals.sum(-1, keepdim=True),
+                                            1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def _queue(gate_idx: torch.Tensor, e: int) -> torch.Tensor:
+    """Each choice's place in its expert's queue, per dispatch: ``gate_idx
+    [n, T, k]`` -> ``[n, T, k]``, counted in ``(token, choice)`` order."""
+    n, t, k = gate_idx.shape
+    # [n, E, T*k]: each expert's running count along its own contiguous row
+    # (a scan down the T*k rows of [T*k, E] runs one thread per expert)
+    flat = F.one_hot(gate_idx.reshape(n, t * k), e).transpose(1, 2).contiguous()
+    return ((torch.cumsum(flat, dim=2) - flat) * flat).sum(1).reshape(n, t, k)
 
 
 def _dispatch(p, x: torch.Tensor, moe) -> tuple[torch.Tensor, torch.Tensor]:
@@ -145,3 +177,148 @@ def moe_apply(p, x: torch.Tensor, moe, *, slab: int = SLAB
         ys, auxs = zip(*(_dispatch(p, xs, moe) for xs in x.split(slab)))
         return torch.cat(ys), torch.stack(auxs).mean()
     return _dispatch(p, x, moe)
+
+
+def moe_apply_mesh(ps: list, xs: list, moe, mesh, *, model_axis, first: list,
+                   n_tokens: int, slab: int = SLAB) -> list:
+    """:func:`moe_apply` over ``mesh``, without its ``aux``: ``xs[p] [T_p,
+    D]`` are the tokens of position ``p``'s data group (a row of
+    ``axis_groups(mesh, model_axis)``), the same at each of its positions,
+    ``first[p]`` the index of ``xs[p][0]`` among all ``n_tokens`` tokens in
+    ``[B, S]`` order; ``ps[p]`` holds ``w_router`` whole and ``wi``, ``wg``,
+    ``wo`` of the position's block of experts (whole along ``D``).
+    Returns ``ys[p] [T_p, D]`` in ``xs[p].dtype``.
+
+    The dispatches are :func:`moe_apply`'s (slabs of ``slab`` tokens when
+    that divides a longer input, else one), each with its own capacity
+    ``C``; the slots of a dispatch split over the data groups where ``C >=
+    1024`` (the reference's ``cap_axis``), else each group holds them all.
+    A position routes its group's tokens (the choices of other groups'
+    tokens in a shared dispatch come by all-gather), scatters them into
+    buffers ``[E_m, dispatches, C, D]`` of its experts, whose slot blocks
+    go to the positions holding them (all-to-all); there the experts run
+    as batched products; the outputs come back (all-to-all) and each
+    position adds, per token in expert order in float32, the gated outputs
+    of its experts; an all-reduce over ``model_axis`` adds the positions'
+    shares, rounded once to ``xs``' dtype."""
+    rows = axis_groups(mesh, model_axis)
+    n_groups, n_cols = rows.shape
+    devs = mesh.devices.ravel()
+    e, k = moe.n_experts, moe.top_k
+    if e % n_cols:
+        raise ValueError(f"{e} experts do not divide over {n_cols} positions")
+    per = slab if n_tokens > slab and n_tokens % slab == 0 else n_tokens
+    cap = _capacity(per, moe)
+    n_disp = n_tokens // per
+    split = cap >= 1024 and n_groups > 1
+    slots = shard_bounds(cap, n_groups) if split else [(0, cap)] * n_groups
+    where = {int(p): (g, m) for g, row in enumerate(rows)
+             for m, p in enumerate(row)}
+    span = []                      # each group's tokens and dispatches
+    for g in range(n_groups):
+        p = int(rows[g][0])
+        t0, t1 = first[p], first[p] + xs[p].shape[0]
+        d0 = t0 // per
+        span.append((t0, t1, d0, -(-t1 // per) if t1 > t0 else d0))
+    gates = [None] * mesh.size
+    for p in range(mesh.size):
+        with at_position(p):
+            gates[p] = _gates(ps[p]["w_router"], xs[p], moe)[1:]
+
+    # route and scatter: buffers [E_m, nd, C, D] (and a spare row)
+    bufs, routes = [None] * mesh.size, [None] * mesh.size
+    for p in range(mesh.size):
+        g, m = where[p]
+        t0, t1, d0, d1 = span[g]
+        nd, x = d1 - d0, xs[p]
+        e0, e1 = shard_bounds(e, n_cols)[m]
+        with at_position(p):
+            if nd == 0:
+                bufs[p] = x.new_zeros((e1 - e0, 0, cap, x.shape[1]))
+                continue
+            parts = []
+            for h in range(n_groups):
+                a, b = max(span[h][0], d0 * per), min(span[h][1], d1 * per)
+                if a >= b:
+                    continue
+                q = int(rows[h][m])
+                idx = gates[q][1][a - span[h][0]:b - span[h][0]]
+                if q != p:
+                    note_move("all-gather", q, p, idx.nbytes)
+                parts.append(to_device(idx, devs[p]))
+            idx_all = torch.cat(parts) if len(parts) > 1 else parts[0]
+            pos = _queue(idx_all.reshape(nd, per, k), e).reshape(nd * per, k)
+            lo = t0 - d0 * per
+            pos = pos[lo:lo + (t1 - t0)]
+            gate_vals, gate_idx = gates[p]
+            disp = (torch.arange(t1 - t0, device=x.device) + lo) // per
+            mine = (pos < cap) & (gate_idx >= e0) & (gate_idx < e1)
+            spare = (e1 - e0) * nd * cap
+            slot = torch.where(
+                mine, ((gate_idx - e0) * nd + disp[:, None]) * cap + pos,
+                spare)
+            buf = x.new_zeros((spare + 1, x.shape[1]))
+            buf[slot.reshape(-1)] = x.repeat_interleave(k, dim=0)
+            bufs[p] = buf[:-1].view(e1 - e0, nd, cap, x.shape[1])
+            routes[p] = (slot, torch.where(mine, gate_vals, 0.0))
+
+    # dispatch, experts, combine
+    outs = [None] * mesh.size
+    for p in range(mesh.size):
+        g, m = where[p]
+        c0, c1 = slots[g]
+        src = bufs[p]
+        with at_position(p):
+            xin = src.new_zeros((src.shape[0], n_disp, c1 - c0, src.shape[3]))
+            for h in range(n_groups):
+                q = int(rows[h][m])
+                if span[h][3] == span[h][2]:
+                    continue
+                piece = bufs[q][:, :, c0:c1]
+                if q != p:
+                    note_move("all-to-all", q, p, piece.nbytes)
+                xin[:, span[h][2]:span[h][3]] += to_device(piece, devs[p])
+            w = ps[p]
+            flat = xin.view(xin.shape[0], -1, xin.shape[3])
+            hid = F.silu(torch.bmm(flat, w["wi"])) * torch.bmm(flat, w["wg"])
+            outs[p] = torch.bmm(hid, w["wo"]).view(xin.shape)
+    shares = [None] * mesh.size
+    for p in range(mesh.size):
+        g, m = where[p]
+        t0, t1, d0, d1 = span[g]
+        x = xs[p]
+        with at_position(p):
+            if routes[p] is None:
+                shares[p] = torch.zeros(x.shape, dtype=torch.float32,
+                                        device=x.device)
+                continue
+            if split:
+                # the group's dispatches' slot blocks from each group
+                parts = []
+                for h in range(n_groups):
+                    q = int(rows[h][m])
+                    piece = outs[q][:, d0:d1]
+                    if q != p:
+                        note_move("all-to-all", q, p, piece.nbytes)
+                    parts.append(to_device(piece, devs[p]))
+                out = torch.cat(parts, dim=2)
+            else:
+                out = outs[p][:, d0:d1]
+            out = torch.cat([out.reshape(-1, x.shape[1]),
+                             x.new_zeros((1, x.shape[1]))])
+            slot, gate = routes[p]
+            gate = gate.to(x.dtype).float()
+            order = torch.argsort(gates[p][1], dim=-1)
+            y = torch.zeros((x.shape[0], x.shape[1]), dtype=torch.float32,
+                            device=x.device)
+            for j in range(k):
+                c = order[:, j:j + 1]
+                y += (torch.gather(gate, 1, c)
+                      * out[torch.gather(slot, 1, c)[:, 0]].float())
+            shares[p] = y
+    ys = psum(shares, mesh, model_axis)
+    out = []
+    for p, (y, x) in enumerate(zip(ys, xs)):
+        with at_position(p):
+            out.append(y.to(x.dtype))
+    return out

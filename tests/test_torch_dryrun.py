@@ -168,10 +168,13 @@ def test_cell_in_shardings_on_a_mesh():
     got = cell.in_shardings(shard)
     assert [s.spec for s in got] == [("data", None)] * 3 + [(None,)] * 3 + [()]
     assert cell.out_shardings(shard) is None
-    for act in (lambda: shard.act(torch.zeros(2), "batch"),
-                lambda: shard.params({"w": (None,)}, {"w": torch.zeros(2)})):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            act()
+    # act and params on the mesh: a placed ShardedTensor, NamedShardings
+    x = torch.empty((4, 3), device="meta")
+    placed = shard.act(x, "batch", None)
+    assert placed.sharding == got[0] and len(placed.shards) == 8
+    assert all(s.shape == (2, 3) and s.device.type == "meta"
+               for s in placed.shards)
+    assert shard.params({"w": ("batch", None)}, {"w": x}) == {"w": got[0]}
 
 
 @pytest.mark.parametrize("multi", [False, True])
@@ -307,6 +310,120 @@ def test_k1_on_meta_launches_nothing():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         kk.butterfly_pairs_windows_kernel_multiset_call(
             adj.to(torch.float32), block_i=8)
+
+
+# -- the LMs' prefill cells ------------------------------------------------------------------
+
+LM_ARCHS = ["phi4-mini-3.8b", "granite-8b", "minicpm3-4b", "phi3.5-moe-42b",
+            "dbrx-132b"]
+
+
+@pytest.fixture(scope="module")
+def lm_records(tmp_path_factory):
+    """The five LMs' ``prefill_32k`` records at full config on both tiny
+    meshes, and K4's launches over all ten traces."""
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    out = tmp_path_factory.mktemp("dryrun_lm")
+    k4.reset_launch_count()
+    recs = {(arch, mesh): dryrun.run_cell(arch, "prefill_32k", mesh, str(out))
+            for mesh in TINY for arch in LM_ARCHS}
+    return recs, k4.launch_count()
+
+
+@pytest.mark.parametrize("mesh", TINY)
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_dryrun_lm_prefill_is_ok_with_k4_on_each_position(lm_records, arch,
+                                                          mesh):
+    """Each record is ``ok``; K4 runs once a layer at every position (each
+    holds heads on the tiny meshes) through ``note_kernel``, its flops the
+    causal QK^T and PV of every sequence and head once; the FSDP gathers
+    and the row-parallel sums move bytes, and an MoE's buffers too."""
+    recs, launches = lm_records
+    rec = recs[(arch, mesh)]
+    assert launches == 0
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["kind"] == "prefill" and rec["n_devices"] == 8
+    cfg = get_arch(arch).full_config()
+    b, s = get_arch(arch).cells(cfg)["prefill_32k"].abstract_inputs()[1].shape
+    hd, hd_v = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
+                 cfg.mla.v_head_dim) if cfg.is_mla
+                else (cfg.head_dim, cfg.head_dim))
+    k4 = cfg.n_layers * b * cfg.n_heads * s * (s + 1) // 2 * 2 * (hd + hd_v)
+    assert rec["hlo"]["kernels"] == {
+        "K4": {"launches": 8 * cfg.n_layers, "flops": k4}}
+    assert rec["cost"]["flops"] > k4
+    coll = rec["collectives"]
+    assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
+    assert ("all-to-all" in coll) == (cfg.moe is not None)
+    assert coll["total"] == sum(v for k, v in coll.items() if k != "total")
+    mem = rec["memory"]
+    assert mem["argument_size_bytes"] > 0 and mem["output_size_bytes"] > 0
+    assert rec["trace_s"] > 0
+
+
+def test_k4_on_meta_launches_nothing():
+    from repro_torch.distributed import observe
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    class Kernels:
+        def __init__(self):
+            self.seen = []
+
+        def move(self, *a):
+            pass
+
+        def kernel(self, name, flops, nbytes):
+            self.seen.append((name, flops, nbytes))
+
+    k4.reset_launch_count()
+    q = torch.empty((2, 40, 3, 96), dtype=torch.bfloat16, device="meta")
+    k = torch.empty((2, 40, 1, 96), dtype=torch.bfloat16, device="meta")
+    v = torch.empty((2, 40, 1, 64), dtype=torch.bfloat16, device="meta")
+    with observe.observing(Kernels()) as watch:
+        out = k4.flash_attention_bshd(q, k, v, causal=True, q_offset=0)
+    assert out.device.type == "meta" and out.shape == (2, 40, 3, 64)
+    assert out.dtype == torch.bfloat16 and k4.launch_count() == 0
+    pairs = 2 * 3 * 40 * 41 // 2
+    assert watch.seen == [("K4", 2.0 * pairs * (96 + 64),
+                           q.nbytes + k.nbytes + v.nbytes + out.nbytes)]
+
+
+def test_dryrun_phi4_prefill_agrees_with_the_reference_specs(lm_records):
+    """phi4-mini-3.8b's record against what the reference's dry-run
+    records: ``status``, ``kind``, ``model_flops`` and ``n_devices`` from
+    its registry, and each device's argument bytes from its own
+    ``lm_param_specs`` and input specs through ``jax.sharding`` (its
+    compile of the full 32-layer, 32k-token step is not run here)."""
+    import jax
+    from jax.sharding import PartitionSpec as P
+
+    from repro.configs import list_cells as j_list_cells
+    from repro.distributed.sharding import Sharder as JSharder
+
+    recs, _ = lm_records
+    j_cell = j_list_cells("phi4-mini-3.8b")["prefill_32k"]
+    for mesh in TINY:
+        got = recs[("phi4-mini-3.8b", mesh)]
+        multi = mesh == "tiny_multipod"
+        axes = ("pod", "data", "model") if multi else ("data", "model")
+        grid = (2, 2, 2) if multi else (2, 4)
+        j_mesh = jax.sharding.Mesh(
+            np.array(jax.devices()[:1] * 8, dtype=object).reshape(grid), axes)
+        shard = JSharder.for_mesh(j_mesh)
+        leaves = jax.tree.leaves(j_cell.abstract_inputs())
+        specs = jax.tree.leaves(
+            j_cell.logical_specs(), is_leaf=lambda x: isinstance(x, tuple)
+            and all(a is None or isinstance(a, str) for a in x))
+        assert len(leaves) == len(specs)
+        per_device = sum(
+            math.prod(jax.sharding.NamedSharding(
+                j_mesh, P(*shard.spec(*spec))).shard_shape(x.shape))
+            * x.dtype.itemsize for x, spec in zip(leaves, specs))
+        assert got["status"] == "ok" and got["kind"] == j_cell.kind
+        assert got["model_flops"] == j_cell.model_flops
+        assert got["n_devices"] == 8
+        assert got["memory"]["argument_size_bytes"] == per_device
 
 
 # -- against the reference's record ----------------------------------------------------------
