@@ -248,7 +248,7 @@ just after):
    its 32 layers, logged as ``reduced``): each data position holds the
    float32 gradient of its own sequence of one 2 x 4,096 batch; every
    position's mean held element by element to the same function in float64
-   on the host (``compress_reference``), each method's time and largest
+   on the card (``compress_reference``), each method's time and largest
    normwise relative error logged; (b) that model's parameters saved from
    the (2, 4) layout of ``lm_param_specs`` and restored with
    ``shardings=`` onto the transposed (4, 2) mesh of card positions, every
@@ -268,12 +268,26 @@ just after):
    run no further from the float32 run than ``MESH_ACCURACY`` times the
    unsharded one; K4's launches by route, wall times, moves by kind and
    the busiest position's peak bytes beside 80 GB.
+26. decode over a mesh (no kernel of its own: decode attention is plain
+   torch; K4 in the sharded prefill that fills the cache): the registry's
+   ``decode_32k`` step of phi4-mini-3.8b at full width and depth
+   (``models.transformer.sharded.decode_on_mesh``: the cache's sequence
+   over "model", the softmax split over "model" by ``pmax`` and ``psum``)
+   on caches of 32,768 positions over both tiny meshes of the cards
+   present repeated to 8 positions (2 and 4 sequences, one a data group),
+   filled by the sharded prefill, and of 4,096 at 2 sequences in bf16 and
+   float32; minicpm3-4b and phi3.5-moe-42b cut to 2 layers at 4 x 4,096;
+   ``DECODE_STEPS`` steps each (the 4,096 pair ``DECODE_TRUTH_STEPS``),
+   both runs fed the unsharded run's greedy
+   tokens, held to the unsharded port as phase 25 holds prefill (every
+   step's logits and the cache after the last); each step's ms, one
+   step's moves by kind and busiest position, one profiled sharded step.
 
 On a machine with several cards phase 15 also shards over the distinct
 cards (up to 4); the script needs one card.
 
 Phases 11-15, 19 and 23 run after phase 8, before K4 and serving; phases
-16-18 and 20-22, 24 and 25 run after phase 10.  Each phase's wall
+16-18 and 20-22 and 24-26 run after phase 10.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -2179,15 +2193,22 @@ def host_profile(label: str, fn, device, top: int = 4) -> None:
         log(f"[profile]   host {own * 1e3:12.4f} ms {calls:6d} x  {where[:80]}")
 
 
-def profile(label: str, fn, device, top: int = 8, spans: tuple = ()
-            ) -> tuple[float, float, dict[str, float]]:
+# how far the device sums of one trace may differ between the profiler's
+# events and key_averages(): their durations are kept in ns and in us
+PROFILE_SUMS_AGREE = 1e-4
+
+
+def profile(label: str, fn, device, top: int = 8, spans: tuple = (),
+            both_ways: bool = False) -> tuple[float, float, dict[str, float]]:
     """Where the device time of ``fn`` goes: ``torch.profiler`` over one
     call, the device's busy share of the host wall time (one stream, so
     kernels never overlap) and the ``top`` kernels that took the most of
     it.  Returns (wall ms, device busy ms, device ms by kernel name); the
     last also holds, under ``span:<name>``, the device time of the kernels
     launched inside each ``record_function`` span named in ``spans``,
-    summed over its calls."""
+    summed over its calls.  ``both_ways`` also sums the same trace by
+    ``key_averages()`` and fails unless the device sums agree within
+    ``PROFILE_SUMS_AGREE`` (relative), by kernel and in all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -2199,29 +2220,54 @@ def profile(label: str, fn, device, top: int = 8, spans: tuple = ()
         fn()
         sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    # the trace's events as the profiler recorded them: a device event is a
+    # kernel, copy or fill (its own time), a host event named cuda* a call
+    # to the CUDA runtime; summed by name here, which takes a fraction of
+    # the time key_averages() takes to build its event tree
+    dev: dict[str, list] = {}
+    api: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            into = dev
+        elif e.device_type() == DeviceType.CPU and e.name().startswith("cuda"):
+            into = api
+        else:
+            continue
+        acc = into.setdefault(e.name(), [0.0, 0])
+        acc[0] += e.duration_ns() / 1e6
+        acc[1] += 1
+    busy_ms = sum(ms for ms, _ in dev.values())
     log(f"[profile] {label}: wall {wall_ms:.4f} ms under the profiler, "
         f"device busy {busy_ms:.4f} ms ({busy_ms / wall_ms:.4%}), idle "
         f"{1 - busy_ms / wall_ms:.4%}")
-    for e in sorted(dev, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:top]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:12.4f} ms "
-            f"{e.count:6d} x  {e.key[:90]}")
+    for name, (ms, n) in sorted(dev.items(), key=lambda kv: kv[1][0],
+                                reverse=True)[:top]:
+        log(f"[profile]   {ms:12.4f} ms {n:6d} x  {name[:90]}")
     # the host side of the device work: kernel launches, copies (a copy
     # from pageable host memory waits for the stream) and synchronizations
-    api = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CPU
-                  and e.key.startswith("cuda")),
-                 key=lambda e: e.self_cpu_time_total, reverse=True)[:3]
-    for e in api:
-        log(f"[profile]   host {e.self_cpu_time_total / 1e3:12.4f} ms "
-            f"{e.count:6d} x  {e.key[:80]}")
-    by_kernel: dict[str, float] = {}
-    for e in dev:
-        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + e.self_device_time_total / 1e3
+    for name, (ms, n) in sorted(api.items(), key=lambda kv: kv[1][0],
+                                reverse=True)[:3]:
+        log(f"[profile]   host {ms:12.4f} ms {n:6d} x  {name[:80]}")
+    by_kernel = {name: ms for name, (ms, _) in dev.items()}
+    if both_ways:
+        avg: dict[str, float] = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and not getattr(
+                    e, "is_user_annotation", False):
+                ms = e.self_device_time_total / 1e3
+                avg[e.key] = avg.get(e.key, 0.0) + ms
+        avg_ms = sum(avg.values())
+        worst = max((abs(avg.get(k, 0.0) - by_kernel.get(k, 0.0))
+                     for k in set(avg) | set(by_kernel)), default=0.0)
+        log(f"[profile]   the same trace by key_averages(): device busy "
+            f"{avg_ms:.4f} ms over {len(avg)} names (events: {busy_ms:.4f} "
+            f"ms over {len(by_kernel)}); largest gap of one name "
+            f"{worst:.6f} ms")
+        check(abs(avg_ms - busy_ms) <= PROFILE_SUMS_AGREE * busy_ms
+              and worst <= PROFILE_SUMS_AGREE * busy_ms,
+              f"{label}: the trace's device sums disagree: events "
+              f"{busy_ms} ms, key_averages() {avg_ms} ms, one name by "
+              f"{worst} ms")
     for name in spans:
         # the host-side span: its device time is that of the kernels its
         # ops launched (the span on the device's own timeline is left out)
@@ -2764,8 +2810,10 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
                 + ", ".join(f"{x:.4%}" for x in shares))
     del routes
 
+    # phi4-mini's profile is summed both ways once: the check that
+    # profile()'s sums are what key_averages() gives
     _, busy, by_kernel = profile("serve, one prefill", lambda: prefill(
-        model, toks, cfg, prompt + gen), device)
+        model, toks, cfg, prompt + gen), device, both_ways=arch == LM_ARCH)
     k4_ms = sum(t for name, t in by_kernel.items()
                 if "flash_attention" in name)
     log(f"[serve] K4 takes {k4_ms:.4f} ms of the prefill's {busy:.4f} ms of "
@@ -4650,11 +4698,11 @@ COMPRESS_CHUNK = 1 << 26
 
 
 def compress_reference(xs: list, method, maxabs: list):
-    """The mean ``psum_mean_compressed`` computes, in float64 on the host,
-    of the members' float32 leaf slices ``xs`` (the reference's function
-    in exact arithmetic): ``(want, quantum)``, ``quantum`` the largest
-    float64 scale of an int8 leaf (from ``maxabs``, each member's largest
-    magnitude over its whole leaf) and 0 otherwise."""
+    """The mean ``psum_mean_compressed`` computes, in float64 on the
+    slices' device, of the members' float32 leaf slices ``xs`` (the
+    reference's function in exact arithmetic): ``(want, quantum)``,
+    ``quantum`` the largest float64 scale of an int8 leaf (from ``maxabs``,
+    each member's largest magnitude over its whole leaf) and 0 otherwise."""
     import torch
 
     scales = [max(m, 1e-9) / 127.0 for m in maxabs]
@@ -4677,8 +4725,9 @@ def phase_compress(device, seed: int, *, smoke: bool) -> dict:
     (``COMPRESS_LAYERS`` layers): data position d holds the float32 gradient
     of sequence d of one 2 x 4,096 batch (``grads_of``, phase 20's loss), as
     a data-parallel step computes it.  Every position's mean is held, element
-    by element, to the same function in float64 on the host from the same
-    trees (``compress_reference``): None and bf16 within the float32 sum's
+    by element, to the same function in float64 from the same trees
+    (``compress_reference``, on the card a chunk of a leaf at a time):
+    None and bf16 within the float32 sum's
     rounding, ``2**-23 * (|x_0| + |x_1|)`` of the summed values (as
     tests/test_torch_collectives.py holds them); int8 within one
     quantisation step, the largest scale (a float32 scale may put a value on
@@ -4731,7 +4780,6 @@ def phase_compress(device, seed: int, *, smoke: bool) -> dict:
               grads[mesh.position_index(p)["data"]].items()}
              for p in range(mesh.size)]
     groups = axis_groups(mesh, "data")
-    host = [{n: g.cpu() for n, g in t.items()} for t in grads]
     maxabs = {n: [float(t[n].abs().amax()) for t in grads] for n in grads[0]}
     out = {}
     for method in (None, "bf16", "int8"):
@@ -4754,7 +4802,7 @@ def phase_compress(device, seed: int, *, smoke: bool) -> dict:
             err = top = 0.0
             for a in range(0, grads[0][name].numel(), COMPRESS_CHUNK):
                 b = a + COMPRESS_CHUNK
-                xs = [h[name].view(-1)[a:b] for h in host]
+                xs = [g[name].view(-1)[a:b] for g in grads]
                 want, quantum = compress_reference(xs, method, maxabs[name])
                 on_card = {}     # (want, bound) on each card that holds one
                 for t in held.values():
@@ -4787,9 +4835,10 @@ def phase_compress(device, seed: int, *, smoke: bool) -> dict:
             f"over {len(groups)} groups of {groups.shape[1]} on "
             f"{len(set(devs))} card(s) ({len(grads[0])} leaves, "
             f"{n_elem:,} elements a tree); max normwise relative error "
-            f"against the float64 host mean {worst:.6e}")
+            f"against the float64 mean {worst:.6e} (checked on "
+            f"{device.type} in {time.perf_counter() - t0 - ms / 1e3:.4f} s)")
         out[str(method)] = {"ms": ms, "max_rel_err": worst}
-    del trees, grads, host
+    del trees, grads
 
     # (b) the elastic re-shard restore
     params = {n: prm.detach() for n, prm in model.named_parameters()}
@@ -4893,6 +4942,32 @@ class MoveLog:
         pass
 
 
+def greedy_agrees(what: str, got, want, vocab: int) -> tuple:
+    """The greedy token of every sequence (rows of ``got`` and ``want``,
+    logits over the padded vocabulary) equal, but where ``want``'s two top
+    logits lie closer than the two runs' largest logit gap of that
+    sequence (a near tie that a rounding decides), where ``got``'s token's
+    logit in ``want`` must lie within that gap of the top.  Returns
+    ``(tokens of got, tokens of want, ties, smallest top-2 margin, largest
+    gap)``."""
+    lg, lw = got[:, :vocab].float(), want[:, :vocab].float()
+    top_got, top_want = lg.argmax(-1), lw.argmax(-1)
+    gaps = (lg - lw).abs().amax(-1)
+    top2 = lw.topk(2, dim=-1).values
+    margins = top2[:, 0] - top2[:, 1]
+    ties = 0
+    for b in range(lg.shape[0]):
+        if int(top_got[b]) == int(top_want[b]):
+            continue
+        ties += 1
+        check(float(margins[b]) <= float(gaps[b]) and float(
+            top2[b, 0] - lw[b, top_got[b]]) <= float(gaps[b]),
+            f"{what}: sequence {b}'s greedy token {int(top_got[b])} != "
+            f"unsharded {int(top_want[b])} (top-2 margin "
+            f"{float(margins[b])}, largest gap {float(gaps[b])})")
+    return top_got, top_want, ties, float(margins.min()), float(gaps.max())
+
+
 def mesh_prefill_once(device, seed: int, arch: str, cfg, model, kind: str,
                       batch: int, prompt: int, *, profile_it: bool = False
                       ) -> dict:
@@ -4969,22 +5044,8 @@ def mesh_prefill_once(device, seed: int, arch: str, cfg, model, kind: str,
         ok, err = within(last, want, MESH_FLOAT32)
         check(ok, f"{what}: last logits beyond {MESH_FLOAT32} (max abs "
               f"{err})")
-    v = cfg.vocab_size
-    lg, lw = last[:, :v].float(), want[:, :v].float()
-    top_got, top_want = lg.argmax(-1), lw.argmax(-1)
-    gaps = (lg - lw).abs().amax(-1)
-    top2 = lw.topk(2, dim=-1).values
-    margins = top2[:, 0] - top2[:, 1]
-    ties = 0
-    for b in range(batch):
-        if int(top_got[b]) == int(top_want[b]):
-            continue
-        ties += 1
-        check(float(margins[b]) <= float(gaps[b]) and float(
-            top2[b, 0] - lw[b, top_got[b]]) <= float(gaps[b]),
-            f"{what}: sequence {b}'s greedy token {int(top_got[b])} != "
-            f"unsharded {int(top_want[b])} (top-2 margin "
-            f"{float(margins[b])}, largest gap {float(gaps[b])})")
+    top_got, top_want, ties, margin, gap = greedy_agrees(
+        what, last, want, cfg.vocab_size)
     check(got_cache["len"] == prompt, f"{what}: cache len {got_cache['len']}")
     cache_errs = {}
     for name, leaf in got_cache.items():
@@ -5002,8 +5063,7 @@ def mesh_prefill_once(device, seed: int, arch: str, cfg, model, kind: str,
                 check(ok, f"{what}: cache {name} layer {i} beyond "
                       f"{MESH_FLOAT32} (max abs {err})")
         del g
-    margin, gap = float(margins.min()), float(gaps.max())
-    del got, got_cache, want_cache, lg, lw
+    del got, got_cache, want_cache
     if cuda:
         torch.cuda.empty_cache()
     if profile_it:
@@ -5111,6 +5171,316 @@ def phase_mesh_prefill(device, seed: int, *, smoke: bool) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 26: the LMs' decode over a mesh
+# --------------------------------------------------------------------------
+
+# the decode steps of a run, after the prefill of the cache's length less
+# these many tokens; both runs are fed the unsharded run's greedy tokens.
+# The float32 truth and its bf16 partner (MESH_TRUTH) take fewer: a sharded
+# step of phi4-mini-3.8b takes about 0.7 s of host time on one card
+DECODE_STEPS = 8
+DECODE_TRUTH_STEPS = 3
+# (a) phi4-mini-3.8b at full width and depth: (mesh, batch, cache length) --
+# decode_32k's cache of 32,768 positions, its batch of 128 cut to one
+# sequence a data group; at 2 x 4,096 also in float32 from the same
+# weights, the function both bf16 runs are held to (MESH_ACCURACY)
+MESH_DECODE = (("tiny", 2, 32768), ("tiny_multipod", 4, 32768),
+               ("tiny", 2, 4096))
+# (b) MESH_CELLS (the MLA and MoE archs at 2 layers) on (2, 4)
+MESH_DECODE_CELL_SIZE = (4, 4096)
+# the unsharded prefill that fills a dense model's cache takes as many
+# sequences at once as keep its logits (of every position) within this
+DECODE_LOGIT_BYTES = 16e9
+
+
+def mesh_decode_once(device, seed: int, arch: str, cfg, model, kind: str,
+                     batch: int, max_len: int, *, fed: list | None = None,
+                     steps: int = DECODE_STEPS, profile_it: bool = False,
+                     trace_it: bool = True) -> dict:
+    """``steps`` decode steps of ``cfg`` over ``kind``'s mesh of the card
+    repeated to 8 positions, on the cache that the sharded prefill of
+    ``max_len - steps`` ``make_prompts`` tokens fills (the
+    ``ShardedTensor`` leaves of ``cache_specs``, the sequence over
+    "model"), held to the unsharded port on the same card: its cache
+    filled by prefill ``DECODE_LOGIT_BYTES`` of logits at a time (a
+    batch's logits over 32,768 positions would not fit beside two caches;
+    an MoE's batch whole), both runs fed the
+    unsharded run's greedy tokens (or ``fed``).  Each step's logits: in
+    bf16 within ``MESH_NORMWISE`` normwise a sequence, in float32 within
+    ``MESH_FLOAT32`` elementwise, greedy tokens equal but at a near tie
+    (:func:`greedy_agrees`); after the last step every cache leaf the
+    same way, and in bf16 the slots decode wrote on their own.  Logs each
+    step's sharded and unsharded ms, the moves of
+    one step by kind, K4's launches by route in the sharded prefill, and
+    the busiest position's peak bytes of one step under the dry-run's
+    cost model (``trace_it``); ``profile_it`` profiles one sharded step."""
+    import torch
+
+    from repro_torch.distributed import Sharder
+    from repro_torch.distributed.observe import observing
+    from repro_torch.distributed.sharding import shard_bounds
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.launch.hlo_cost import traced
+    from repro_torch.launch.mesh import make_tiny_mesh
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.transformer import (
+        decode_step,
+        init_cache,
+        prefill,
+    )
+
+    cuda = device.type == "cuda"
+    mesh = make_tiny_mesh(multi_pod=kind == "tiny_multipod",
+                          devices=repeated_cards(device, 8))
+    shard = Sharder.for_mesh(mesh)
+    prompt = max_len - steps
+    start = time.perf_counter()
+    what = (f"{arch} over {kind} {mesh.shape}, {batch} x {max_len}, "
+            f"{cfg.dtype}")
+    toks = torch.as_tensor(make_prompts(cfg, batch, prompt, seed),
+                           device=device)
+    names = ("ckv", "krope") if cfg.is_mla else ("k", "v")
+    bf16 = cfg.dtype == "bfloat16"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    sync(device)
+    t0 = time.perf_counter()
+    # sequences a prefill: a dense FFN's rows are independent, an MoE's are
+    # not (its capacity counts the dispatch's tokens), so only a dense
+    # model splits its batch
+    per = batch if cfg.moe is not None else max(1, min(batch, int(
+        DECODE_LOGIT_BYTES // (prompt * cfg.padded_vocab
+                               * model.head.element_size()))))
+    want_cache = init_cache(cfg, batch, max_len, device=device)
+    last = torch.empty((batch, cfg.padded_vocab), dtype=model.head.dtype,
+                       device=device)
+    for b in range(0, batch, per):
+        rows, part = prefill(model, toks[b:b + per], cfg, max_len)
+        last[b:b + per] = rows
+        for name in names:
+            want_cache[name][:, b:b + per] = part[name]
+        del rows, part
+    want_cache["len"] = prompt
+    sync(device)
+    plain_s = time.perf_counter() - t0
+    k4.reset_launch_count()
+    t0 = time.perf_counter()
+    _, got_cache = prefill(model, toks, cfg, max_len, shard)
+    sync_all(mesh.devices.flat)
+    mesh_s = time.perf_counter() - t0
+    launches = k4.launch_count()
+    routes = {v: k4.launch_count(v) for v in k4.VARIANTS}
+    cols = mesh.shape["model"]
+    holding = mesh.size // cols * sum(
+        hi > lo for lo, hi in shard_bounds(cfg.n_heads, cols))
+    route = "wgmma" if bf16 else "simt"
+    want_launches = holding * cfg.n_layers if cuda else 0
+    check(launches == want_launches and routes[route] == launches,
+          f"{what}: the prefill's K4 launches {launches} by route {routes}, "
+          f"want {want_launches} all on {route}")
+
+    t_steps = time.perf_counter()
+    fed_out, got_steps, want_steps = [], [], []
+    ms = {"sharded": [], "unsharded": []}
+    moves = MoveLog()
+    errs, ties, margin, gap = [], 0, math.inf, 0.0
+    for i in range(steps):
+        t = last[:, :cfg.vocab_size].argmax(-1) if fed is None else fed[i]
+        fed_out.append(t)
+        sync(device)
+        t0 = time.perf_counter()
+        last, want_cache = decode_step(model, want_cache, t, cfg)
+        sync(device)
+        ms["unsharded"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        with observing(moves) if i == 0 else contextlib.nullcontext():
+            got, got_cache = decode_step(model, got_cache, t, cfg, shard)
+        sync_all(mesh.devices.flat)
+        ms["sharded"].append((time.perf_counter() - t0) * 1e3)
+        g = got.gather(device)
+        check(bool(torch.isfinite(g).all()), f"{what}: step {i}'s logits "
+              "not finite")
+        step_errs = [leaf_normwise(g[b:b + 1], last[b:b + 1])
+                     for b in range(batch)]
+        if bf16:
+            check(max(step_errs) <= MESH_NORMWISE,
+                  f"{what}: step {i}'s logits normwise {step_errs} beyond "
+                  f"{MESH_NORMWISE}")
+        else:
+            ok, err = within(g, last, MESH_FLOAT32)
+            check(ok, f"{what}: step {i}'s logits beyond {MESH_FLOAT32} "
+                  f"(max abs {err})")
+        errs.append(max(step_errs))
+        _, _, n_ties, m, gp = greedy_agrees(f"{what}, step {i}", g, last,
+                                            cfg.vocab_size)
+        ties, margin, gap = ties + n_ties, min(margin, m), max(gap, gp)
+        got_steps.append(g)
+        want_steps.append(last)
+    laps = {"steps": time.perf_counter() - t_steps}
+    check(got_cache["len"] == max_len == want_cache["len"],
+          f"{what}: cache len {got_cache['len']}, unsharded "
+          f"{want_cache['len']}")
+    t0 = time.perf_counter()
+    cache_errs, slot_errs = {}, {}
+    for name in names:
+        g = got_cache[name].gather(device)
+        cache_errs[name] = leaf_normwise(g, want_cache[name])
+        if bf16:
+            check(cache_errs[name] <= MESH_NORMWISE,
+                  f"{what}: cache {name} normwise {cache_errs[name]} beyond "
+                  f"{MESH_NORMWISE}")
+            # the slots decode wrote, on their own: a lost or misplaced
+            # write hides in the whole cache's norm
+            new = (slice(None), slice(None), slice(prompt, max_len))
+            slot_errs[name] = leaf_normwise(g[new], want_cache[name][new])
+            check(slot_errs[name] <= MESH_NORMWISE,
+                  f"{what}: cache {name}'s written slots {prompt}..{max_len} "
+                  f"normwise {slot_errs[name]} beyond {MESH_NORMWISE}")
+        else:
+            for i in range(cfg.n_layers):
+                ok, err = within(g[i], want_cache[name][i], MESH_FLOAT32)
+                check(ok, f"{what}: cache {name} layer {i} beyond "
+                      f"{MESH_FLOAT32} (max abs {err})")
+        del g
+    del want_cache
+    card_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    # one more step at the last slot (its entry written again, from the
+    # same token): profiled, and under the dry-run's cost model
+    again = {**got_cache, "len": max_len - 1}
+    t = fed_out[-1]
+    laps["cache check"] = time.perf_counter() - t0
+    if profile_it:
+        t0 = time.perf_counter()
+        profile(f"{what}, one sharded decode step", lambda: decode_step(
+            model, again, t, cfg, shard), device)
+        laps["profile"] = time.perf_counter() - t0
+    busy = "busiest position not traced"
+    peak = None
+    if trace_it:
+        t0 = time.perf_counter()
+        with traced(mesh.size) as model_cost:
+            decode_step(model, again, t, cfg, shard)
+        sync_all(mesh.devices.flat)
+        peaks = model_cost.peaks()
+        busiest = max(range(mesh.size), key=lambda q: peaks[q])
+        peak = peaks[busiest]
+        busy = (f"busiest position {busiest}: peak {peak} B live past its "
+                f"inputs = {peak / CARD_BYTES:.4%} of 80 GB (traced step "
+                f"{time.perf_counter() - t0:.4f} s)")
+    del got_cache, again
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"[mesh-decode] {what} on {len(set(mesh.devices.flat))} distinct "
+        f"card(s): the cache filled by prefill of {batch} x {prompt} "
+        f"(unsharded, {per} sequence(s) at a time, {plain_s:.4f} s; sharded "
+        f"{mesh_s:.4f} s, K4 {launches} launches by route {routes}); "
+        f"{steps} steps, ms unsharded "
+        f"{[f'{x:.4f}' for x in ms['unsharded']]}, sharded "
+        f"{[f'{x:.4f}' for x in ms['sharded']]}; logits normwise up to "
+        f"{max(errs):.6e} (per step {[f'{e:.3e}' for e in errs]}), max abs "
+        f"gap {gap:.6g}; greedy tokens {[x.tolist() for x in fed_out]} "
+        f"({ties} decided by a near tie; smallest top-2 margin "
+        f"{margin:.6g}); cache normwise "
+        f"{ {k: f'{e:.3e}' for k, e in cache_errs.items()} }, the written "
+        f"slots { {k: f'{e:.3e}' for k, e in slot_errs.items()} } (bound "
+        f"{MESH_NORMWISE if bf16 else MESH_FLOAT32}); one step's moves by "
+        f"kind {dict(sorted(moves.kinds.items()))}; {busy}; card peak "
+        f"{card_peak / 2**30:.4f} GiB; the run took "
+        f"{time.perf_counter() - start:.4f} s (of which "
+        f"{ {k: f'{v:.4f}' for k, v in laps.items()} } s)")
+    return {"launches": launches, "routes": routes, "ms": ms,
+            "prefill_s": {"unsharded": plain_s, "sharded": mesh_s},
+            "normwise": max(errs), "cache_normwise": cache_errs,
+            "moves": moves.kinds, "peak_bytes": peak,
+            "dtype": cfg.dtype, "fed": fed_out, "got": torch.stack(got_steps),
+            "want": torch.stack(want_steps)}
+
+
+def phase_mesh_decode(device, seed: int, *, smoke: bool) -> dict:
+    """Phase 26.  (a) phi4-mini-3.8b at full width and depth, decoding over
+    ``make_tiny_mesh`` of the card repeated to 8 positions with a cache of
+    2 x 32,768, over ``make_tiny_mesh(multi_pod=True)`` with 4 x 32,768,
+    and over (2, 4) with 2 x 4,096, in bf16; at ``MESH_TRUTH`` also in
+    float32 from the same weights and fed the bf16 run's tokens, where each
+    bf16 run's normwise distance to the float32 unsharded logits (all
+    steps) is logged and the sharded one's held within ``MESH_ACCURACY``
+    times the unsharded one's (``DECODE_TRUTH_STEPS`` steps each); (b)
+    ``MESH_CELLS`` (minicpm3-4b, MLA, and
+    phi3.5-moe-42b, MoE, at full width cut to 2 layers, ``reduced``) over
+    (2, 4) with 4 x 4,096; each through :func:`mesh_decode_once`.  A CPU
+    rehearsal (``smoke``) runs the smoke configs with 2 x 104.  Returns
+    K4's launches and routes in the sharded prefills."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.models.transformer import init_lm_params
+
+    launches, routes, out = 0, dict.fromkeys(k4.VARIANTS, 0), {}
+    runs = [(LM_ARCH, None, kind, b, s, (kind, b, s) == MESH_DECODE[0])
+            for kind, b, s in MESH_DECODE]
+    runs += [(arch, depth, "tiny", *MESH_DECODE_CELL_SIZE, False)
+             for arch, depth in MESH_CELLS]
+    model, made = None, None
+    for arch, depth, kind, b, s, prof in runs:
+        cfg = get_arch(arch).smoke_config() if smoke else \
+            get_arch(arch).full_config()
+        truth = arch == LM_ARCH and (kind, b, s) == MESH_TRUTH
+        if smoke:
+            b, s, prof = 2, 104, False
+        elif depth is not None:
+            log(f"[mesh-decode] reduced: {arch} keeps {depth} of its "
+                f"{cfg.n_layers} layers (dataclasses.replace(cfg, n_layers="
+                f"{depth})); every width as published")
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        if arch == LM_ARCH and not smoke:
+            log(f"[mesh-decode] reduced: {arch} decode_32k's batch of 128 "
+                f"cut to {b} (one sequence a data group of {kind}), its "
+                f"cache {s} positions")
+        if made != arch:        # phi4-mini-3.8b's runs share one model
+            del model
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            model, made = init_lm_params(cfg, seed=seed, device=device), arch
+        # the truth pair is held to each other, not measured for its bytes
+        steps = DECODE_TRUTH_STEPS if truth else DECODE_STEPS
+        results = [mesh_decode_once(device, seed, arch, cfg, model, kind, b,
+                                    s, steps=steps, profile_it=prof,
+                                    trace_it=not truth)]
+        if truth:
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            model, made = model.float(), None
+            results.append(mesh_decode_once(device, seed, arch, cfg32, model,
+                                            kind, b, s, steps=steps,
+                                            trace_it=False,
+                                            fed=results[0]["fed"]))
+            r16, r32 = results
+            far = [leaf_normwise(r16[k], r32["want"]) for k in ("want", "got")]
+            log(f"[mesh-decode] {arch} on {kind}, {b} x {s}: normwise "
+                f"distance of {steps} steps' logits to the float32 "
+                f"unsharded run: unsharded bf16 {far[0]:.6e}, sharded bf16 "
+                f"{far[1]:.6e}; float32 sharded {r32['normwise']:.6e}")
+            check(far[1] <= MESH_ACCURACY * far[0],
+                  f"{arch} on {kind}: the sharded bf16 decode is {far[1]} "
+                  f"from the float32 run, the unsharded {far[0]}")
+            out["float32_distance"] = {"unsharded": far[0], "sharded": far[1]}
+        for r in results:
+            for k in ("got", "want", "fed"):
+                r.pop(k)
+            out[f"{arch}@{kind} {b}x{s} {r['dtype']}"] = r
+            launches += r["launches"]
+            routes = add_routes(routes, r["routes"])
+    del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["launches"], out["routes"] = launches, routes
+    return out
+
+
 class PhaseClock:
     """Logs the wall time of each phase since the previous lap."""
 
@@ -5128,7 +5498,7 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
         alpha0: float = 1.02, tenant_unique: int = 50_000,
         serve_batch: int = SERVE_BATCH) -> list[dict]:
-    """Phases 0-25 on ``device``; returns the kernels records."""
+    """Phases 0-26 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -5276,9 +5646,13 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     clock.lap("24 gradient compression and elastic restore")
     meshed = phase_mesh_prefill(device, seed, smoke=lm_smoke)
     clock.lap("25 prefill over a mesh")
+    decoded = phase_mesh_decode(device, seed, smoke=lm_smoke)
+    clock.lap("26 decode over a mesh")
     k4_launches = {f"{a} (serve)": v["launches"] for a, v in k4_serve.items()}
     k4_launches[f"{LM_ARCH} (train, 3 steps)"] = trained["launches"]
     k4_launches["prefill over a mesh (phase 25)"] = meshed["launches"]
+    k4_launches["the prefills that fill decode's cache over a mesh "
+                "(phase 26)"] = decoded["launches"]
     src = "src/repro_torch/kernels/butterfly/csrc/"
     ref = "src/repro/kernels/butterfly/butterfly_kernel.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -232,8 +232,8 @@ def lm_cells(cfg: LMConfig, *, n_microbatches: int = 8,
             flops = _lm_flops(cfg, S * B, "prefill")
         else:  # decode
             def make_step(shard, cfg=cfg):
-                _no_mesh(shard)
-                return lambda p, cache, toks: decode_step(p, cache, toks, cfg)
+                return lambda p, cache, toks: decode_step(p, cache, toks, cfg,
+                                                          shard)
 
             def abstract_inputs(cfg=cfg, S=S, B=B):
                 return (_abstract(param_shapes(cfg)),

@@ -24,12 +24,12 @@ group of positions along the axis at the group's first position and places
 the mean back on every member, as the halo losses
 (``models.gnn.halo_loss``) sum over their devices.
 
-:func:`all_gather`, :func:`psum`, :func:`reduce_scatter` and
-:func:`resplit` are the collectives of the sharded LM trunk
+:func:`all_gather`, :func:`psum`, :func:`pmax`, :func:`reduce_scatter`
+and :func:`resplit` are the collectives of the sharded LM trunk
 (``models.transformer.sharded``) over the groups of one mesh axis, on one
 tensor per position: each member's piece is concatenated in group order,
-summed at the group's first position in group order, or split anew, and
-every move between positions is reported under XLA's name.
+summed (or maxed) at the group's first position in group order, or split
+anew, and every move between positions is reported under XLA's name.
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ from .observe import at_position, note_move
 from .sharding import shard_bounds, to_device
 
 __all__ = ["all_gather", "all_to_all", "axis_groups", "compress_grads",
-           "decompress_grads", "psum", "psum_mean_compressed",
+           "decompress_grads", "pmax", "psum", "psum_mean_compressed",
            "reduce_scatter", "resplit", "ring_pair_count"]
 
 
@@ -130,16 +130,30 @@ def all_gather(pieces: Sequence[torch.Tensor], mesh: Mesh, axis,
     return out
 
 
-def _group_sum(pieces, group, kind: str, devs) -> torch.Tensor:
-    """The sum of the group's pieces at its first position, in group
-    order; each other member's piece is a ``kind`` move to it."""
+def _group_sum(pieces, group, kind: str, devs, op=torch.add) -> torch.Tensor:
+    """``op`` (a sum by default) of the group's pieces at its first
+    position, in group order; each other member's piece is a ``kind`` move
+    to it."""
     home = int(group[0])
     with on_device(devs[home]), at_position(home):
         acc = pieces[home]
         for q in (int(r) for r in group[1:]):
             note_move(kind, q, home, pieces[q].nbytes)
-            acc = acc + to_device(pieces[q], devs[home])
+            acc = op(acc, to_device(pieces[q], devs[home]))
     return acc
+
+
+def _all_reduce(pieces, mesh: Mesh, axis, op) -> list:
+    devs = mesh.devices.ravel()
+    out: list = [None] * mesh.size
+    for group in axis_groups(mesh, axis):
+        total = _group_sum(pieces, group, "all-reduce", devs, op)
+        home = int(group[0])
+        for p in (int(q) for q in group):
+            if p != home:
+                note_move("all-reduce", home, p, total.nbytes)
+            out[p] = to_device(total, devs[p])
+    return out
 
 
 def psum(pieces: Sequence[torch.Tensor], mesh: Mesh, axis) -> list:
@@ -148,16 +162,14 @@ def psum(pieces: Sequence[torch.Tensor], mesh: Mesh, axis) -> list:
     every member's device (members on one device share one tensor).  Each
     piece to the first position and each sum back is an ``all-reduce``
     move."""
-    devs = mesh.devices.ravel()
-    out: list = [None] * mesh.size
-    for group in axis_groups(mesh, axis):
-        total = _group_sum(pieces, group, "all-reduce", devs)
-        home = int(group[0])
-        for p in (int(q) for q in group):
-            if p != home:
-                note_move("all-reduce", home, p, total.nbytes)
-            out[p] = to_device(total, devs[p])
-    return out
+    return _all_reduce(pieces, mesh, axis, torch.add)
+
+
+def pmax(pieces: Sequence[torch.Tensor], mesh: Mesh, axis) -> list:
+    """The all-reduce max over ``axis``, elementwise, moved as
+    :func:`psum` moves its sum (each move an ``all-reduce``); a max is
+    exact, so the group's order does not change it."""
+    return _all_reduce(pieces, mesh, axis, torch.maximum)
 
 
 def reduce_scatter(pieces: Sequence[torch.Tensor], mesh: Mesh, axis,

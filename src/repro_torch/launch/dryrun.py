@@ -24,9 +24,15 @@ Per cell it prints and records, in ``<out>/<mesh>/<arch>__<shape>.json``:
   trace_s      the trace's wall time, in place of ``lower_s`` / ``compile_s``
 
 A cell whose step raises is recorded as ``"error"`` with its message: the
-LMs' train and decode steps and the GNN and xDeepFM steps on a mesh
-(ROADMAP Queue 1 item 3).  The LMs' prefill cells trace over the mesh
+LMs' train steps and the GNN and xDeepFM steps on a mesh (ROADMAP Queue 1
+item 3).  The LMs' prefill and decode cells trace over the mesh
 (``models.transformer.sharded``), K4 counted through ``note_kernel``.
+A cell's donated inputs (decode's cache) reach the step placed by
+``in_shardings``, as ``ShardedTensor`` leaves, as the step would receive
+them from the prefill that filled them.  The cache's ``len`` has no value
+on ``meta``: the trace takes one stand-in, the last slot (``max_len - 1``,
+the step with the most positions to attend), and the record says so under
+``cache_len``.
 
 The reference's ``collective_bytes`` has no counterpart: it sums the
 result bytes of the collectives in XLA's HLO text, which a torch step does
@@ -40,6 +46,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch sgrapp --mesh pod
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch phi4-mini-3.8b \\
       --shape prefill_32k --mesh tiny
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minicpm3-4b \\
+      --shape decode_32k --mesh pod
 """
 from __future__ import annotations
 
@@ -92,6 +100,16 @@ def _materialize(tree):
     return type(tree)(_materialize(v) for v in tree)
 
 
+def _placed(tree, shardings):
+    """``tree``'s tensors placed by ``shardings`` (one structure): a tree
+    of ``ShardedTensor``."""
+    if isinstance(tree, dict):
+        return {k: _placed(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_placed(v, s) for v, s in zip(tree, shardings))
+    return shardings.put(tree)
+
+
 def _argument_bytes(inputs, in_sh, n: int) -> list[int]:
     """Each position's bytes of the inputs' shards, as ``in_shardings``
     places them."""
@@ -134,10 +152,17 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str, out_dir: str,
         in_sh = cell.in_shardings(shard)
         inputs = _materialize(abstract)
         args = _argument_bytes(inputs, in_sh, mesh.size)
+        inputs = tuple(_placed(x, in_sh[i]) if i in cell.donate else x
+                       for i, x in enumerate(inputs))
         with traced(mesh.size) as model:
             out = step(*inputs)
         t_trace = time.perf_counter() - t0
         summary = model.summary()
+        if cell.kind == "decode":
+            rec["cache_len"] = {
+                "stand_in": out[1]["len"] - 1,
+                "why": "len has no value on meta: the last slot, max_len - "
+                       "1, the step with the most positions to attend"}
         rec.update(
             status="ok",
             trace_s=round(t_trace, 4),

@@ -14,7 +14,9 @@ it sums:
 
   flops        ``2 M N K`` per matmul, by ``torch.utils.flop_counter``'s
                formulas (``mm``, ``bmm``, ``addmm``, convolutions, SDPA), as
-               ``analyze_hlo`` counts dots; plus each unseen kernel's
+               ``analyze_hlo`` counts dots, and the same for ``matmul`` and
+               ``einsum``, which reach the mode whole under
+               ``inference_mode``; plus each unseen kernel's
                operations as its bound reckons them (K1 on ``meta``: the
                strict upper triangle of each window's Gram)
   bytes        operands plus results of every op; views and allocations
@@ -34,6 +36,7 @@ computations) have no counterpart in a torch step and are left out.
 from __future__ import annotations
 
 import contextlib
+import math
 import weakref
 from collections import defaultdict
 
@@ -50,6 +53,35 @@ _aten = torch.ops.aten
 # ops that only allocate: no bytes move
 _ALLOCATIONS = {_aten.empty, _aten.empty_like, _aten.empty_strided,
                 _aten.new_empty, _aten.new_empty_strided}
+
+
+def _matmul_flops(a, b, *args, out_val=None, **kwargs) -> float:
+    """``2 K`` per output element of ``torch.matmul``."""
+    return 2.0 * out_val.numel() * a.shape[-1]
+
+
+def _einsum_flops(equation, operands, *args, out_val=None, **kwargs) -> float:
+    """``2`` per point of the index space of a two-operand ``einsum`` (each
+    index's size once; an ellipsis' dims as the output's), ``0`` for
+    one operand."""
+    if len(operands) < 2:
+        return 0.0
+    sizes: dict = {}
+    for spec, t in zip(equation.replace(" ", "").split("->")[0].split(","),
+                       operands):
+        letters = spec.replace("...", "")
+        lead = t.dim() - len(letters)
+        sizes.update(zip(letters, t.shape[lead:] if "..." in spec
+                         else t.shape))
+        if "..." in spec:
+            sizes["..."] = math.prod(t.shape[:lead])
+    return 2.0 * math.prod(sizes.values())
+
+
+# composite ops that reach the dispatch whole under ``inference_mode``
+# (serving's steps run under it), where the mode does not see their
+# decomposition into ``mm`` / ``bmm``
+_COMPOSITE_FLOPS = {_aten.matmul: _matmul_flops, _aten.einsum: _einsum_flops}
 
 
 def _storage_key(t: torch.Tensor) -> int:
@@ -149,7 +181,7 @@ class CostModel(TorchDispatchMode):
         in_keys = {_storage_key(t) for t in ins}
         fresh = [t for t in outs if _storage_key(t) not in in_keys]
         packet = func.overloadpacket
-        formula = flop_registry.get(packet)
+        formula = flop_registry.get(packet) or _COMPOSITE_FLOPS.get(packet)
         if formula is not None:
             self.flops[p] += float(formula(*args, **kwargs, out_val=out))
         mutable = self._mutable.get(func)

@@ -28,8 +28,8 @@ from ...kernels.flash_attention.flash_kernel import flash_attention_bshd
 from .rope import apply_rope, rope_freqs
 
 __all__ = ["attention_backward", "attention_scale", "gqa_attention_chunked",
-           "gqa_attention_heads", "gqa_decode_attention", "mla_attention",
-           "mla_decode_attention"]
+           "gqa_attention_heads", "gqa_decode_attention", "kv_heads_of",
+           "mla_attention", "mla_decode_attention"]
 
 _NEG = -1e30
 
@@ -139,6 +139,21 @@ def gqa_attention_chunked(
                                    chunk_k, attention_scale(q.shape[-1]))
 
 
+def kv_heads_of(k: torch.Tensor, v: torch.Tensor, first: int, h: int,
+                n_heads: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The key/value heads (dim 2 of ``k`` and ``v``, all ``Hkv`` of a
+    layer) that query heads ``first .. first + h`` of ``n_heads`` read:
+    where the slice is whole groups, their key/value heads as a block (the
+    layer's group size); where it straddles a group, each query head's own
+    (group size 1)."""
+    g = n_heads // k.shape[2]
+    if first % g == 0 and h % g == 0:
+        return (k[:, :, first // g:(first + h) // g],
+                v[:, :, first // g:(first + h) // g])
+    idx = torch.arange(first, first + h, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def gqa_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         first: int, n_heads: int, *, chunk_q: int = 1024,
                         chunk_k: int = 1024) -> torch.Tensor:
@@ -152,14 +167,9 @@ def gqa_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous, so that K4 reads them through TMA as they lie.  No head:
     an empty ``[B, S, 0, hd_v]``."""
     b, s, h, _ = q.shape
-    g = n_heads // k.shape[2]
     if h == 0:
         return q.new_empty((b, s, 0, v.shape[3]))
-    if first % g == 0 and h % g == 0:
-        k, v = k[:, :, first // g:(first + h) // g], v[:, :, first // g:(first + h) // g]
-    else:
-        idx = torch.arange(first, first + h, device=k.device) // g
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    k, v = kv_heads_of(k, v, first, h, n_heads)
     return gqa_attention_chunked(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal=True,
                                  chunk_q=chunk_q, chunk_k=chunk_k)

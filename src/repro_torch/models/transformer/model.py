@@ -370,11 +370,21 @@ def prefill(params: TransformerLM, tokens: torch.Tensor, cfg: LMConfig,
 
 @torch.inference_mode()
 def decode_step(params: TransformerLM, cache: dict, tokens: torch.Tensor,
-                cfg: LMConfig) -> tuple[torch.Tensor, dict]:
+                cfg: LMConfig, shard=None) -> tuple[torch.Tensor, dict]:
     """One token for every sequence in the batch (``tokens [B]``): returns
     ``(logits [B, Vp], cache)`` with the new cache entries written at
     position ``cache["len"]`` and ``len`` advanced by one.  The cache's
-    tensors are updated in place (the reference donates them)."""
+    tensors are updated in place (the reference donates them).
+
+    ``shard`` is a ``distributed.Sharder``: on a mesh the step runs over
+    its positions (:func:`.sharded.decode_on_mesh`; ``params`` may then
+    also be the reference's tree, the cache's leaves ``ShardedTensor`` ones
+    as prefill returns them) and the logits come back as a
+    ``ShardedTensor``; without one it does nothing."""
+    if shard is not None and shard.mesh is not None:
+        from .sharded import decode_on_mesh
+
+        return decode_on_mesh(params, cache, tokens, cfg, shard)
     first, second = _cache_names(cfg)
     cache_len = int(cache["len"])
     if cache_len >= cache[first].shape[2]:

@@ -1,6 +1,8 @@
-"""The LM's prefill over a mesh: the program the reference's GSPMD makes
-of ``prefill`` with a ``Sharder`` on a mesh, run in one process position
-by position (``models.transformer.model.prefill(..., shard=)``).
+"""The LM's prefill and decode over a mesh: the programs the reference's
+GSPMD makes of ``prefill`` and ``decode_step`` with a ``Sharder`` on a
+mesh, run in one process position by position
+(``models.transformer.model.prefill(..., shard=)``, ``decode_step(...,
+shard=)``).
 
 A mesh position ``p`` is a (data group ``g``, "model" column ``m``) pair:
 ``axis_groups(mesh, "model")`` row ``g``, entry ``m``.  The parameters are
@@ -29,6 +31,14 @@ The activations follow the reference's ``shard.act`` calls:
 * the cache: each position's block of ``cache_specs`` (the sequence over
   "model" where ``cfg.seq_shard_attn_cache``), padded to ``max_len``.
 
+Decode (:func:`decode_on_mesh`) takes the cache laid out by ``cache_specs``
+(what prefill returns) and follows the same rules for the one new token a
+sequence; where the cache's sequence lies over "model"
+(``cfg.seq_shard_attn_cache``, every arch's default) each position attends
+all heads over its block of positions, the reference's ``act(scores,
+"batch", None, None, "model")`` (MLA: ``("batch", None, "model")``), with
+the softmax split over "model" (:func:`_split_softmax`).
+
 Row-parallel products are summed in float32 and rounded once to the
 model's dtype, as the unsharded product accumulates (on the card
 ``torch.mm(..., out_dtype=torch.float32)``, on the CPU a float32 product
@@ -41,20 +51,35 @@ seq_parallel=True)``) is not ported.
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from ...device import on_device
-from ...distributed.collectives import all_gather, axis_groups, psum, resplit
+from ...core.butterfly import full_fp32_matmul
+from ...distributed.collectives import (
+    all_gather,
+    axis_groups,
+    pmax,
+    psum,
+    resplit,
+)
 from ...distributed.observe import at_position
 from ...distributed.sharding import ShardedTensor, shard_bounds
 from ..common import rms_norm
-from .attention import gqa_attention_chunked, gqa_attention_heads
+from .attention import (
+    _NEG,
+    attention_scale,
+    gqa_attention_chunked,
+    gqa_attention_heads,
+    gqa_decode_attention,
+    kv_heads_of,
+)
 from .moe import MOE_KEYS, moe_apply_mesh
 from .rope import apply_rope, rope_freqs
 
-__all__ = ["prefill_on_mesh"]
+__all__ = ["cache_len_of", "decode_on_mesh", "prefill_on_mesh"]
 
 
 class _Layout:
@@ -349,3 +374,264 @@ def prefill_on_mesh(params, tokens: torch.Tensor, cfg, max_len: int, shard
                                tuple(cache[name])) for name in names}
     out["len"] = s
     return ShardedTensor(out_sharding, shape, tuple(last)), out
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def cache_len_of(length, max_len: int) -> int:
+    """The cache's ``len`` as an int: a Python int, or a scalar tensor (or a
+    ``ShardedTensor`` of one) read on its device.  On ``meta`` it has no
+    value, and the dry-run's trace takes the stand-in ``max_len - 1``, the
+    last slot: the step with the most positions to attend."""
+    if isinstance(length, ShardedTensor):
+        length = length.shards[0]
+    if isinstance(length, torch.Tensor) and length.device.type == "meta":
+        return max_len - 1
+    return int(length)
+
+
+def _decode_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  first: int, n_heads: int, length: int) -> torch.Tensor:
+    """:func:`.attention.gqa_decode_attention` of query heads ``first ..
+    first + h`` of ``n_heads`` (``q [b, h, hd]``) against the whole cache
+    ``k``, ``v [b, S, Hkv, hd]`` (:func:`.attention.kv_heads_of`)."""
+    b, h, _ = q.shape
+    if h == 0:
+        return q.new_empty((b, 0, v.shape[3]))
+    return gqa_decode_attention(q, *kv_heads_of(k, v, first, h, n_heads),
+                                length)
+
+
+class _Step(NamedTuple):
+    """What every layer of one decode step shares: the slot written, each
+    device's rope tables for it, each position's mask of the cache's
+    positions past the new entry (its block, or the whole sequence), and
+    whether the cache's sequence lies over "model"."""
+    slot: int
+    rope: dict
+    masks: list
+    seq: bool
+
+
+def _split_softmax(lay: _Layout, scores: list) -> list:
+    """The softmax over the last dim of scores split over "model" (each
+    position's float32 block): the block's max, ``pmax``; ``exp``, the
+    block's sum, ``psum``; ``e / sum``: the reference's softmax, its sum
+    added block by block.  An empty block adds nothing."""
+    def block_max(p, s):
+        return s.amax(-1) if s.shape[-1] else s.new_full(s.shape[:-1], _NEG)
+    top = pmax(lay.each(block_max, scores), lay.mesh, lay.model)
+    e = lay.each(lambda p, s, m: torch.exp(s - m[..., None]), scores, top)
+    total = psum(lay.each(lambda p, x: x.sum(-1), e), lay.mesh, lay.model)
+    return lay.each(lambda p, x, t: x / t[..., None], e, total)
+
+
+def _own_rows(lay: _Layout, xs: list, wo: list, dtype) -> list:
+    """``xs`` whole at every position times ``wo`` row-parallel: each
+    position's row block (``wo``'s rows split evenly over "model"), a
+    float32 partial, summed over "model" and rounded once to ``dtype``."""
+    bounds = shard_bounds(xs[0].shape[-1], lay.n_cols)
+
+    def part(p, x, w):
+        lo, hi = bounds[lay.col[p]]
+        return _partial(x[..., lo:hi], w)
+    return lay.reduce(lay.each(part, xs, wo), dtype)
+
+
+def _write(lay: _Layout, leaf, i: int, slot: int, new: list) -> None:
+    """Layer ``i``'s entry at ``slot`` of ``leaf`` (a ``ShardedTensor``
+    ``[L, B, S, ...]``) from ``new[p]`` ``[b_g, ...]``, in place at each
+    position whose block of the sequence holds the slot."""
+    for p in lay.positions:
+        seq = leaf.sharding.shard_slices(p, leaf.shape)[2]
+        if seq.start <= slot < seq.stop:
+            with lay.at(p):
+                shard = leaf.shards[p]
+                shard[i, :, slot - seq.start] = new[p].to(shard.dtype)
+
+
+def _gqa_decode(lay: _Layout, w: dict, h: list, cfg, cache: dict, i: int,
+                at: _Step) -> list:
+    """Layer ``i``'s attention for one token a sequence over the positions:
+    the new k and v written at ``at.slot``; ``at.seq`` (the cache's
+    sequence over "model"): all heads against each position's block with
+    the softmax split over "model"; else each position's heads against the
+    whole cache."""
+    n_h, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    seq = at.seq
+    q = lay.each(lambda p, x, wq: x @ wq, h, w["wq"])
+    k = lay.gather(lay.each(lambda p, x, wk: x @ wk, h, w["wk"]))
+    v = lay.gather(lay.each(lambda p, x, wv: x @ wv, h, w["wv"]))
+    heads = [(0, n_h)] * lay.mesh.size if seq else lay.heads(n_h)
+    q = lay.gather(q) if seq else lay.resplit(
+        q, [(b - a) * hd for a, b in shard_bounds(n_h, lay.n_cols)])
+
+    def rotate(p, qp, kp):
+        b = qp.shape[0]
+        cos, sin = at.rope[lay.devs[p]]
+        first, stop = heads[p]
+        qp = apply_rope(qp.reshape(b, 1, stop - first, hd), cos, sin)[:, 0]
+        kp = apply_rope(kp.reshape(b, 1, n_kv, hd), cos, sin)[:, 0]
+        return qp, kp
+    q, k = map(list, zip(*lay.each(rotate, q, k)))
+    v = [x.reshape(x.shape[0], n_kv, hd) for x in v]
+    kc, vc = cache["k"], cache["v"]
+    _write(lay, kc, i, at.slot, k)
+    _write(lay, vc, i, at.slot, v)
+    if not seq:
+        attn = lay.each(lambda p, qp, kp, vp: _decode_heads(
+            qp, kp[i], vp[i], heads[p][0], n_h, at.slot + 1).reshape(
+                qp.shape[0], qp.shape[1] * hd), q, kc.shards, vc.shards)
+        return _row_parallel(lay, attn, w["wo"], n_h * hd)
+
+    scale = attention_scale(hd)
+
+    def scores(p, qp, kp):
+        qg = qp.reshape(qp.shape[0], n_kv, n_h // n_kv, hd).float()
+        with full_fp32_matmul():
+            s = torch.einsum("bhgd,bshd->bhgs", qg, kp[i].float())
+        return (s * scale).masked_fill_(at.masks[p], _NEG)
+
+    def attend(p, pr, vp):
+        with full_fp32_matmul():
+            o = torch.einsum("bhgs,bshd->bhgd", pr, vp[i].float())
+        return o.reshape(o.shape[0], n_h * hd)
+    probs = _split_softmax(lay, lay.each(scores, q, kc.shards))
+    out = psum(lay.each(attend, probs, vc.shards), lay.mesh, lay.model)
+    out = lay.each(lambda p, o: o.to(h[0].dtype), out)
+    return _own_rows(lay, out, w["wo"], h[0].dtype)
+
+
+def _mla_decode(lay: _Layout, w: dict, h: list, cfg, cache: dict, i: int,
+                at: _Step) -> list:
+    """Layer ``i``'s absorbed MLA decode over the positions
+    (:func:`.attention.mla_decode_attention`): the latents ``c_kv`` and the
+    rotated ``k_rope`` written at ``at.slot``; ``wk_up`` and ``wv_up``
+    gathered whole over "model"; ``at.seq``: ``q_abs`` and ``q_rope`` of
+    all heads against each position's block with the softmax split over
+    "model", ``out_lat`` summed over "model"; else each position's heads
+    against the whole cache."""
+    m, n_h = cfg.mla, cfg.n_heads
+    nope, rot, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    r = m.kv_lora_rank
+    seq = at.seq
+    q_lat = lay.gather(lay.each(lambda p, x, wd: x @ wd, h, w["wq_down"]))
+    q = lay.gather(lay.each(lambda p, x, wu: x @ wu, q_lat, w["wq_up"]))
+    ckv = lay.gather(lay.each(lambda p, x, wd: x @ wd, h, w["wkv_down"]))
+    wk_up, wv_up = lay.gather(w["wk_up"]), lay.gather(w["wv_up"])
+    heads = [(0, n_h)] * lay.mesh.size if seq else lay.heads(n_h)
+
+    def queries(p, x, qp, wr, wk):
+        b = x.shape[0]
+        cos, sin = at.rope[lay.devs[p]]
+        first, stop = heads[p]
+        q_nope, q_rope = torch.split(qp.reshape(b, n_h, nope + rot)[
+            :, first:stop], [nope, rot], dim=-1)
+        q_rope = apply_rope(q_rope[:, None], cos, sin)[:, 0]
+        k_rope = apply_rope((x @ wr).reshape(b, 1, 1, rot), cos, sin)[:, 0, 0]
+        wk = wk.reshape(r, n_h, nope)[:, first:stop].float()
+        with full_fp32_matmul():
+            q_abs = torch.einsum("bhn,rhn->bhr", q_nope.float(), wk)
+        return q_abs, q_rope.float(), k_rope
+    q_abs, q_rope, k_rope = map(list, zip(*lay.each(
+        queries, h, q, w["wk_rope"], wk_up)))
+    cc, kr = cache["ckv"], cache["krope"]
+    _write(lay, cc, i, at.slot, ckv)
+    _write(lay, kr, i, at.slot, k_rope)
+    scale = attention_scale(nope + rot)
+
+    def scores(p, qa, qr, cp, kp):
+        with full_fp32_matmul():
+            s = torch.einsum("bhr,bsr->bhs", qa, cp[i].float()) + torch.einsum(
+                "bhr,bsr->bhs", qr, kp[i].float())
+        return (s * scale).masked_fill_(at.masks[p], _NEG)
+    s = lay.each(scores, q_abs, q_rope, cc.shards, kr.shards)
+    probs = _split_softmax(lay, s) if seq else lay.each(
+        lambda p, x: torch.softmax(x, dim=-1), s)
+
+    def latent(p, pr, cp):
+        with full_fp32_matmul():
+            return torch.einsum("bhs,bsr->bhr", pr, cp[i].float())
+    out_lat = lay.each(latent, probs, cc.shards)
+    if seq:
+        out_lat = psum(out_lat, lay.mesh, lay.model)
+
+    def values(p, ol, wv):
+        first, stop = heads[p]
+        wv = wv.reshape(r, n_h, dv)[:, first:stop].float()
+        with full_fp32_matmul():
+            o = torch.einsum("bhr,rhv->bhv", ol, wv)
+        return o.reshape(o.shape[0], (stop - first) * dv).to(h[0].dtype)
+    out = lay.each(values, out_lat, wv_up)
+    if seq:
+        return _own_rows(lay, out, w["wo"], h[0].dtype)
+    return _row_parallel(lay, out, w["wo"], n_h * dv)
+
+
+def decode_on_mesh(params, cache: dict, tokens, cfg, shard
+                   ) -> tuple[ShardedTensor, dict]:
+    """``decode_step`` over ``shard.mesh`` (see the module docstring):
+    ``params`` a ``TransformerLM`` or the reference's tree of tensors,
+    whole; ``cache`` laid out by ``cache_specs`` (a ``ShardedTensor`` a
+    leaf, what :func:`prefill_on_mesh` returns; a whole tensor is placed by
+    ``Sharder.act``), its leaves written in place; ``tokens [B]`` whole.
+    Returns the logits ``[B, Vp]`` (``("batch", "model")``) and the cache
+    with ``len`` advanced by one."""
+    from .model import _cache_names, cache_specs, lm_param_specs
+
+    if shard.seq_parallel:
+        raise NotImplementedError(
+            "decode with sequence parallelism over a mesh is not ported")
+    lay = _Layout(shard)
+    names = _cache_names(cfg)
+    specs_c = cache_specs(cfg)
+    placed = {name: shard.act(cache[name], *specs_c[name]) for name in names}
+    max_len = placed[names[0]].shape[2]
+    slot = cache_len_of(cache["len"], max_len)
+    if slot >= max_len:
+        raise ValueError(f"the cache is full ({slot} positions)")
+    b_all = tokens.shape[0]
+    tok = shard.act(tokens, "batch").shards
+    first = [shard_bounds(b_all, lay.n_groups)[lay.group[p]][0]
+             for p in lay.positions]
+    top, layers = _trees(params, cfg)
+    specs = lm_param_specs(cfg)
+    per_layer = _layer_specs(specs["layers"])
+    rot = cfg.mla.qk_rope_head_dim if cfg.is_mla else cfg.head_dim
+    rope = {}
+    for dev in lay.devs:
+        if dev not in rope:
+            rope[dev] = rope_freqs(rot, cfg.rope_theta, torch.arange(
+                slot, slot + 1, device=dev))
+    leaf = placed[names[0]]
+
+    def past(p, _):
+        seq = leaf.sharding.shard_slices(p, leaf.shape)[2]
+        return torch.arange(seq.start, seq.stop, device=lay.devs[p]) > slot
+    at = _Step(slot, rope, lay.each(past, lay.positions),
+               cfg.seq_shard_attn_cache)
+
+    embed = _weights(lay, {"embed": specs["embed"]}, {"embed": top["embed"]})
+    x = _embed(lay, embed["embed"], specs["embed"], list(tok))
+    del embed
+    for i, tree in enumerate(layers):
+        w = _weights(lay, per_layer, tree)
+        h = lay.each(lambda p, xp, ln: rms_norm(xp, ln), x, w["ln_attn"])
+        attn = (_mla_decode if cfg.is_mla else _gqa_decode)(
+            lay, w, h, cfg, placed, i, at)
+        x = lay.each(lambda p, xp, a: xp + a, x, attn)
+        h2 = lay.each(lambda p, xp, ln: rms_norm(xp, ln), x, w["ln_mlp"])
+        out = _ffn(lay, w, h2, cfg, first, b_all)
+        x = lay.each(lambda p, xp, o: xp + o, x, out)
+        del w, h, attn, h2, out
+
+    final = _weights(lay, {"ln_f": specs["ln_f"], "head": specs["head"]},
+                     {"ln_f": top["ln_f"], "head": top["head"]})
+    logits = lay.each(lambda p, xp, ln, head: rms_norm(xp, ln) @ head,
+                      x, final["ln_f"], final["head"])
+    shape = (b_all, cfg.padded_vocab)
+    out_sharding = shard.named("batch", "model").fitted(shape)
+    return ShardedTensor(out_sharding, shape, tuple(logits)), \
+        {**placed, "len": slot + 1}

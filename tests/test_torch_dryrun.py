@@ -389,10 +389,9 @@ def test_k4_on_meta_launches_nothing():
                            q.nbytes + k.nbytes + v.nbytes + out.nbytes)]
 
 
-def test_dryrun_phi4_prefill_agrees_with_the_reference_specs(lm_records):
-    """phi4-mini-3.8b's record against what the reference's dry-run
-    records: ``status``, ``kind``, ``model_flops`` and ``n_devices`` from
-    its registry, and each device's argument bytes from its own
+def reference_argument_bytes(shape: str, mesh: str) -> tuple:
+    """``(cell, bytes)``: the reference's phi4-mini-3.8b cell ``shape`` and
+    each device's bytes of its inputs on ``mesh``, from its own
     ``lm_param_specs`` and input specs through ``jax.sharding`` (its
     compile of the full 32-layer, 32k-token step is not run here)."""
     import jax
@@ -401,25 +400,99 @@ def test_dryrun_phi4_prefill_agrees_with_the_reference_specs(lm_records):
     from repro.configs import list_cells as j_list_cells
     from repro.distributed.sharding import Sharder as JSharder
 
+    j_cell = j_list_cells("phi4-mini-3.8b")[shape]
+    multi = mesh == "tiny_multipod"
+    axes = ("pod", "data", "model") if multi else ("data", "model")
+    grid = (2, 2, 2) if multi else (2, 4)
+    j_mesh = jax.sharding.Mesh(
+        np.array(jax.devices()[:1] * 8, dtype=object).reshape(grid), axes)
+    shard = JSharder.for_mesh(j_mesh)
+    leaves = jax.tree.leaves(j_cell.abstract_inputs())
+    specs = jax.tree.leaves(
+        j_cell.logical_specs(), is_leaf=lambda x: isinstance(x, tuple)
+        and all(a is None or isinstance(a, str) for a in x))
+    assert len(leaves) == len(specs)
+    return j_cell, sum(
+        math.prod(jax.sharding.NamedSharding(
+            j_mesh, P(*shard.spec(*spec))).shard_shape(x.shape))
+        * x.dtype.itemsize for x, spec in zip(leaves, specs))
+
+
+def test_dryrun_phi4_prefill_agrees_with_the_reference_specs(lm_records):
+    """phi4-mini-3.8b's record against what the reference's dry-run
+    records: ``status``, ``kind``, ``model_flops`` and ``n_devices`` from
+    its registry, and each device's argument bytes
+    (:func:`reference_argument_bytes`)."""
     recs, _ = lm_records
-    j_cell = j_list_cells("phi4-mini-3.8b")["prefill_32k"]
     for mesh in TINY:
         got = recs[("phi4-mini-3.8b", mesh)]
-        multi = mesh == "tiny_multipod"
-        axes = ("pod", "data", "model") if multi else ("data", "model")
-        grid = (2, 2, 2) if multi else (2, 4)
-        j_mesh = jax.sharding.Mesh(
-            np.array(jax.devices()[:1] * 8, dtype=object).reshape(grid), axes)
-        shard = JSharder.for_mesh(j_mesh)
-        leaves = jax.tree.leaves(j_cell.abstract_inputs())
-        specs = jax.tree.leaves(
-            j_cell.logical_specs(), is_leaf=lambda x: isinstance(x, tuple)
-            and all(a is None or isinstance(a, str) for a in x))
-        assert len(leaves) == len(specs)
-        per_device = sum(
-            math.prod(jax.sharding.NamedSharding(
-                j_mesh, P(*shard.spec(*spec))).shard_shape(x.shape))
-            * x.dtype.itemsize for x, spec in zip(leaves, specs))
+        j_cell, per_device = reference_argument_bytes("prefill_32k", mesh)
+        assert got["status"] == "ok" and got["kind"] == j_cell.kind
+        assert got["model_flops"] == j_cell.model_flops
+        assert got["n_devices"] == 8
+        assert got["memory"]["argument_size_bytes"] == per_device
+
+
+# -- the LMs' decode cells ---------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def lm_decode_records(tmp_path_factory):
+    """The five LMs' ``decode_32k`` records at full config on both tiny
+    meshes, and K4's launches over all ten traces."""
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+
+    out = tmp_path_factory.mktemp("dryrun_decode")
+    k4.reset_launch_count()
+    recs = {(arch, mesh): dryrun.run_cell(arch, "decode_32k", mesh, str(out))
+            for mesh in TINY for arch in LM_ARCHS}
+    return recs, k4.launch_count()
+
+
+@pytest.mark.parametrize("mesh", TINY)
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_dryrun_lm_decode_is_ok_with_the_len_stand_in(lm_decode_records,
+                                                      arch, mesh):
+    """Each record is ``ok`` with the analytic ``2 N B`` flops; the trace
+    took ``len``'s stand-in, the last slot, and says so; no K4 (decode
+    attention is plain torch); the matmuls count at least ``2 N B`` (the
+    attention over the cache adds its own); the FSDP gathers and the
+    row-parallel and softmax sums move bytes, an MoE's buffers too; a
+    position holds its blocks of the cache and the parameters."""
+    recs, launches = lm_decode_records
+    rec = recs[(arch, mesh)]
+    assert launches == 0
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["kind"] == "decode" and rec["n_devices"] == 8
+    cfg = get_arch(arch).full_config()
+    cell = get_arch(arch).cells(cfg)["decode_32k"]
+    _, cache, toks = cell.abstract_inputs()
+    b, s = toks.shape[0], cache["ckv" if cfg.is_mla else "k"].shape[2]
+    assert rec["model_flops"] == cell.model_flops == \
+        2.0 * cfg.active_param_count() * b
+    assert rec["cache_len"]["stand_in"] == s - 1
+    assert rec["hlo"]["kernels"] == {}
+    assert rec["cost"]["flops"] > rec["model_flops"] - 2.0 * b * \
+        cfg.padded_vocab * cfg.d_model
+    coll = rec["collectives"]
+    assert coll["all-gather"] > 0 and coll["all-reduce"] > 0
+    assert ("all-to-all" in coll) == (cfg.moe is not None)
+    cache_bytes = sum(math.prod(x.shape) * x.dtype.itemsize
+                      for x in cache.values())
+    mem = rec["memory"]
+    assert mem["argument_size_bytes"] > cache_bytes / 8
+    assert mem["output_size_bytes"] > 0 and rec["trace_s"] > 0
+
+
+def test_dryrun_phi4_decode_agrees_with_the_reference_specs(
+        lm_decode_records):
+    """phi4-mini-3.8b's ``decode_32k`` record against the reference's:
+    ``status``, ``kind``, ``model_flops``, ``n_devices`` and each device's
+    argument bytes, the cache's block among them
+    (:func:`reference_argument_bytes`)."""
+    recs, _ = lm_decode_records
+    for mesh in TINY:
+        got = recs[("phi4-mini-3.8b", mesh)]
+        j_cell, per_device = reference_argument_bytes("decode_32k", mesh)
         assert got["status"] == "ok" and got["kind"] == j_cell.kind
         assert got["model_flops"] == j_cell.model_flops
         assert got["n_devices"] == 8
@@ -487,10 +560,9 @@ def test_dryrun_agrees_with_the_reference_record(records, reference_record):
 # -- the launcher --------------------------------------------------------------------------
 
 def test_launcher_records_other_families_as_errors(tmp_path):
-    """An LM, a GNN and xDeepFM on a mesh wait on Queue 1 item 3: recorded
-    as errors naming it, and the launcher exits 1."""
+    """An LM's training, a GNN and xDeepFM on a mesh wait on Queue 1 item
+    3: recorded as errors naming it, and the launcher exits 1."""
     for arch, shape in (("phi4-mini-3.8b", "train_4k"),
-                        ("phi4-mini-3.8b", "decode_32k"),
                         ("graphsage-reddit", "minibatch_lg"),
                         ("xdeepfm", "serve_p99")):
         rec = dryrun.run_cell(arch, shape, "tiny", str(tmp_path))
