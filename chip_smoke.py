@@ -282,12 +282,30 @@ just after):
    tokens, held to the unsharded port as phase 25 holds prefill (every
    step's logits and the cache after the last); each step's ms, one
    step's moves by kind and busiest position, one profiled sharded step.
+27. training over a mesh (K4 in the forward and the remat recompute of
+   each block at each position that holds heads and rows): the registry's
+   ``train_4k`` step (``train.loop``'s mesh step,
+   ``models.transformer.sharded_train``: ZeRO-3 state placed by
+   ``lm_param_specs``, FSDP gathers inside each block's checkpoint, the
+   vocabulary-split loss, backward collectives) over ``make_tiny_mesh``
+   of the cards present repeated to 8 positions: (a) phi4-mini-3.8b at
+   full width cut to ``MESH_TRAIN_LAYERS`` layers in bf16, 2 x 4,096 on
+   (2, 4) and 4 x 4,096 on (2, 2, 2) in 2 microbatches, 3 steps on one
+   batch against the unsharded port's step (loss and gradient norm within
+   ``MESH_TRAIN_NORMWISE``, the loss falling); (b) in float32 at 2 layers
+   and 2 x 1,024, every leaf of the parameters and moments after one step
+   within ``MESH_TRAIN_LEAF`` normwise; (c) at full depth, one step of 2 x
+   4,096 in one microbatch, timed, profiled (summed both ways) and its
+   peak read; (d) minicpm3-4b and phi3.5-moe-42b at 2 layers as (a).  K4's
+   launches exact a step, all on ``wgmma`` in bf16; one step's all-gather
+   and reduce-scatter bytes equal to what the specs imply
+   (``sharded_train.predicted_gathers``).
 
 On a machine with several cards phase 15 also shards over the distinct
 cards (up to 4); the script needs one card.
 
 Phases 11-15, 19 and 23 run after phase 8, before K4 and serving; phases
-16-18 and 20-22 and 24-26 run after phase 10.  Each phase's wall
+16-18 and 20-22 and 24-27 run after phase 10.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -5481,6 +5499,319 @@ def phase_mesh_decode(device, seed: int, *, smoke: bool) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 27: LM training over a mesh
+# --------------------------------------------------------------------------
+
+# (a) phi4-mini-3.8b at full width cut to MESH_TRAIN_LAYERS layers (the
+# sharded state and the unsharded comparison's share one card): (mesh,
+# batch, tokens a sequence), 2 microbatches, MESH_TRAIN_STEPS steps on one
+# repeated batch
+MESH_TRAIN_LAYERS = 8
+MESH_TRAIN = (("tiny", 2, 4096), ("tiny_multipod", 4, 4096))
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_MICRO = 2
+# the bf16 step's loss and gradient norm against the unsharded port's,
+# relative (a scalar's normwise distance): each run computes the float32
+# function up to bf16 roundings that phase 25 measures at about 1.8e-2
+# normwise on the logits a run (MESH_NORMWISE above), which the mean over
+# tokens of the loss and the 2-norm of the gradients cannot enlarge
+# relatively (both are averages of their terms' roundings), so two runs
+# lie within twice that: MESH_NORMWISE
+MESH_TRAIN_NORMWISE = MESH_NORMWISE
+# (b) float32: (mesh, layers, batch, tokens), one step; every leaf of the
+# parameters and both moments normwise within this of the unsharded port's
+MESH_TRAIN_F32 = ("tiny", 2, 2, 1024)
+MESH_TRAIN_LEAF = 1e-5
+# (c) full depth, one step: (mesh, batch, tokens), 1 microbatch
+MESH_TRAIN_FULL = ("tiny", 2, 4096)
+# (d) the MLA and MoE archs at 2 layers, as (a) on (2, 4)
+MESH_TRAIN_CELLS = (("minicpm3-4b", 2), ("phi3.5-moe-42b", 2))
+MESH_TRAIN_CELL_SIZE = (2, 4096)
+
+
+def stacked_tree(model, cfg) -> dict:
+    """A ``TransformerLM``'s parameters as the reference's tree, layers
+    stacked on ``[L]`` (a copy)."""
+    import torch
+
+    from repro_torch.models.transformer.sharded import _trees
+
+    top, layers = _trees(model, cfg)
+
+    def stack(*ts):
+        if isinstance(ts[0], dict):
+            return {k: stack(*(t[k] for t in ts)) for k in ts[0]}
+        return torch.stack([t.detach() for t in ts])
+    return {**{k: v.detach().clone() for k, v in top.items()},
+            "layers": stack(*layers)}
+
+
+def mesh_train_state(cfg, tree: dict, shard):
+    """The train state of ``tree`` over ``shard.mesh``: the parameters,
+    zero float32 moments and step 0 placed by the ``train_4k`` cell's
+    ``in_shardings`` (``put_tree``: each leaf's shards views of one tensor
+    where the positions share a card)."""
+    import torch
+
+    from repro_torch.configs.registry import lm_cells
+    from repro_torch.distributed.sharding import put_tree
+    from repro_torch.train import AdamWState, TrainState
+    from repro_torch.train.checkpoint import tree_map
+
+    def zeros():
+        return tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                              device=t.device), tree)
+    step = torch.zeros((), dtype=torch.int32, device=tree["ln_f"].device)
+    return put_tree(TrainState(tree, AdamWState(step, zeros(), zeros()), 0),
+                    lm_cells(cfg)["train_4k"].in_shardings(shard)[0])
+
+
+def k4_train_launches(cfg, mesh, batch: int, n_micro: int) -> int:
+    """K4's launches in one train step over ``mesh``: the forward and the
+    recompute of every layer at each position that holds heads and rows
+    of a microbatch."""
+    from repro_torch.distributed.collectives import axis_groups
+    from repro_torch.distributed.sharding import shard_bounds
+
+    groups, cols = axis_groups(mesh, "model").shape
+    rows = sum(b > a for a, b in shard_bounds(batch // n_micro, groups))
+    heads = sum(b > a for a, b in shard_bounds(cfg.n_heads, cols))
+    return 2 * cfg.n_layers * rows * heads * n_micro
+
+
+def mesh_train_once(device, seed: int, arch: str, cfg, kind: str, batch: int,
+                    seq: int, *, steps: int, n_micro: int,
+                    profile_it: bool = False, compare: bool = True) -> dict:
+    """``steps`` train steps of ``cfg`` (seeded weights) over ``kind``'s
+    mesh of the card repeated to 8 positions on one repeated ``lm_batch``,
+    through the ``train_4k`` cell's step; with ``compare`` first the
+    unsharded port's step from the same weights on the same batch.  In
+    bf16 each step's loss and gradient norm within
+    ``MESH_TRAIN_NORMWISE`` of the unsharded one's and the loss falling;
+    in float32 after the steps every leaf of the parameters and both
+    moments within ``MESH_TRAIN_LEAF`` normwise.  K4's launches are
+    counted a step and held to :func:`k4_train_launches`, all on ``wgmma``
+    (bf16) or ``simt``.  The first sharded step runs under an observer,
+    whose all-gather and reduce-scatter bytes must equal
+    ``predicted_gathers`` (its time includes the observer's tagging of
+    each autograd node: the later steps are the timed ones; with one step
+    one more runs timed); the card's peak memory; ``profile_it`` profiles
+    one more step (summed both ways).  Logs where the run's time went."""
+    import torch
+
+    from repro_torch.configs.registry import lm_cells
+    from repro_torch.distributed import Sharder
+    from repro_torch.distributed.observe import observing
+    from repro_torch.kernels.flash_attention import flash_kernel as k4
+    from repro_torch.launch.mesh import make_tiny_mesh
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.models.transformer.convert import reference_to_named
+    from repro_torch.models.transformer.sharded_train import (
+        predicted_gathers,
+    )
+    from repro_torch.train import TrainState, adamw_init
+
+    cuda = device.type == "cuda"
+    start = time.perf_counter()
+    laps: dict[str, float] = {}
+
+    def lap(name: str, t0: float) -> None:
+        laps[name] = laps.get(name, 0.0) + time.perf_counter() - t0
+    mesh = make_tiny_mesh(multi_pod=kind == "tiny_multipod",
+                          devices=repeated_cards(device, 8))
+    shard = Sharder.for_mesh(mesh)
+    bf16 = cfg.dtype == "bfloat16"
+    what = (f"{arch} ({cfg.n_layers} layers) over {kind} {mesh.shape}, "
+            f"{batch} x {seq} in {n_micro} microbatch(es), {cfg.dtype}")
+    cell = lm_cells(cfg, n_microbatches=n_micro)["train_4k"]
+    data = lm_batch(cfg, batch, seq, seed, device)
+    t0 = time.perf_counter()
+    model = init_lm_params(cfg, seed=seed, device=device)
+    tree = stacked_tree(model, cfg)
+    sync(device)
+    lap("weights", t0)
+    plain, plain_ms = [], []
+    t0 = time.perf_counter()
+    if compare:
+        state = TrainState(model, adamw_init(model), seed)
+        step = cell.make_step(Sharder(None))
+        for _ in range(steps):
+            sync(device)
+            t0 = time.perf_counter()
+            state, m = step(state, data)
+            sync(device)
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            plain.append((float(m["loss"]), float(m["grad_norm"])))
+        if not bf16:
+            want = {"params": dict(model.named_parameters()),
+                    "m": state.opt.m, "v": state.opt.v}
+        del state, step
+    del model
+    lap("unsharded steps", t0)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = mesh_train_state(cfg, tree, shard)
+    del tree
+    step = cell.make_step(shard)
+    lap("placing", t0)
+    want_k4 = k4_train_launches(cfg, mesh, batch, n_micro) if cuda else 0
+    route = "wgmma" if bf16 else "simt"
+    got, mesh_ms = [], []
+    moves = MoveLog()
+    t_steps = time.perf_counter()
+
+    def timed_step(i: int, observe: bool):
+        nonlocal state
+        k4.reset_launch_count()
+        sync(device)
+        t0 = time.perf_counter()
+        with observing(moves) if observe else contextlib.nullcontext():
+            state, m = step(state, data)
+        sync_all(mesh.devices.flat)
+        mesh_ms.append((time.perf_counter() - t0) * 1e3)
+        n, routes = k4.launch_count(), {v: k4.launch_count(v)
+                                        for v in k4.VARIANTS}
+        check(n == want_k4 and routes[route] == n,
+              f"{what}: step {i}: K4 launches {n} by route {routes}, want "
+              f"{want_k4} all on {route}")
+        return float(m["loss"]), float(m["grad_norm"])
+    for i in range(steps):
+        got.append(timed_step(i, i == 0))
+    lap("sharded steps", t_steps)
+    card_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    check(all(np.isfinite(x).all() for x in got), f"{what}: {got}")
+    gaps = []
+    for i, ((l_s, g_s), (l_u, g_u)) in enumerate(zip(got, plain)):
+        gaps.append((abs(l_s - l_u) / abs(l_u), abs(g_s - g_u) / abs(g_u)))
+        if bf16:
+            check(max(gaps[-1]) <= MESH_TRAIN_NORMWISE,
+                  f"{what}: step {i}: loss {l_s} / grad norm {g_s}, "
+                  f"unsharded {l_u} / {g_u}: beyond {MESH_TRAIN_NORMWISE}")
+    if bf16 and steps > 1:
+        check(all(a[0] > b[0] for a, b in zip(got, got[1:])),
+              f"{what}: the loss does not fall: {[x[0] for x in got]}")
+    leaf_worst = None
+    t0 = time.perf_counter()
+    if compare and not bf16:
+        leaf_worst = 0.0
+        for key, tree_ in (("params", state.params), ("m", state.opt.m),
+                           ("v", state.opt.v)):
+            named = reference_to_named(_gather_tree(tree_, device), cfg,
+                                       device)
+            for name, w in want[key].items():
+                err = leaf_normwise(named[name][None], w[None])
+                leaf_worst = max(leaf_worst, err)
+                check(err <= MESH_TRAIN_LEAF, f"{what}: {key} {name} "
+                      f"normwise {err} beyond {MESH_TRAIN_LEAF}")
+            del named
+        del want
+    lap("leaves", t0)
+    if steps == 1:
+        # the one step ran under the observer: one more, timed
+        t0 = time.perf_counter()
+        timed_step(1, False)
+        lap("sharded steps", t0)
+    launches = want_k4 * len(mesh_ms)
+    pred = predicted_gathers(cfg, mesh, batch, seq, n_micro)
+    for kind_ in pred:
+        check(moves.kinds.get(kind_, 0) == pred[kind_],
+              f"{what}: {kind_} {moves.kinds.get(kind_, 0)} B, the specs "
+              f"imply {pred[kind_]} B")
+    prof = None
+    if profile_it:
+        t0 = time.perf_counter()
+        wall, busy, _ = profile(f"{what}, one sharded train step",
+                                lambda: step(state, data), device,
+                                both_ways=True)
+        prof = {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall}
+        lap("profile", t0)
+    del state, step
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"[mesh-train] {what}: losses sharded "
+        f"{[f'{x[0]:.6f}' for x in got]}, unsharded "
+        f"{[f'{x[0]:.6f}' for x in plain]}; grad norms sharded "
+        f"{[f'{x[1]:.6f}' for x in got]}, unsharded "
+        f"{[f'{x[1]:.6f}' for x in plain]}; relative gaps (loss, grad norm) "
+        f"{[(f'{a:.3e}', f'{b:.3e}') for a, b in gaps]} (bound "
+        f"{MESH_TRAIN_NORMWISE if bf16 else '-'}); leaves' worst normwise "
+        f"{leaf_worst} (bound {MESH_TRAIN_LEAF if not bf16 else '-'}); "
+        f"step ms sharded {[f'{x:.4f}' for x in mesh_ms]} (the first under "
+        f"the observer), unsharded {[f'{x:.4f}' for x in plain_ms]}; K4 "
+        f"{want_k4} launches a step on {route}; the first step's moves by "
+        f"kind {dict(sorted(moves.kinds.items()))} (the specs imply "
+        f"{pred}); card peak {card_peak / 2**30:.4f} GiB "
+        f"({card_peak / CARD_BYTES:.4%} of 80 GB); the run took "
+        f"{time.perf_counter() - start:.4f} s (of which "
+        f"{ {k: f'{v:.4f}' for k, v in laps.items()} } s)")
+    return {"launches": launches, "mesh_ms": mesh_ms, "plain_ms": plain_ms,
+            "gaps": gaps, "moves": moves.kinds, "peak": card_peak,
+            "profile": prof}
+
+
+def _gather_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _gather_tree(v, device) for k, v in tree.items()}
+    return tree.gather(device)
+
+
+def phase_mesh_train(device, seed: int, *, smoke: bool) -> dict:
+    """Phase 27: LM training over ``make_tiny_mesh`` of the card repeated
+    to 8 positions, each run through :func:`mesh_train_once`.  (a)
+    phi4-mini-3.8b at full width cut to ``MESH_TRAIN_LAYERS`` layers
+    (``reduced``) in bf16 on ``MESH_TRAIN`` against the unsharded port,
+    ``MESH_TRAIN_STEPS`` steps; (b) in float32 at ``MESH_TRAIN_F32``, one
+    step, every leaf of the state held; (c) at full depth on
+    ``MESH_TRAIN_FULL``, one step of one microbatch, timed, profiled and its
+    peak read; (d) ``MESH_TRAIN_CELLS`` (MLA, MoE) at 2 layers as (a) on
+    (2, 4).  A CPU rehearsal (``smoke``) runs the smoke configs at 2 x 32
+    (b: 2 x 32, c and d: 1 step).  Returns K4's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    def config(arch, depth=None, dtype=None):
+        cfg = get_arch(arch).smoke_config() if smoke else \
+            get_arch(arch).full_config()
+        if depth is not None and not smoke:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+    out, launches = {}, 0
+    if not smoke:
+        log(f"[mesh-train] reduced: {LM_ARCH} keeps {MESH_TRAIN_LAYERS} of "
+            f"its 32 layers in (a) and 2 in (b) (the sharded state and the "
+            f"unsharded comparison's share one card); train_4k's 256 x 4,096 "
+            f"tokens cut to 2-4 sequences; (d) {MESH_TRAIN_CELLS} at 2 "
+            f"layers; every width as published")
+    runs = [("a", LM_ARCH, config(LM_ARCH, MESH_TRAIN_LAYERS), kind, b, s,
+             MESH_TRAIN_STEPS, MESH_TRAIN_MICRO, False, True)
+            for kind, b, s in MESH_TRAIN]
+    kind, depth, b, s = MESH_TRAIN_F32
+    runs.append(("b", LM_ARCH, config(LM_ARCH, depth, "float32"), kind, b, s,
+                 1, MESH_TRAIN_MICRO, False, True))
+    kind, b, s = MESH_TRAIN_FULL
+    runs.append(("c", LM_ARCH, config(LM_ARCH), kind, b, s, 1, 1, True,
+                 False))
+    runs += [("d", arch, config(arch, depth), "tiny", *MESH_TRAIN_CELL_SIZE,
+              MESH_TRAIN_STEPS, MESH_TRAIN_MICRO, False, True)
+             for arch, depth in MESH_TRAIN_CELLS]
+    for part, arch, cfg, kind, b, s, steps, nm, prof, compare in runs:
+        if smoke:
+            b, s = min(b, 4), 32
+            steps = min(steps, 2) if part == "a" else 1
+        r = mesh_train_once(device, seed, arch, cfg, kind, b, s,
+                            steps=steps, n_micro=nm, profile_it=prof,
+                            compare=compare)
+        out[f"({part}) {arch}@{kind} {b}x{s} {cfg.dtype}"] = r
+        launches += r["launches"]
+    out["launches"] = launches
+    return out
+
+
 class PhaseClock:
     """Logs the wall time of each phase since the previous lap."""
 
@@ -5498,7 +5829,7 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
         alpha0: float = 1.02, tenant_unique: int = 50_000,
         serve_batch: int = SERVE_BATCH) -> list[dict]:
-    """Phases 0-26 on ``device``; returns the kernels records."""
+    """Phases 0-27 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -5648,11 +5979,14 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     clock.lap("25 prefill over a mesh")
     decoded = phase_mesh_decode(device, seed, smoke=lm_smoke)
     clock.lap("26 decode over a mesh")
+    mesh_trained = phase_mesh_train(device, seed, smoke=lm_smoke)
+    clock.lap("27 training over a mesh")
     k4_launches = {f"{a} (serve)": v["launches"] for a, v in k4_serve.items()}
     k4_launches[f"{LM_ARCH} (train, 3 steps)"] = trained["launches"]
     k4_launches["prefill over a mesh (phase 25)"] = meshed["launches"]
     k4_launches["the prefills that fill decode's cache over a mesh "
                 "(phase 26)"] = decoded["launches"]
+    k4_launches["training over a mesh (phase 27)"] = mesh_trained["launches"]
     src = "src/repro_torch/kernels/butterfly/csrc/"
     ref = "src/repro/kernels/butterfly/butterfly_kernel.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -151,7 +151,7 @@ def list_cells(arch_id: str, *, smoke: bool = False) -> dict:
     return a.cells(cfg)
 
 
-def _no_mesh(shard: Sharder, what: str = "an LM step") -> None:
+def _no_mesh(shard: Sharder, what: str) -> None:
     if shard.mesh is not None:
         raise NotImplementedError(
             f"{what} over a mesh is not ported yet (ROADMAP Queue 1 item 3)")
@@ -200,7 +200,6 @@ def lm_cells(cfg: LMConfig, *, n_microbatches: int = 8,
 
         if kind == "train":
             def make_step(shard, cfg=cfg, nm=n_microbatches):
-                _no_mesh(shard)
                 loss = lambda p, b: lm_loss(p, b, cfg, shard)
                 return make_train_step(loss, n_microbatches=nm)
 

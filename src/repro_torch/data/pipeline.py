@@ -22,21 +22,53 @@ __all__ = ["Prefetcher", "shard_batch", "token_batches"]
 def shard_batch(batch, shardings=None, *, device=None):
     """A host batch (a dict or list tree of arrays) as tensors on ``device``
     (default ``cuda``; raises without a card unless ``device="cpu"``).
-    ``shardings`` must be None: placing a batch over a mesh waits for LM
-    sharding (ROADMAP Queue 1 item 3)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "sharding a batch over a mesh is not ported yet (ROADMAP Queue 1 "
-            "item 3); pass shardings=None")
-    dev = resolve_device(device)
 
-    def put(x):
+    With ``shardings`` (a tree of the batch's structure whose leaves are
+    ``distributed.NamedSharding`` or None; a dict of shardings may name
+    only some of the batch's keys, a leaf it does not name counting as
+    None) each leaf is placed by its sharding as a ``ShardedTensor``
+    (``NamedSharding.put``: each position's slice on its device), the
+    counterpart of the reference's ``jax.device_put``; a None leaf is a
+    whole tensor on the first device of the shardings' mesh.  It places
+    every leaf, so it takes no ``device=``."""
+    from ..distributed.sharding import NamedSharding
+
+    if shardings is None:
+        dev = resolve_device(device)
+
+        def put(x):
+            if isinstance(x, dict):
+                return {k: put(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(put(v) for v in x)
+            return torch.as_tensor(np.asarray(x), device=dev)
+        return put(batch)
+    if device is not None:
+        raise ValueError("shardings= places every leaf; pass no device=")
+
+    def meshes(s):
+        if isinstance(s, NamedSharding):
+            return [s.mesh]
+        if isinstance(s, dict):
+            return [m for v in s.values() for m in meshes(v)]
+        if isinstance(s, (list, tuple)):
+            return [m for v in s for m in meshes(v)]
+        return []
+    found = meshes(shardings)
+    if not found:
+        raise ValueError("shardings names no NamedSharding")
+    home = found[0].devices.flat[0]
+
+    def place(x, s):
         if isinstance(x, dict):
-            return {k: put(v) for k, v in x.items()}
+            return {k: place(v, s.get(k) if isinstance(s, dict) else s)
+                    for k, v in x.items()}
         if isinstance(x, (list, tuple)):
-            return type(x)(put(v) for v in x)
-        return torch.as_tensor(np.asarray(x), device=dev)
-    return put(batch)
+            each = s if isinstance(s, (list, tuple)) else [s] * len(x)
+            return type(x)(place(v, t) for v, t in zip(x, each))
+        t = torch.as_tensor(np.asarray(x))
+        return t.to(home) if s is None else s.put(t)
+    return place(batch, shardings)
 
 
 class Prefetcher:

@@ -30,6 +30,10 @@ and :func:`resplit` are the collectives of the sharded LM trunk
 tensor per position: each member's piece is concatenated in group order,
 summed (or maxed) at the group's first position in group order, or split
 anew, and every move between positions is reported under XLA's name.
+Each move is ``sharding.send``: under autograd the gradients go back by
+the dual collective (an all-gather's by a reduce-scatter and the other
+way round, an all-reduce's and an all-to-all's by their own kind),
+reported as they move.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from ..device import on_device
 from ..launch.mesh import Mesh
 from ..train.checkpoint import tree_flatten, tree_map, tree_unflatten
 from .observe import at_position, note_move
-from .sharding import shard_bounds, to_device
+from .sharding import send, shard_bounds
 
 __all__ = ["all_gather", "all_to_all", "axis_groups", "compress_grads",
            "decompress_grads", "pmax", "psum", "psum_mean_compressed",
@@ -121,12 +125,10 @@ def all_gather(pieces: Sequence[torch.Tensor], mesh: Mesh, axis,
     out: list = [None] * mesh.size
     for group in axis_groups(mesh, axis):
         for p in (int(q) for q in group):
-            for q in (int(r) for r in group):
-                if q != p:
-                    note_move("all-gather", q, p, pieces[q].nbytes)
             with at_position(p):
                 out[p] = pieces[p] if len(group) == 1 else torch.cat(
-                    [to_device(pieces[int(q)], devs[p]) for q in group], dim=dim)
+                    [send(pieces[int(q)], int(q), p, "all-gather", devs[p])
+                     for q in group], dim=dim)
     return out
 
 
@@ -138,8 +140,7 @@ def _group_sum(pieces, group, kind: str, devs, op=torch.add) -> torch.Tensor:
     with on_device(devs[home]), at_position(home):
         acc = pieces[home]
         for q in (int(r) for r in group[1:]):
-            note_move(kind, q, home, pieces[q].nbytes)
-            acc = op(acc, to_device(pieces[q], devs[home]))
+            acc = op(acc, send(pieces[q], q, home, kind, devs[home]))
     return acc
 
 
@@ -150,9 +151,7 @@ def _all_reduce(pieces, mesh: Mesh, axis, op) -> list:
         total = _group_sum(pieces, group, "all-reduce", devs, op)
         home = int(group[0])
         for p in (int(q) for q in group):
-            if p != home:
-                note_move("all-reduce", home, p, total.nbytes)
-            out[p] = to_device(total, devs[p])
+            out[p] = send(total, home, p, "all-reduce", devs[p])
     return out
 
 
@@ -187,9 +186,7 @@ def reduce_scatter(pieces: Sequence[torch.Tensor], mesh: Mesh, axis,
         bounds = shard_bounds(total.shape[dim], len(group))
         for i, p in enumerate(int(q) for q in group):
             block = total.narrow(dim, bounds[i][0], bounds[i][1] - bounds[i][0])
-            if p != home:
-                note_move("reduce-scatter", home, p, block.nbytes)
-            out[p] = to_device(block, devs[p])
+            out[p] = send(block, home, p, "reduce-scatter", devs[p])
     return out
 
 
@@ -221,9 +218,7 @@ def resplit(pieces: Sequence[torch.Tensor], mesh: Mesh, axis, dim: int,
                     if a >= b:
                         continue
                     part = pieces[q].narrow(dim, int(a - starts[j]), int(b - a))
-                    if q != p:
-                        note_move("all-to-all", q, p, part.nbytes)
-                    parts.append(to_device(part, devs[p]))
+                    parts.append(send(part, q, p, "all-to-all", devs[p]))
                 if len(parts) == 1:
                     out[p] = parts[0]
                 elif parts:

@@ -35,12 +35,13 @@ from dataclasses import dataclass
 import torch
 
 from ..launch.mesh import Mesh
-from .observe import at_position, note_move
+from .observe import at_position, note_move, tag_node
 
 NO_SHARD = None
 
 __all__ = ["NamedSharding", "ShardedTensor", "Sharder", "NO_SHARD",
-           "batch_partition_axes", "reshard", "shard_bounds", "to_device"]
+           "batch_partition_axes", "put_tree", "reshard", "send",
+           "shard_bounds", "to_device"]
 
 # axis names that are data-parallel, as the reference resolves them
 _DATA_AXES = ("pod", "data", "replica")
@@ -159,6 +160,16 @@ class ShardedTensor:
     def dtype(self) -> torch.dtype:
         return self.shards[0].dtype
 
+    def holders(self) -> list[list[int]]:
+        """The positions that hold each distinct block, in position order:
+        more than one where a dim is replicated over an axis."""
+        blocks: dict = {}
+        for p in range(len(self.shards)):
+            key = tuple((s.start, s.stop) for s in
+                        self.sharding.shard_slices(p, self.shape))
+            blocks.setdefault(key, []).append(p)
+        return list(blocks.values())
+
     def gather(self, device="cpu") -> torch.Tensor:
         """The global tensor on ``device``, each distinct slice copied
         once from the first position that holds it."""
@@ -173,10 +184,70 @@ class ShardedTensor:
         return out
 
 
+def put_tree(tree, shardings):
+    """``tree``'s tensors placed by ``shardings``, a tree of one structure
+    (dicts, lists, tuples and named tuples) whose leaves are
+    :class:`NamedSharding` or None: each tensor under a sharding as a
+    :class:`ShardedTensor` (:meth:`NamedSharding.put`), anything else
+    as it is.  The counterpart of ``jax.device_put(tree, shardings)``."""
+    if isinstance(tree, dict):
+        return {k: put_tree(v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
+        return type(tree)(*(put_tree(v, s) for v, s in zip(tree, shardings)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(put_tree(v, s) for v, s in zip(tree, shardings))
+    if isinstance(tree, torch.Tensor) and shardings is not None:
+        return shardings.put(tree)
+    return tree
+
+
 def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     """``t`` on ``device``: itself where it lies there (no op at all, which
     keeps a traced step's op count down), else a copy."""
     return t if t.device == device else t.to(device)
+
+
+# the collective that carries a move's gradient back: XLA's transpose of
+# each kind
+DUAL = {"all-gather": "reduce-scatter", "reduce-scatter": "all-gather",
+        "all-reduce": "all-reduce", "all-to-all": "all-to-all",
+        "collective-permute": "collective-permute"}
+
+
+class _Send(torch.autograd.Function):
+    """A move between positions under autograd: forward ``to_device``,
+    backward the gradient moved back, noted as the dual collective."""
+
+    @staticmethod
+    def forward(ctx, t, src, dst, kind, device):
+        ctx.back = (dst, src, DUAL[kind], t.device)
+        return to_device(t, device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        dst, src, kind, device = ctx.back
+        note_move(kind, dst, src, grad.nbytes)
+        return to_device(grad, device), None, None, None, None
+
+
+def send(t: torch.Tensor, src: int, dst: int, kind: str,
+         device: torch.device) -> torch.Tensor:
+    """``t``, position ``src``'s, as position ``dst`` receives it in a
+    collective of ``kind``: on ``device`` (:func:`to_device`), the move
+    reported (``observe.note_move``) where the positions differ.  Where
+    ``t`` takes a gradient the move is differentiable and its backward
+    moves the gradient back from ``dst`` to ``src``, reported under the
+    dual kind (:data:`DUAL`: an all-gather's gradient goes back by a
+    reduce-scatter); its autograd node runs at ``dst`` and hands the
+    gradient on at ``src`` (``observe.tag_node``)."""
+    if src == dst:
+        return to_device(t, device)
+    note_move(kind, src, dst, t.nbytes)
+    if not (t.requires_grad and torch.is_grad_enabled()):
+        return to_device(t, device)
+    out = _Send.apply(t, src, dst, kind, device)
+    tag_node(out.grad_fn, dst, src)
+    return out
 
 
 def _move_kind(src: NamedSharding, dst: NamedSharding, ndim: int) -> str:
@@ -260,9 +331,8 @@ def reshard(x, target: NamedSharding) -> ShardedTensor:
                             for k, w in zip(key, want))
                 piece = x.shards[q][tuple(slice(c.start - k[0], c.stop - k[0])
                                           for c, k in zip(cut, key))]
-                if q != p and piece.numel():
-                    note_move(kind, q, p, piece.nbytes)
-                pieces.append((cut, to_device(piece, devs[p])))
+                pieces.append((cut, send(piece, q if piece.numel() else p, p,
+                                         kind, devs[p])))
             shards.append(_assemble(pieces, want, x.dtype, devs[p]))
     return ShardedTensor(target, shape, tuple(shards))
 

@@ -24,9 +24,20 @@ Per cell it prints and records, in ``<out>/<mesh>/<arch>__<shape>.json``:
   trace_s      the trace's wall time, in place of ``lower_s`` / ``compile_s``
 
 A cell whose step raises is recorded as ``"error"`` with its message: the
-LMs' train steps and the GNN and xDeepFM steps on a mesh (ROADMAP Queue 1
-item 3).  The LMs' prefill and decode cells trace over the mesh
-(``models.transformer.sharded``), K4 counted through ``note_kernel``.
+GNN and xDeepFM steps on a mesh (ROADMAP Queue 1 item 3).  The LMs'
+prefill, decode and train cells trace over the mesh
+(``models.transformer.sharded``, ``.sharded_train``), K4 counted through
+``note_kernel``.  A train step's state (the donated input) reaches it
+placed by ``in_shardings`` as ``ShardedTensor`` leaves, and its backward's
+work counts where its forward ran.  Tracing all of ``train_4k``'s
+microbatches (forward, recompute and backward of each, every layer at
+every position) would take many times a prefill's trace, so the trace
+runs the first microbatch and the optimizer
+(``train.loop.traced_microbatches``) and scales the microbatch's flops,
+bytes, moves and kernels by the number of microbatches (the step's stage
+marks; ``hlo_cost.CostModel.scale``): every microbatch has the same shapes
+and does the same work.  The record says so under ``microbatches``; the
+memory is the traced run's (one microbatch's peak is every one's).
 A cell's donated inputs (decode's cache) reach the step placed by
 ``in_shardings``, as ``ShardedTensor`` leaves, as the step would receive
 them from the prefill that filled them.  The cache's ``len`` has no value
@@ -61,13 +72,16 @@ import torch
 
 from ..configs import ARCHS, get_arch
 from ..configs.registry import ShapeDtype
-from ..distributed.sharding import Sharder
+from ..distributed.sharding import Sharder, put_tree
+from ..train.loop import traced_microbatches
 from .hlo_cost import traced
 from .mesh import make_production_mesh, make_tiny_mesh
 
 __all__ = ["MESHES", "all_cells", "main", "make_meta_mesh", "run_cell"]
 
 MESHES = ("pod", "multipod", "tiny", "tiny_multipod")
+# the microbatches of a train step that a trace runs (scaled to all)
+TRACED_MICROBATCHES = 1
 
 
 def make_meta_mesh(kind: str):
@@ -98,16 +112,6 @@ def _materialize(tree):
     if isinstance(tree, tuple) and hasattr(type(tree), "_fields"):
         return type(tree)(*(_materialize(v) for v in tree))
     return type(tree)(_materialize(v) for v in tree)
-
-
-def _placed(tree, shardings):
-    """``tree``'s tensors placed by ``shardings`` (one structure): a tree
-    of ``ShardedTensor``."""
-    if isinstance(tree, dict):
-        return {k: _placed(v, shardings[k]) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_placed(v, s) for v, s in zip(tree, shardings))
-    return shardings.put(tree)
 
 
 def _argument_bytes(inputs, in_sh, n: int) -> list[int]:
@@ -152,11 +156,21 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str, out_dir: str,
         in_sh = cell.in_shardings(shard)
         inputs = _materialize(abstract)
         args = _argument_bytes(inputs, in_sh, mesh.size)
-        inputs = tuple(_placed(x, in_sh[i]) if i in cell.donate else x
+        inputs = tuple(put_tree(x, in_sh[i]) if i in cell.donate else x
                        for i, x in enumerate(inputs))
-        with traced(mesh.size) as model:
+        n_micro = getattr(step, "n_microbatches", 1)
+        runs = min(n_micro, TRACED_MICROBATCHES)
+        with traced(mesh.size) as model, traced_microbatches(runs):
             out = step(*inputs)
         t_trace = time.perf_counter() - t0
+        if cell.kind == "train":
+            model.scale("microbatches", "optimizer", n_micro / runs)
+            rec["microbatches"] = {
+                "n_microbatches": n_micro, "traced": runs,
+                "scaled_by": n_micro / runs,
+                "why": "each microbatch has the same shapes and work: the "
+                       "traced ones' flops, bytes, moves and kernels are "
+                       "scaled to all; the memory is the traced run's"}
         summary = model.summary()
         if cell.kind == "decode":
             rec["cache_len"] = {

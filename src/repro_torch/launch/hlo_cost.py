@@ -26,6 +26,13 @@ it sums:
                at the position that made it from its creation until it is
                released; the peak of each position, past its arguments
 
+A backward's ops count at the position whose forward made their autograd
+nodes (``distributed.observe`` tags them while an observer watches).  A
+step that marks its stages (``observe.note_stage``) leaves a snapshot of
+the counts at each mark, so that the work between two marks can be scaled
+(:meth:`CostModel.scale`: the train step's one traced microbatch to all of
+them).
+
 Work outside any position is the mesh's first position's (position 0),
 where the port gathers results.  Per device means the busiest position;
 the mesh's totals come beside it.  ``analyze_hlo``'s
@@ -121,6 +128,7 @@ class CostModel(TorchDispatchMode):
         self._mutable: dict = {}
         # (position, +-bytes, storage key) in the order they happened
         self.events: list[tuple[int, int, int]] = []
+        self.stages: dict[str, dict] = {}
 
     # -- where work happens ----------------------------------------------------
     def _position(self) -> int:
@@ -141,6 +149,35 @@ class CostModel(TorchDispatchMode):
         k = self.kernels.setdefault(name, {"launches": 0, "flops": 0.0})
         k["launches"] += 1
         k["flops"] += flops
+
+    def stage(self, name: str) -> None:
+        """Keep the counts as they stand at the start of stage ``name``."""
+        self.stages[name] = self._counts()
+
+    def _counts(self) -> dict:
+        return {"flops": list(self.flops), "bytes": list(self.bytes),
+                "received": [dict(r) for r in self.received],
+                "kernels": {k: dict(v) for k, v in self.kernels.items()},
+                "n_ops": self.n_ops}
+
+    def scale(self, start: str, stop: str, factor: float) -> None:
+        """Count the work done between the marks of stages ``start`` and
+        ``stop`` ``factor`` times in all (flops, bytes, moves, kernels and
+        ops; not the live bytes)."""
+        a, b = self.stages[start], self.stages[stop]
+        more = factor - 1
+        for p in range(self.n):
+            self.flops[p] += more * (b["flops"][p] - a["flops"][p])
+            self.bytes[p] += more * (b["bytes"][p] - a["bytes"][p])
+            for kind, n in b["received"][p].items():
+                self.received[p][kind] += round(
+                    more * (n - a["received"][p].get(kind, 0)))
+        for name, k in b["kernels"].items():
+            was = a["kernels"].get(name, {"launches": 0, "flops": 0.0})
+            mine = self.kernels[name]
+            mine["launches"] += round(more * (k["launches"] - was["launches"]))
+            mine["flops"] += more * (k["flops"] - was["flops"])
+        self.n_ops += round(more * (b["n_ops"] - a["n_ops"]))
 
     # -- live bytes ---------------------------------------------------------------
     def _made(self, t: torch.Tensor, p: int) -> None:

@@ -283,12 +283,15 @@ def lm_loss(params: TransformerLM, batch: dict, cfg: LMConfig,
     token cross entropy against ``batch["labels"]`` (masked by
     ``batch["mask"]`` when given) plus ``0.01 * aux``.  Differentiable in
     the parameters once they take a gradient; ``cfg.remat`` checkpoints
-    each block.  ``shard`` is a
-    ``distributed.Sharder``: without a mesh it does nothing; on a mesh it
-    raises, as the loss over a mesh is not ported yet."""
+    each block.  ``shard`` is a ``distributed.Sharder``: without a mesh it
+    does nothing; on a mesh the loss runs over its positions
+    (:func:`.sharded_train.loss_on_mesh`: ``params`` the reference's tree
+    of ``ShardedTensor`` leaves, the logits vocabulary-split) and comes
+    back as a float32 scalar at the mesh's first position."""
     if shard is not None and shard.mesh is not None:
-        raise NotImplementedError("the training loss over a mesh is not "
-                                  "ported yet (ROADMAP Queue 1 item 3)")
+        from .sharded_train import loss_on_mesh
+
+        return loss_on_mesh(params, batch, cfg, shard)
     logits, aux = _trunk(params, batch["tokens"], cfg, None, None, cfg.remat)
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = _NEG_LOGIT

@@ -28,8 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ...distributed.collectives import axis_groups, psum
-from ...distributed.observe import at_position, note_move
-from ...distributed.sharding import shard_bounds, to_device
+from ...distributed.observe import at_position
+from ...distributed.sharding import send, shard_bounds
 from ..common import Split, dense_init
 
 __all__ = ["MoERoute", "init_moe", "moe_route", "moe_apply", "moe_apply_mesh",
@@ -180,8 +180,8 @@ def moe_apply(p, x: torch.Tensor, moe, *, slab: int = SLAB
 
 
 def moe_apply_mesh(ps: list, xs: list, moe, mesh, *, model_axis, first: list,
-                   n_tokens: int, slab: int = SLAB) -> list:
-    """:func:`moe_apply` over ``mesh``, without its ``aux``: ``xs[p] [T_p,
+                   n_tokens: int, slab: int = SLAB, with_aux: bool = False):
+    """:func:`moe_apply` over ``mesh``: ``xs[p] [T_p,
     D]`` are the tokens of position ``p``'s data group (a row of
     ``axis_groups(mesh, model_axis)``), the same at each of its positions,
     ``first[p]`` the index of ``xs[p][0]`` among all ``n_tokens`` tokens in
@@ -200,7 +200,11 @@ def moe_apply_mesh(ps: list, xs: list, moe, mesh, *, model_axis, first: list,
     as batched products; the outputs come back (all-to-all) and each
     position adds, per token in expert order in float32, the gated outputs
     of its experts; an all-reduce over ``model_axis`` adds the positions'
-    shares, rounded once to ``xs``' dtype."""
+    shares, rounded once to ``xs``' dtype.  With ``with_aux`` it returns
+    ``(ys, aux)``, the balance term (:func:`_balance_mesh`) a float32
+    scalar at the first position of the first data group.  Every move is
+    ``sharding.send``, so the function is differentiable and its backward's
+    moves are reported too."""
     rows = axis_groups(mesh, model_axis)
     n_groups, n_cols = rows.shape
     devs = mesh.devices.ravel()
@@ -220,10 +224,11 @@ def moe_apply_mesh(ps: list, xs: list, moe, mesh, *, model_axis, first: list,
         t0, t1 = first[p], first[p] + xs[p].shape[0]
         d0 = t0 // per
         span.append((t0, t1, d0, -(-t1 // per) if t1 > t0 else d0))
-    gates = [None] * mesh.size
+    gates, probs = [None] * mesh.size, [None] * mesh.size
     for p in range(mesh.size):
         with at_position(p):
-            gates[p] = _gates(ps[p]["w_router"], xs[p], moe)[1:]
+            pr, gate_vals, gate_idx = _gates(ps[p]["w_router"], xs[p], moe)
+            probs[p], gates[p] = pr, (gate_vals, gate_idx)
 
     # route and scatter: buffers [E_m, nd, C, D] (and a spare row)
     bufs, routes = [None] * mesh.size, [None] * mesh.size
@@ -243,9 +248,7 @@ def moe_apply_mesh(ps: list, xs: list, moe, mesh, *, model_axis, first: list,
                     continue
                 q = int(rows[h][m])
                 idx = gates[q][1][a - span[h][0]:b - span[h][0]]
-                if q != p:
-                    note_move("all-gather", q, p, idx.nbytes)
-                parts.append(to_device(idx, devs[p]))
+                parts.append(send(idx, q, p, "all-gather", devs[p]))
             idx_all = torch.cat(parts) if len(parts) > 1 else parts[0]
             pos = _queue(idx_all.reshape(nd, per, k), e).reshape(nd * per, k)
             lo = t0 - d0 * per
@@ -275,9 +278,8 @@ def moe_apply_mesh(ps: list, xs: list, moe, mesh, *, model_axis, first: list,
                 if span[h][3] == span[h][2]:
                     continue
                 piece = bufs[q][:, :, c0:c1]
-                if q != p:
-                    note_move("all-to-all", q, p, piece.nbytes)
-                xin[:, span[h][2]:span[h][3]] += to_device(piece, devs[p])
+                xin[:, span[h][2]:span[h][3]] += send(piece, q, p,
+                                                      "all-to-all", devs[p])
             w = ps[p]
             flat = xin.view(xin.shape[0], -1, xin.shape[3])
             hid = F.silu(torch.bmm(flat, w["wi"])) * torch.bmm(flat, w["wg"])
@@ -298,9 +300,7 @@ def moe_apply_mesh(ps: list, xs: list, moe, mesh, *, model_axis, first: list,
                 for h in range(n_groups):
                     q = int(rows[h][m])
                     piece = outs[q][:, d0:d1]
-                    if q != p:
-                        note_move("all-to-all", q, p, piece.nbytes)
-                    parts.append(to_device(piece, devs[p]))
+                    parts.append(send(piece, q, p, "all-to-all", devs[p]))
                 out = torch.cat(parts, dim=2)
             else:
                 out = outs[p][:, d0:d1]
@@ -321,4 +321,41 @@ def moe_apply_mesh(ps: list, xs: list, moe, mesh, *, model_axis, first: list,
     for p, (y, x) in enumerate(zip(ys, xs)):
         with at_position(p):
             out.append(y.to(x.dtype))
-    return out
+    if not with_aux:
+        return out
+    return out, _balance_mesh(gates, probs, rows, span, per, n_disp, e, devs)
+
+
+def _balance_mesh(gates, probs, rows, span, per: int, n_disp: int, e: int,
+                  devs) -> torch.Tensor:
+    """The Switch balance term of :func:`moe_apply_mesh`'s dispatches,
+    :func:`moe_route`'s ``aux`` averaged over the dispatches as
+    :func:`moe_apply` averages it over slabs: each data group's first
+    position counts its tokens' first choices and sums their router
+    probabilities per dispatch (``[n_disp, E]``, zero for the dispatches it
+    has no token of), the groups' sums are added at the first group's
+    first position (an all-reduce: a dispatch may span groups, and its
+    ``f_e`` and ``P_e`` are means over all its tokens), and there ``E *
+    sum_e f_e P_e`` per dispatch, averaged.  Differentiable in the
+    probabilities."""
+    home = int(rows[0][0])
+    total = None
+    for g, row in enumerate(rows):
+        p = int(row[0])
+        t0, t1, d0, d1 = span[g]
+        if d1 == d0:
+            continue
+        with at_position(p):
+            disp = torch.arange(t0, t1, device=devs[p]) // per
+            first = F.one_hot(gates[p][1][:, 0], e).float()
+            part = torch.stack([
+                probs[p].new_zeros((n_disp, e)).index_add(0, disp, first),
+                probs[p].new_zeros((n_disp, e)).index_add(0, disp, probs[p])])
+        with at_position(home):
+            part = send(part, p, home, "all-reduce", devs[home])
+            total = part if total is None else total + part
+    with at_position(home):
+        if total is None:
+            return torch.zeros((), dtype=torch.float32, device=devs[home])
+        fe, pe = total / per
+        return (e * torch.sum(fe * pe, dim=-1)).mean()

@@ -42,8 +42,9 @@ the softmax split over "model" (:func:`_split_softmax`).
 Row-parallel products are summed in float32 and rounded once to the
 model's dtype, as the unsharded product accumulates (on the card
 ``torch.mm(..., out_dtype=torch.float32)``, on the CPU a float32 product
-of the widened operands).  The MoE balance term, which prefill discards, is not
-computed.  Each position's work runs inside ``observe.at_position`` and
+of the widened operands; differentiable, for training's trunk in
+:mod:`.sharded_train`).  The MoE balance term, which prefill and decode
+discard, is computed only there (``_ffn(..., with_aux=True)``).  Each position's work runs inside ``observe.at_position`` and
 every move is reported, so the dry-run's cost model sees each position's
 flops, bytes and collectives.  Sequence parallelism (``Sharder(
 seq_parallel=True)``) is not ported.
@@ -136,14 +137,37 @@ class _Layout:
                          psum(partials, self.mesh, self.model))
 
 
+class _PartialMM(torch.autograd.Function):
+    """``torch.mm(a, w, out_dtype=float32)`` of 2-d ``a`` and ``w`` in the
+    model's dtype; the backward takes the float32 cotangent rounded to
+    that dtype, as the unsharded product's backward sees it, and returns
+    ``g wᵀ`` and ``aᵀ g`` in that dtype (each accumulated in float32 and
+    rounded once)."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return torch.mm(a, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, w = ctx.saved_tensors
+        g = grad.to(a.dtype)
+        return g @ w.t(), a.t() @ g
+
+
 def _partial(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` accumulated and kept in float32: a row-parallel block's
-    share of a sum."""
+    share of a sum.  Differentiable."""
     if a.device.type == "cpu":
         return a.float() @ w.float()
     if a.dtype == torch.float32:
         return a @ w
-    out = torch.mm(a.reshape(-1, a.shape[-1]), w, out_dtype=torch.float32)
+    flat = a.reshape(-1, a.shape[-1])
+    if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+        out = _PartialMM.apply(flat, w)
+    else:
+        out = torch.mm(flat, w, out_dtype=torch.float32)
     return out.reshape(*a.shape[:-1], w.shape[-1])
 
 
@@ -154,8 +178,13 @@ def _without_data(spec: tuple) -> tuple:
 def _weights(lay: _Layout, spec_tree: dict, tree: dict) -> dict:
     """``tree``'s tensors placed by ``spec_tree`` and gathered over the data
     axes: name -> one tensor per position (a nested dict for the MoE)."""
-    placed = lay.shard.place(spec_tree, tree)
+    return _gathered(lay, spec_tree, lay.shard.place(spec_tree, tree))
 
+
+def _gathered(lay: _Layout, spec_tree: dict, placed: dict) -> dict:
+    """``placed``'s ``ShardedTensor`` leaves (laid out by ``spec_tree``)
+    gathered over the data axes: name -> one tensor per position (a nested
+    dict for the MoE)."""
     def gather(spec, st):
         if isinstance(st, dict):
             return {k: gather(spec[k], v) for k, v in st.items()}
@@ -279,18 +308,23 @@ def _row_parallel(lay: _Layout, xs: list, wo: list, n: int) -> list:
 
 
 def _ffn(lay: _Layout, w: dict, h2: list, cfg, first: list,
-         n_tokens: int) -> list:
+         n_tokens: int, with_aux: bool = False):
+    """The FFN over the positions; with ``with_aux`` ``(out, aux)``, aux
+    an MoE's balance term (None for a dense FFN)."""
     if cfg.moe is None:
         hid = lay.each(lambda p, x, wi, wg: F.silu(x @ wi) * (x @ wg),
                        h2, w["wi"], w["wg"])
         parts = lay.each(lambda p, x, wo: _partial(x, wo), hid, w["wo_mlp"])
-        return lay.reduce(parts, h2[0].dtype)
+        out = lay.reduce(parts, h2[0].dtype)
+        return (out, None) if with_aux else out
     d = cfg.d_model
     ps = [{k: w["moe"][k][p] for k in MOE_KEYS} for p in lay.positions]
     ys = moe_apply_mesh(ps, [x.reshape(-1, d) for x in h2], cfg.moe,
                         lay.mesh, model_axis=lay.model, first=first,
-                        n_tokens=n_tokens)
-    return [y.reshape(x.shape) for y, x in zip(ys, h2)]
+                        n_tokens=n_tokens, with_aux=with_aux)
+    ys, aux = ys if with_aux else (ys, None)
+    out = [y.reshape(x.shape) for y, x in zip(ys, h2)]
+    return (out, aux) if with_aux else out
 
 
 def prefill_on_mesh(params, tokens: torch.Tensor, cfg, max_len: int, shard

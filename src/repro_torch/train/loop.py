@@ -6,18 +6,51 @@
 ...]`` and the microbatches run one after another; their gradients
 accumulate in float32.  The step updates the parameters and the moments in
 place, which stands for the reference's donation of the state.
+
+On a mesh (the state's parameters a tree of ``ShardedTensor`` leaves, as
+the registry's ``in_shardings`` and ``restore_checkpoint(...,
+shardings=)`` lay them out) the step is the one GSPMD makes of the
+reference's: microbatch ``i`` is rows ``[i * mb, (i + 1) * mb)`` of the
+global batch, laid out over the data axes by ``loss_fn`` (a batch of
+``ShardedTensor`` leaves is re-split to it, each row from a position that
+holds it); each position's shards take the gradient (``loss_fn`` returns
+one scalar, the mesh's loss), accumulated in float32 per shard; the
+gradient of a block that several positions hold (a dim replicated over an
+axis) is the float32 sum of their partial gradients, an all-reduce over
+them; and AdamW runs on each position's shards
+(``optimizer.adamw_update_mesh``).  The step reports its stages to an
+observer (``observe.note_stage``: ``"microbatches"``, ``"optimizer"``), and
+under :func:`traced_microbatches` runs only the first microbatches, so
+that the dry-run can trace one and scale it.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable
 
 import torch
 
-from .checkpoint import tree_map
-from .optimizer import adamw_update, param_leaves
+from .checkpoint import tree_flatten, tree_map, tree_unflatten
+from .optimizer import adamw_update, adamw_update_mesh, param_leaves
 from .train_state import TrainState
 
-__all__ = ["make_train_step"]
+__all__ = ["make_train_step", "traced_microbatches"]
+
+_TRACED: contextvars.ContextVar[int | None] = contextvars.ContextVar(
+    "traced_microbatches", default=None)
+
+
+@contextlib.contextmanager
+def traced_microbatches(k: int):
+    """Inside, a step over a mesh runs only its first ``k`` microbatches
+    (its loss and gradients then lack the rest: a dry-run's trace, whose
+    costs the caller scales by the stage marks)."""
+    token = _TRACED.set(int(k))
+    try:
+        yield
+    finally:
+        _TRACED.reset(token)
 
 
 def _value_and_grad(loss_fn: Callable, params, batch, leaves: dict
@@ -26,6 +59,147 @@ def _value_and_grad(loss_fn: Callable, params, batch, leaves: dict
     grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
     return loss.detach(), [torch.zeros_like(p) if g is None else g
                            for p, g in zip(leaves.values(), grads)]
+
+
+def _on_mesh(params) -> bool:
+    from ..distributed.sharding import ShardedTensor
+
+    leaves, _ = tree_flatten(params)
+    return bool(leaves) and isinstance(leaves[0], ShardedTensor)
+
+
+def _rows(x, lo: int, hi: int, shard):
+    """Rows ``[lo, hi)`` of a batch leaf: a view of a whole tensor, or of a
+    ``ShardedTensor`` split over its rows the rows re-split over the data
+    axes (``("batch", None, ...)``), each position's taken from itself, a
+    position on its device, or the lowest that holds them (an
+    all-to-all)."""
+    from ..distributed.observe import at_position
+    from ..distributed.sharding import ShardedTensor, send
+
+    if not isinstance(x, ShardedTensor):
+        return x[lo:hi]
+    mesh = x.sharding.mesh
+    devs = mesh.devices.ravel()
+    shape = (hi - lo, *x.shape[1:])
+    have = [x.sharding.shard_slices(q, x.shape) for q in range(mesh.size)]
+    if any(h[d] != slice(0, x.shape[d]) for h in have
+           for d in range(1, len(shape))):
+        raise ValueError("a batch leaf split past its rows")
+    target = shard.named("batch", *(None,) * (len(shape) - 1)).fitted(shape)
+    out = []
+    for p in range(mesh.size):
+        want = target.shard_slices(p, shape)[0]
+        r, stop, parts = lo + want.start, lo + want.stop, []
+        with at_position(p):
+            while r < stop:
+                held = [q for q in range(mesh.size)
+                        if have[q][0].start <= r < have[q][0].stop]
+                q = p if p in held else next(
+                    (h for h in held if devs[h] == devs[p]), held[0])
+                end = min(stop, have[q][0].stop)
+                start = have[q][0].start
+                parts.append(send(x.shards[q][r - start:end - start], q, p,
+                                  "all-to-all", devs[p]))
+                r = end
+            out.append(torch.cat(parts) if len(parts) > 1 else parts[0]
+                       if parts else x.shards[p][:0])
+    return ShardedTensor(target, shape, tuple(out))
+
+
+def _reduce_replicas(st, grads: list) -> list:
+    """``grads[p]`` (position ``p``'s gradient of its shard of ``st``) with
+    each block that several positions hold summed over them in float32 at
+    the first, in position order, and the sum placed back on each (an
+    all-reduce)."""
+    from ..device import on_device
+    from ..distributed.observe import at_position
+    from ..distributed.sharding import send
+
+    devs = st.sharding.mesh.devices.ravel()
+    out = list(grads)
+    for group in st.holders():
+        if len(group) == 1:
+            continue
+        home = group[0]
+        with on_device(devs[home]), at_position(home):
+            total = grads[home].float()
+            for q in group[1:]:
+                total = total + send(grads[q], q, home, "all-reduce",
+                                     devs[home]).float()
+        for q in group:
+            with at_position(q):
+                out[q] = send(total, home, q, "all-reduce", devs[q])
+    return out
+
+
+def _mesh_step(loss_fn: Callable, state: TrainState, batch, nm: int,
+               **adamw) -> tuple[TrainState, dict]:
+    """The step over a mesh (see the module docstring)."""
+    from ..device import on_device
+    from ..distributed.observe import at_position, note_stage
+    from ..distributed.sharding import ShardedTensor, Sharder
+
+    leaves, treedef = tree_flatten(state.params)
+    mesh = leaves[0].sharding.mesh
+    shard = Sharder.for_mesh(mesh)
+    devs = mesh.devices.ravel()
+    takes = [[s.detach().requires_grad_() for s in st.shards]
+             for st in leaves]
+    params = tree_unflatten(treedef, [
+        ShardedTensor(st.sharding, st.shape, tuple(t))
+        for st, t in zip(leaves, takes)])
+    flat = [t for ts in takes for t in ts]
+    b_all = tree_flatten(batch)[0][0].shape[0]
+    mb = b_all // nm
+    runs = nm if _TRACED.get() is None else min(nm, _TRACED.get())
+    acc = None
+    if nm > 1:
+        acc = []
+        for st in leaves:
+            row = []
+            for p, s in enumerate(st.shards):
+                with on_device(devs[p]), at_position(p):
+                    row.append(torch.zeros(s.shape, dtype=torch.float32,
+                                           device=s.device))
+            acc.append(row)
+    with at_position(0):
+        loss = torch.zeros((), dtype=torch.float32, device=devs[0])
+    note_stage("microbatches")
+    for i in range(runs):
+        micro = tree_map(lambda x: _rows(x, i * mb, (i + 1) * mb, shard),
+                         batch)
+        value = loss_fn(params, micro)
+        got = torch.autograd.grad(value, flat, allow_unused=True)
+        got = [torch.zeros_like(t) if g is None else g
+               for t, g in zip(flat, got)]
+        del micro
+        grads = [got[j * mesh.size:(j + 1) * mesh.size]
+                 for j in range(len(leaves))]
+        del got
+        if acc is not None:
+            for row, gs in zip(acc, grads):
+                for p, (a, g) in enumerate(zip(row, gs)):
+                    with on_device(devs[p]), at_position(p):
+                        a.add_(g.float())
+            del grads
+        with at_position(0):
+            loss = loss + value.detach().float().to(devs[0])
+    note_stage("optimizer")
+    if acc is not None:
+        for row in acc:
+            for p, a in enumerate(row):
+                with on_device(devs[p]), at_position(p):
+                    a.div_(nm)
+        grads = acc
+    grads = [_reduce_replicas(st, gs) for st, gs in zip(leaves, grads)]
+    with at_position(0):
+        loss = loss / nm
+    params, opt, gnorm = adamw_update_mesh(grads, state.opt, state.params,
+                                           **adamw)
+    metrics = {"loss": loss, "grad_norm": gnorm, "step": opt.step.shards[0]
+               if isinstance(opt.step, ShardedTensor) else opt.step}
+    return TrainState(params, opt, state.rng), metrics
 
 
 def make_train_step(
@@ -44,6 +218,9 @@ def make_train_step(
 
     def step(state: TrainState, batch):
         params = state.params
+        if _on_mesh(params):
+            return _mesh_step(loss_fn, state, batch, n_microbatches, lr=lr,
+                              weight_decay=weight_decay, clip_norm=clip_norm)
         leaves = param_leaves(params)
         for p in leaves.values():
             p.requires_grad_(True)
@@ -70,4 +247,5 @@ def make_train_step(
         metrics = {"loss": loss.float(), "grad_norm": gnorm, "step": opt.step}
         return TrainState(params, opt, state.rng), metrics
 
+    step.n_microbatches = n_microbatches
     return step

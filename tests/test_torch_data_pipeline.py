@@ -59,5 +59,10 @@ def test_shard_batch_puts_the_tree_on_the_device():
 
 
 def test_shard_batch_refuses_shardings():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    """Shardings place every leaf on their mesh (the placement itself:
+    ``tests/test_torch_mesh_train.py``), so they take no ``device=``, and
+    a tree of them must name a ``NamedSharding``."""
+    with pytest.raises(ValueError, match="no device="):
         shard_batch({"x": np.zeros(2)}, {"x": "spec"}, device="cpu")
+    with pytest.raises(ValueError, match="names no NamedSharding"):
+        shard_batch({"x": np.zeros(2)}, {"x": None})

@@ -146,14 +146,20 @@ def test_sharder_without_a_mesh():
 
 
 def test_lm_steps_refuse_a_mesh():
-    """On a mesh the prefill and decode steps are built (their runs: the
-    mesh prefill and decode tests); train still waits on Queue 1 item 3."""
+    """On a mesh the prefill, decode and train steps are all built (their
+    runs: the mesh prefill, decode and train tests); the loss over a mesh
+    refuses sequence parallelism, which is not ported."""
     mesh = make_mesh((1, 1), ("data", "model"), ["cpu"])
     cells = list_cells("phi4-mini-3.8b", smoke=True)
     assert callable(cells["prefill_32k"].make_step(Sharder.for_mesh(mesh)))
     assert callable(cells["decode_32k"].make_step(Sharder.for_mesh(mesh)))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        cells["train_4k"].make_step(Sharder.for_mesh(mesh))
+    step = cells["train_4k"].make_step(Sharder.for_mesh(mesh))
+    assert callable(step) and step.n_microbatches == 8
+    from repro_torch.models.transformer import lm_loss
+
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        lm_loss({}, {}, get_arch("phi4-mini-3.8b").smoke_config(),
+                Sharder.for_mesh(mesh, seq_parallel=True))
 
 
 @pytest.mark.parametrize("arch", GNN_ARCHS + ["xdeepfm"])
