@@ -26,8 +26,9 @@ through K4), trains phi4-mini-3.8b, the GNNs and xDeepFM at full width,
 checks the halo-exchange losses, dry-runs the ``sgrapp`` cells on the
 production and tiny meshes and runs them on tiny meshes of the cards
 present, takes the data-parallel gradient mean with compression and a
-checkpoint restored onto another mesh layout, and runs the LMs' prefill
-over a mesh of the card repeated to 8 positions.  Every check
+checkpoint restored onto another mesh layout, and runs the LMs' prefill,
+decode and training and the GNNs' training over a mesh of the card
+repeated to 8 positions.  Every check
 raises on failure, so the exit code is non-zero unless all phases pass.
 
 Phases (each path's launch counts are set to 0 just before it runs and read
@@ -114,7 +115,11 @@ just after):
    prompts, 8 tokens), each depth cut logged as ``reduced``; for an MoE
    also the dropped share of (token, choice) pairs per layer in prefill
    and in decode, and the smoke config's routing (every dispatch's gate
-   indices and kept choices) equal on the card and the CPU;
+   indices and kept choices) equal on the card and the CPU; then (18 (b))
+   the router on a slab of 8,192 tokens at each MoE arch's width: tied
+   router columns give bit-equal float32 logits (a float64 product
+   rounded, ``moe._gates``) and the lower expert first, with that
+   product's ms beside the float32 product's;
 11. entries (K1): on a fresh pallas executor, ``run(mode="tumbling")``
    equals phase 2, ``run(mode="sliding", span=s)`` for s in {1, 4, 32}
    equals the prefix difference of those counts and, at 32, ``dense``'s
@@ -295,17 +300,33 @@ just after):
    ``MESH_TRAIN_NORMWISE``, the loss falling); (b) in float32 at 2 layers
    and 2 x 1,024, every leaf of the parameters and moments after one step
    within ``MESH_TRAIN_LEAF`` normwise; (c) at full depth, one step of 2 x
-   4,096 in one microbatch, timed, profiled (summed both ways) and its
-   peak read; (d) minicpm3-4b and phi3.5-moe-42b at 2 layers as (a).  K4's
+   4,096 in one microbatch, timed, profiled and its peak read; (d) minicpm3-4b and phi3.5-moe-42b at 2 layers as (a).  K4's
    launches exact a step, all on ``wgmma`` in bf16; one step's all-gather
    and reduce-scatter bytes equal to what the specs imply
    (``sharded_train.predicted_gathers``).
+28. GNN training over a mesh (no TPU kernel: the count of K1-K4, set to 0
+   before it, stays 0): each GNN arch's ``minibatch_lg`` train step
+   (``models.gnn.sharded``: node, edge and triplet arrays in "flat"
+   blocks, the parameters replicated, each gather an all-gather, each
+   segment op's partials reduce-scattered, all-reduced or, for the
+   softmax, ``pmax`` and ``psum``) at full width and depth on one seeded
+   batch over both tiny meshes of the cards present repeated to 8
+   positions (a cell that does not fit the card cut down ``CUT_SHARES`` in
+   nodes and edges, logged as ``reduced``): 3 AdamW steps sharded and 3
+   unsharded, each pair from one state, each step's loss within rtol 1e-4
+   and every gradient leaf within 1e-4 max|g| + 1e-6 of the unsharded
+   port's (phase 21's bounds) or, where float32 does not determine it that
+   finely, within ``GRAD_FLOOR_FACTOR`` times its rounding floor (the
+   unsharded gradient's gap under a one-rounding perturbation of the
+   parameters); the first step's moves by kind equal to
+   ``sharded.predicted_moves``; step ms both ways, the card's peak; one
+   profile (graphcast's third sharded step on (2, 4)).
 
 On a machine with several cards phase 15 also shards over the distinct
 cards (up to 4); the script needs one card.
 
 Phases 11-15, 19 and 23 run after phase 8, before K4 and serving; phases
-16-18 and 20-22 and 24-27 run after phase 10.  Each phase's wall
+16-18 and 20-22 and 24-28 run after phase 10.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -318,6 +339,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import math
@@ -2909,6 +2931,62 @@ def phase_serve(device, seed: int, *, arch: str, batch: int, prompt: int,
         f"dense tier's whole-Gram sum reaches {total:.6g}"
         + (", past 2**24)" if total >= 2**24 else ", below 2**24: exact)"))
     return summary
+
+
+# the MoE router's logits are a float64 product rounded to float32
+# (``moe._gates``), so that equal router columns tie exactly as the
+# reference's do; held and timed on a slab of this many tokens at each MoE
+# arch's width
+ROUTER_ARCHS = ("phi3.5-moe-42b", "dbrx-132b")
+ROUTER_TOKENS = 8192
+
+
+def phase_router(device, seed: int, *, smoke: bool) -> dict:
+    """The MoE router on the card: a router whose last two columns equal
+    its second gives bit-equal logits in those columns, and wherever the
+    second expert is chosen with a twin the second comes first (the
+    reference's ``jax.lax.top_k`` order); the float64 product's ms beside
+    the float32 product's it replaced, on ``ROUTER_TOKENS`` bf16 tokens
+    (CUDA events).  Returns the times by arch."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer.moe import _gates
+
+    out = {}
+    for arch in ROUTER_ARCHS:
+        cfg = get_arch(arch).smoke_config() if smoke else \
+            get_arch(arch).full_config()
+        d, moe = cfg.d_model, cfg.moe
+        t = 256 if smoke else ROUTER_TOKENS
+        g = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn((t, d), generator=g, device=device).to(torch.bfloat16)
+        w = torch.randn((d, moe.n_experts), generator=g, device=device) / d ** 0.5
+        w[:, -1] = w[:, 1]
+        w[:, -2] = w[:, 1]
+        _, _, idx = _gates(w, x, moe)
+        logits = (x.double() @ w.double()).float()
+        tied = torch.equal(logits[:, 1], logits[:, -1]) and torch.equal(
+            logits[:, 1], logits[:, -2])
+        check(tied, f"{arch}: tied router columns give unequal logits")
+        pos = lambda e: torch.where(idx == e, torch.arange(  # noqa: E731
+            moe.top_k, device=device), moe.top_k).amin(-1)
+        both = (pos(1) < moe.top_k) & (pos(moe.n_experts - 1) < moe.top_k)
+        check(bool((pos(1)[both] < pos(moe.n_experts - 1)[both]).all()),
+              f"{arch}: a tied twin chosen before the lower expert")
+        f32 = x.float() @ w
+        f32_tied = bool(torch.equal(f32[:, 1], f32[:, -1]))
+        ms64 = time_ms(lambda: (x.double() @ w.double()).float(), device,
+                       reps=20)
+        ms32 = time_ms(lambda: x.float() @ w, device, reps=20)
+        out[arch] = {"float64_ms": ms64, "float32_ms": ms32}
+        log(f"[router] {arch}: {t:,} tokens of width {d:,}, a [{d:,}, "
+            f"{moe.n_experts}] router: tied columns equal in the float64 "
+            f"product, the lower expert first in {int(both.sum())} rows "
+            f"that chose both; the float32 product's tied columns "
+            f"{'equal' if f32_tied else 'unequal'} on {device}; float64 "
+            f"logits {ms64:.4f} ms, float32 {ms32:.4f} ms")
+    return out
 
 
 def sync_all(devices) -> None:
@@ -5597,7 +5675,8 @@ def mesh_train_once(device, seed: int, arch: str, cfg, kind: str, batch: int,
     ``predicted_gathers`` (its time includes the observer's tagging of
     each autograd node: the later steps are the timed ones; with one step
     one more runs timed); the card's peak memory; ``profile_it`` profiles
-    one more step (summed both ways).  Logs where the run's time went."""
+    one more step (summed from the trace's events; phase 10 holds that sum
+    to ``key_averages()``'s once).  Logs where the run's time went."""
     import torch
 
     from repro_torch.configs.registry import lm_cells
@@ -5724,8 +5803,7 @@ def mesh_train_once(device, seed: int, arch: str, cfg, kind: str, batch: int,
     if profile_it:
         t0 = time.perf_counter()
         wall, busy, _ = profile(f"{what}, one sharded train step",
-                                lambda: step(state, data), device,
-                                both_ways=True)
+                                lambda: step(state, data), device)
         prof = {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall}
         lap("profile", t0)
     del state, step
@@ -5812,6 +5890,304 @@ def phase_mesh_train(device, seed: int, *, smoke: bool) -> dict:
     return out
 
 
+# phase 28: the GNNs' train step over a mesh.  Each arch's minibatch_lg
+# cell at full width and depth over both tiny meshes of the card repeated
+# to 8 positions (every position holds a whole all-gathered copy of the
+# gathered feature, so 8 positions on one card hold 8 copies: a cell that
+# does not fit is cut down CUT_SHARES in nodes and edges)
+MESH_GNN_CELLS = (("graphsage-reddit", "minibatch_lg"),
+                  ("graphcast", "minibatch_lg"), ("dimenet", "minibatch_lg"),
+                  ("equiformer-v2", "minibatch_lg"))
+MESH_GNN_KINDS = ("tiny", "tiny_multipod")
+MESH_GNN_STEPS = 3
+# the one profiled step: this cell's third sharded step on this mesh
+MESH_GNN_PROFILED = ("graphcast", "tiny")
+# A gradient leaf of a full-width cell may not be determined to phase 21's
+# bound (1e-4 max|g| + 1e-6) by float32 at all: one rounding of the
+# parameters moves some of GraphCast's and DimeNet's leaves by about that
+# much at full width (phase 28 logs the rounding floors it takes; the
+# smoke configs of phase 21 stay far below it).  So a leaf past that bound
+# is also held within GRAD_FLOOR_FACTOR times its rounding floor at the
+# step's state:
+# the largest gap, over GRAD_FLOOR_DRAWS draws, between the unsharded
+# gradient and the unsharded gradient at parameters perturbed elementwise
+# by 2**-23 N(0, 1) relative (one float32 rounding's size).  The sharded
+# step rounds at every op where the perturbation rounds the inputs once:
+# about sqrt(12 layers x 10 ops) ~ 11 times as many independent
+# roundings, so 16
+GRAD_FLOOR_FACTOR = 16
+GRAD_FLOOR_DRAWS = 2
+
+
+@contextlib.contextmanager
+def captured_grads(out: dict):
+    """Inside, each train step's gradients as its optimizer takes them:
+    ``out["plain"]`` (by leaf name) from an unsharded step,
+    ``out["mesh"]`` (per leaf in ``jax.tree``'s order, per position, the
+    replicas' sums) from a step over a mesh."""
+    from repro_torch.train import loop
+
+    plain, mesh = loop.adamw_update, loop.adamw_update_mesh
+
+    def take_plain(grads, *a, **k):
+        out["plain"] = grads
+        return plain(grads, *a, **k)
+
+    def take_mesh(grads, *a, **k):
+        out["mesh"] = grads
+        return mesh(grads, *a, **k)
+    loop.adamw_update, loop.adamw_update_mesh = take_plain, take_mesh
+    try:
+        yield out
+    finally:
+        loop.adamw_update, loop.adamw_update_mesh = plain, mesh
+
+
+def mesh_gnn_state(cell, state, shard):
+    """The unsharded ``state`` (moments by leaf name) as the cell's
+    ``in_shardings`` place it over ``shard.mesh``: a copy, moments as
+    trees of the parameters' structure."""
+    from repro_torch.distributed.sharding import put_tree
+    from repro_torch.train import AdamWState, TrainState
+    from repro_torch.train.checkpoint import tree_map
+    from repro_torch.train.optimizer import leaves_as_tree
+
+    copy = lambda t: t.detach().clone()  # noqa: E731
+    params = tree_map(copy, state.params)
+    opt = AdamWState(copy(state.opt.step),
+                     tree_map(copy, leaves_as_tree(state.opt.m, params)),
+                     tree_map(copy, leaves_as_tree(state.opt.v, params)))
+    return put_tree(TrainState(params, opt, 0), cell.in_shardings(shard)[0])
+
+
+def rounding_floor(loss_fn, params, batch: dict, want: dict, gen) -> dict:
+    """Per gradient leaf (by name) of ``loss_fn`` at ``params`` on
+    ``batch``, whose gradient there is ``want``: the largest max-abs gap
+    between ``want`` and the gradient at the parameters perturbed
+    elementwise by ``2**-23 N(0, 1)`` relative (``gen``'s draws), over
+    ``GRAD_FLOOR_DRAWS`` draws (see ``GRAD_FLOOR_FACTOR``)."""
+    import torch
+
+    from repro_torch.train.checkpoint import tree_map
+
+    floor = {name: 0.0 for name in want}
+    for _ in range(GRAD_FLOOR_DRAWS):
+        moved = tree_map(lambda t: t.detach() * (1 + 2.0 ** -23 * torch.randn(
+            t.shape, generator=gen, device=t.device)), params)
+        _, got = tree_grads(loss_fn, moved, batch)
+        for name, g in got.items():
+            floor[name] = max(floor[name],
+                              float((g - want[name]).abs().max()))
+        del moved, got
+    return floor
+
+
+def mesh_gnn_once(device, seed: int, arch: str, cell, kind: str, n: int,
+                  e: int, batch: dict, *, profile_it: bool) -> dict:
+    """``MESH_GNN_STEPS`` steps of ``cell`` over ``kind``'s mesh of the
+    card repeated to 8 positions and as many of its unsharded step, each
+    pair from the same state (the unsharded run's, placed anew by the
+    cell's ``in_shardings``): each step's loss within rtol 1e-4 and every
+    gradient leaf (the optimizer's, the replicas' sum) within 1e-4 max|g|
+    + 1e-6 of the unsharded step's, or, where float32 does not determine
+    it that finely, within ``GRAD_FLOOR_FACTOR`` times its rounding floor
+    at the step's state (:func:`rounding_floor`, taken only for a step
+    with a leaf past the first bound); the first sharded step's moves
+    equal to
+    ``predicted_moves``; each
+    step's ms both ways, the card's peak during the sharded steps, and
+    with ``profile_it`` a profile of the last sharded step."""
+    import torch
+
+    from repro_torch.configs.registry import _GNN_INIT, _GNN_LOSS, GNN_KEY
+    from repro_torch.distributed import Sharder
+    from repro_torch.distributed.observe import observing
+    from repro_torch.distributed.sharding import put_tree
+    from repro_torch.launch.mesh import make_tiny_mesh
+    from repro_torch.models.gnn.sharded import predicted_moves
+    from repro_torch.train import TrainState, adamw_init
+    from repro_torch.train.checkpoint import tree_map
+    from repro_torch.train.optimizer import param_leaves
+
+    cuda = device.type == "cuda"
+    start = time.perf_counter()
+    cfg = cell.config
+    mesh = make_tiny_mesh(multi_pod=kind == "tiny_multipod",
+                          devices=repeated_cards(device, 8))
+    shard = Sharder.for_mesh(mesh)
+    what = f"{arch}/{cell.shape_name} over {kind} {mesh.shape}"
+    params = _GNN_INIT[GNN_KEY[arch]](cfg, seed=seed, device=device)
+    state = TrainState(params, adamw_init(params), seed)
+    placed = put_tree(batch, cell.in_shardings(shard)[1])
+    plain_step, mesh_step = cell.make_step(Sharder(None)), cell.make_step(shard)
+    names = list(param_leaves(params))
+    moves = MoveLog()
+    plain_ms, mesh_ms, losses, worst_l, worst_g = [], [], [], 0.0, 0.0
+    noise: set = set()
+    floored: dict = {}
+    floor_rel = floor_s = 0.0
+    loss_fn = lambda p, b: _GNN_LOSS[GNN_KEY[arch]](p, b, cfg)  # noqa: E731
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    prof = None
+    if cuda:
+        # what earlier phases left for the collector (autograd graphs in
+        # reference cycles) would count in this run's peak
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    for t in range(MESH_GNN_STEPS):
+        sharded = mesh_gnn_state(cell, state, shard)
+        grads: dict = {}
+        sync(device)
+        t0 = time.perf_counter()
+        with captured_grads(grads), (observing(moves) if t == 0
+                                     else contextlib.nullcontext()):
+            if profile_it and t == MESH_GNN_STEPS - 1 and cuda:
+                box = {}
+
+                def run_step():
+                    box["out"] = mesh_step(sharded, placed)
+                wall, busy, _ = profile(f"{what}, one sharded train step",
+                                        run_step, device, top=6)
+                prof = {"wall_ms": wall, "busy_ms": busy,
+                        "idle": 1 - busy / wall}
+                sharded, m_s = box["out"]
+            else:
+                sharded, m_s = mesh_step(sharded, placed)
+        sync(device)
+        mesh_ms.append((time.perf_counter() - t0) * 1e3)
+        g_mesh = [g[0] for g in grads.pop("mesh")]
+        start_params = tree_map(lambda x: x.detach().clone(), state.params)
+        t0 = time.perf_counter()
+        with captured_grads(grads):
+            state, m_u = plain_step(state, batch)
+        sync(device)
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        l_s, l_u = float(m_s["loss"]), float(m_u["loss"])
+        losses.append((l_s, l_u))
+        worst_l = max(worst_l, abs(l_s - l_u) / abs(l_u))
+        check(np.isfinite(l_s) and abs(l_s - l_u) <= 1e-4 * abs(l_u),
+              f"{what} step {t}: loss {l_s} sharded, {l_u} unsharded")
+        check(len(g_mesh) == len(names), f"{what}: {len(g_mesh)} gradient "
+              f"leaves over the mesh, {len(names)} unsharded")
+        past = {}
+        for name, g_s in zip(names, g_mesh):
+            g_u = grads["plain"][name]
+            gap = float((g_s.float() - g_u.float()).abs().max())
+            scale = float(g_u.abs().max())
+            if gap > 1e-4 * scale + 1e-6:
+                past[name] = (gap, scale)
+            elif gap > NOISE_LEAF * scale:
+                noise.add(name)
+            else:
+                worst_g = max(worst_g, gap / max(scale, 1e-30))
+        del g_mesh, sharded
+        if past:
+            t0 = time.perf_counter()
+            floor = rounding_floor(loss_fn, start_params, batch,
+                                   grads["plain"], gen)
+            floor_s += time.perf_counter() - t0
+            for name, (gap, scale) in past.items():
+                check(gap <= 1e-4 * scale + 1e-6 + GRAD_FLOOR_FACTOR
+                      * floor[name], f"{what} step {t}: gradient {name} off "
+                      f"by {gap} (max {scale}, rounding floor {floor[name]})")
+                floored[name] = max(floored.get(name, 0.0),
+                                    gap / max(floor[name], 1e-30))
+                floor_rel = max(floor_rel, floor[name] / max(scale, 1e-30))
+            del floor
+        del grads, start_params
+    card_peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    pred = predicted_moves(arch, cfg, batch, mesh)
+    check(moves.kinds == pred, f"{what}: moves {moves.kinds}, predicted {pred}")
+    log(f"[mesh-gnn] {what}, {n:,} nodes x {e:,} edges: losses (sharded, "
+        f"unsharded) {[(f'{a:.6f}', f'{b:.6f}') for a, b in losses]}, each "
+        f"step from one state: loss rel gap up to {worst_l:.3e} (bound "
+        f"1e-4), worst gradient leaf max|dg|/max|g| {worst_g:.3e} (bound "
+        f"1e-4 + 1e-6 / max|g|"
+        + (f"; gradient 0 up to rounding, within 1e-6 only: {sorted(noise)}"
+           if noise else "")
+        + (f"; {len(floored)} of {len(names)} leaves past it, within "
+           f"{GRAD_FLOOR_FACTOR} x their rounding floor at the step's state "
+           f"(up to {floor_rel:.3e} of their max|g|; gap / floor up to "
+           f"{max(floored.values()):.3f}: "
+           f"{ {k: f'{v:.3f}' for k, v in sorted(floored.items())} }; the "
+           f"floors took {floor_s:.4f} s)" if floored else "")
+        + f"); step ms sharded "
+        f"{[f'{x:.4f}' for x in mesh_ms]} (the first under the observer"
+        + (", the last under the profiler" if prof else "")
+        + f"), unsharded {[f'{x:.4f}' for x in plain_ms]}; the first step's "
+        f"moves by kind {dict(sorted(moves.kinds.items()))} (predicted "
+        f"{pred}); card peak {card_peak / 2**30:.4f} GiB ({card_peak / CARD_BYTES:.4%} "
+        f"of 80 GB); the run took {time.perf_counter() - start:.4f} s")
+    return {"mesh_ms": mesh_ms, "plain_ms": plain_ms, "moves": moves.kinds,
+            "peak": card_peak, "profile": prof, "loss_gap": worst_l,
+            "grad_gap": worst_g, "floored": floored}
+
+
+def phase_mesh_gnn(device, seed: int, *, smoke: bool) -> dict:
+    """Phase 28: the GNNs' train step over ``make_tiny_mesh`` of the card
+    repeated to 8 positions (``models.gnn.sharded``: node, edge and
+    triplet arrays over "flat", gathers all-gathered, segment partials
+    reduce-scattered or all-reduced): ``MESH_GNN_CELLS`` at full width and
+    depth on one seeded batch (``gnn_batch``) over both tiny meshes,
+    through :func:`mesh_gnn_once`.  A cell that does not fit the card
+    (8 positions and the unsharded run) is retried at the next share of
+    its nodes and edges in ``CUT_SHARES``, the cut logged as ``reduced``.
+    A CPU rehearsal (``smoke``) runs the smoke configs at 4,096 nodes and
+    16,384 edges."""
+    import torch
+
+    from repro_torch.configs import list_cells
+    from repro_torch.configs.shapes import GNN_SHAPES
+
+    out = {}
+    for arch, shape in MESH_GNN_CELLS:
+        cell = list_cells(arch, smoke=smoke)[shape]
+        cfg = cell.config
+        shp = GNN_SHAPES[shape]
+        n_full, e_full = cell_sizes(arch, cfg, shp)
+        shares = iter(CUT_SHARES)
+        done = False
+        while not done:
+            share = next(shares, None)
+            check(share is not None, f"{arch}/{shape} over a mesh does not "
+                  f"fit at {CUT_SHARES[-1]} of its nodes and edges")
+            cut = cut_shape(shp, n_full, e_full, share, smoke)
+            n, e = cell_sizes(arch, cfg, cut)
+            try:
+                t0 = time.perf_counter()
+                batch = gnn_batch(arch, cfg, cut, n, e, seed, device)
+                sync(device)
+                made = time.perf_counter() - t0
+                runs = {kind: mesh_gnn_once(
+                    device, seed, arch, cell, kind, n, e, batch,
+                    profile_it=(arch, kind) == MESH_GNN_PROFILED)
+                    for kind in MESH_GNN_KINDS}
+                done = True
+            except torch.cuda.OutOfMemoryError:
+                pass
+            if not done:
+                batch = None
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+                log(f"[mesh-gnn] {arch}/{shape}: {n:,} nodes x {e:,} edges "
+                    "over 8 positions of one card do not fit")
+        if (n, e) != (n_full, e_full) and not smoke:
+            log(f"[mesh-gnn] reduced: {arch}/{shape} over a mesh {n_full:,} "
+                f"nodes x {e_full:,} edges -> {n:,} x {e:,} ({share:g}: the "
+                f"largest share of {CUT_SHARES} whose 8 positions and "
+                "unsharded run fit one 80 GB card; widths and depth as "
+                "published)")
+        log(f"[mesh-gnn] {arch}/{shape}: batch made in {made:.4f} s")
+        for kind, r in runs.items():
+            out[f"{arch}/{shape}@{kind}"] = {"nodes": n, "edges": e,
+                                              "share": share, **r}
+        del batch, runs
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 class PhaseClock:
     """Logs the wall time of each phase since the previous lap."""
 
@@ -5829,7 +6205,7 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
         alpha0: float = 1.02, tenant_unique: int = 50_000,
         serve_batch: int = SERVE_BATCH) -> list[dict]:
-    """Phases 0-27 on ``device``; returns the kernels records."""
+    """Phases 0-28 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -5957,6 +6333,8 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
                                         smoke=lm_smoke, batch=b, prompt=s_len,
                                         gen=g, n_layers=depth)
         clock.lap(f"{number} serve {arch_id}")
+    phase_router(device, seed, smoke=lm_smoke)
+    clock.lap("18 (b) the MoE router's tie")
     trained = phase_train(device, seed, smoke=lm_smoke)
     clock.lap("20 LM training")
     # phases 21-22 run none of K1-K4: their counts, set to 0 here, stay 0
@@ -5981,6 +6359,13 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     clock.lap("26 decode over a mesh")
     mesh_trained = phase_mesh_train(device, seed, smoke=lm_smoke)
     clock.lap("27 training over a mesh")
+    # phase 28 runs none of K1-K4: their counts, set to 0 here, stay 0
+    kk.reset_launch_count()
+    k4.reset_launch_count()
+    phase_mesh_gnn(device, seed, smoke=lm_smoke)
+    clock.lap("28 GNN training over a mesh")
+    n_tpu = sum(kk.launch_count(k) for k in kk.KERNELS) + k4.launch_count()
+    check(n_tpu == 0, f"phase 28 launched K1-K4 {n_tpu} times")
     k4_launches = {f"{a} (serve)": v["launches"] for a, v in k4_serve.items()}
     k4_launches[f"{LM_ARCH} (train, 3 steps)"] = trained["launches"]
     k4_launches["prefill over a mesh (phase 25)"] = meshed["launches"]

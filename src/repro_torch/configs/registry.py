@@ -379,7 +379,9 @@ def _gnn_flops(arch: str, cfg, shp) -> float:
 
 def gnn_cells(arch: str, base_cfg) -> dict:
     """One ``train`` cell per GNN shape.  A cell's ``make_step(shard)`` is
-    the train step of the arch's loss (one microbatch; without a mesh)."""
+    the train step of the arch's loss (one microbatch); on a mesh the
+    loss runs in the reference's layout (``models.gnn.sharded``: node,
+    edge and triplet arrays over ``"flat"``, the parameters replicated)."""
     import dataclasses
 
     cells = {}
@@ -393,7 +395,6 @@ def gnn_cells(arch: str, base_cfg) -> dict:
         init_fn = _GNN_INIT[arch]
 
         def make_step(shard, cfg=cfg, loss_fn=loss_fn):
-            _no_mesh(shard, "a GNN step")
             loss = lambda p, b: loss_fn(p, b, cfg, shard)  # noqa: E731
             return make_train_step(loss, n_microbatches=1)
 

@@ -27,7 +27,9 @@ def shard_batch(batch, shardings=None, *, device=None):
     ``distributed.NamedSharding`` or None; a dict of shardings may name
     only some of the batch's keys, a leaf it does not name counting as
     None) each leaf is placed by its sharding as a ``ShardedTensor``
-    (``NamedSharding.put``: each position's slice on its device), the
+    (``NamedSharding.put``: each position's slice on its device, split as
+    GSPMD splits it where its rows do not divide: ``NamedSharding.fitted``,
+    as the GNNs' node, edge and triplet arrays over ``"flat"``), the
     counterpart of the reference's ``jax.device_put``; a None leaf is a
     whole tensor on the first device of the shardings' mesh.  It places
     every leaf, so it takes no ``device=``."""
@@ -67,7 +69,7 @@ def shard_batch(batch, shardings=None, *, device=None):
             each = s if isinstance(s, (list, tuple)) else [s] * len(x)
             return type(x)(place(v, t) for v, t in zip(x, each))
         t = torch.as_tensor(np.asarray(x))
-        return t.to(home) if s is None else s.put(t)
+        return t.to(home) if s is None else s.fitted(t.shape).put(t)
     return place(batch, shardings)
 
 

@@ -33,7 +33,10 @@ anew, and every move between positions is reported under XLA's name.
 Each move is ``sharding.send``: under autograd the gradients go back by
 the dual collective (an all-gather's by a reduce-scatter and the other
 way round, an all-reduce's and an all-to-all's by their own kind),
-reported as they move.
+reported as they move.  An axis may be a tuple of axes: over every axis
+of the mesh (the GNNs' "flat", ``models.gnn.sharded``) the one group is
+the whole mesh in position order, so that member ``i``'s block of a
+reduce-scatter is the ``i``-th block of an uneven "flat" split.
 """
 from __future__ import annotations
 
@@ -50,8 +53,9 @@ from .observe import at_position, note_move
 from .sharding import send, shard_bounds
 
 __all__ = ["all_gather", "all_to_all", "axis_groups", "compress_grads",
-           "decompress_grads", "pmax", "psum", "psum_mean_compressed",
-           "reduce_scatter", "resplit", "ring_pair_count"]
+           "decompress_grads", "each_position", "pmax", "psum",
+           "psum_mean_compressed", "reduce_scatter", "resplit",
+           "ring_pair_count"]
 
 
 def compress_grads(tree, method: str | None) -> tuple:
@@ -112,6 +116,17 @@ def axis_groups(mesh: Mesh, axes) -> np.ndarray:
     size = math.prod(mesh.shape[a] for a in axes)
     return np.arange(mesh.size).reshape(mesh.devices.shape).transpose(
         order).reshape(-1, size)
+
+
+def each_position(mesh: Mesh, fn: Callable, *lists) -> list:
+    """``fn(*(l[p] for l in lists))`` at each position ``p`` of ``mesh``
+    in order, on its device and inside ``observe.at_position(p)``."""
+    devs = mesh.devices.ravel()
+    out = []
+    for p in range(mesh.size):
+        with on_device(devs[p]), at_position(p):
+            out.append(fn(*(x[p] for x in lists)))
+    return out
 
 
 def all_gather(pieces: Sequence[torch.Tensor], mesh: Mesh, axis,

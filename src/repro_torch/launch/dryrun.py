@@ -24,10 +24,13 @@ Per cell it prints and records, in ``<out>/<mesh>/<arch>__<shape>.json``:
   trace_s      the trace's wall time, in place of ``lower_s`` / ``compile_s``
 
 A cell whose step raises is recorded as ``"error"`` with its message: the
-GNN and xDeepFM steps on a mesh (ROADMAP Queue 1 item 3).  The LMs'
-prefill, decode and train cells trace over the mesh
-(``models.transformer.sharded``, ``.sharded_train``), K4 counted through
-``note_kernel``.  A train step's state (the donated input) reaches it
+xDeepFM steps on a mesh (ROADMAP Queue 1 item 3).  The LMs' prefill,
+decode and train cells trace over the mesh (``models.transformer.sharded``,
+``.sharded_train``), K4 counted through ``note_kernel``, and so do the
+GNNs' train cells (``models.gnn.sharded``: the batch's whole ``meta``
+arrays laid out over ``"flat"`` by the loss, one microbatch, each layer's
+gathers and segment partials at every position; their moves are
+``sharded.predicted_moves``).  A train step's state (the donated input) reaches it
 placed by ``in_shardings`` as ``ShardedTensor`` leaves, and its backward's
 work counts where its forward ran.  Tracing all of ``train_4k``'s
 microbatches (forward, recompute and backward of each, every layer at
@@ -59,6 +62,8 @@ Usage:
       --shape prefill_32k --mesh tiny
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch minicpm3-4b \\
       --shape decode_32k --mesh pod
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch graphcast \\
+      --mesh tiny_multipod
 """
 from __future__ import annotations
 
@@ -116,10 +121,11 @@ def _materialize(tree):
 
 def _argument_bytes(inputs, in_sh, n: int) -> list[int]:
     """Each position's bytes of the inputs' shards, as ``in_shardings``
-    places them."""
+    places them (split as GSPMD splits an array whose rows do not
+    divide)."""
     per = [0] * n
     for x, sharding in _leaves(inputs, in_sh):
-        for p, shard in enumerate(sharding.place(x)):
+        for p, shard in enumerate(sharding.fitted(x.shape).place(x)):
             per[p] += shard.nbytes
     return per
 

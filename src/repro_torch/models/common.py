@@ -15,7 +15,7 @@ from ..device import resolve_device
 from ..train.checkpoint import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["Split", "dense_init", "rms_norm", "layer_norm", "mlp_init",
-           "mlp_apply", "cross_entropy", "bce_with_logits", "param_device",
+           "mlp_apply", "cross_entropy", "token_nll", "bce_with_logits", "param_device",
            "seeded_split", "stack_layers", "layer_slices",
            "params_from_reference", "params_to_reference"]
 
@@ -99,14 +99,19 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     """Token-level cross entropy in float32: logits ``[..., V]``, integer
     labels ``[...]``; the mean over tokens, or with ``mask`` the
     mask-weighted sum over ``max(sum(mask), 1)``."""
-    lg = logits.float()
-    lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    nll = token_nll(logits, labels)
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
     return nll.mean()
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's negative log-likelihood in float32: ``logsumexp`` of
+    its logits less its label's logit."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    return lse - torch.gather(lg, -1, labels.long()[..., None])[..., 0]
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor

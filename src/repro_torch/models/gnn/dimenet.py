@@ -9,7 +9,9 @@ scatter-sums back onto m_ji.  Triplet indices are precomputed on the host
 (:func:`build_triplets`, or its vectorised twin
 :func:`build_triplets_vectorised`, equal element for element).  The
 reference scans a checkpointed block over the stacked ``blocks``; the port
-loops over them with ``torch.utils.checkpoint`` per block.
+loops over them with ``torch.utils.checkpoint`` per block, on one device or
+over a mesh in the reference's flat-sharded layout (``sharded``; the
+per-graph readout all-reduced).
 """
 from __future__ import annotations
 
@@ -18,19 +20,17 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ...distributed.sharding import Sharder
-from ...graphs.segment import segment_sum
 from ..common import (
     dense_init,
-    layer_slices,
     mlp_apply,
     mlp_init,
     param_device,
     seeded_split,
     stack_layers,
 )
+from .sharded import graph_ops
 
 __all__ = ["DimeNetConfig", "init_dimenet", "dimenet_forward", "dimenet_loss",
            "build_triplets", "build_triplets_vectorised", "TRIPLET_CHUNK"]
@@ -165,63 +165,98 @@ def _bilinear(a, m_in, w):
     return outer @ w.reshape(nb * d, f)
 
 
-def dimenet_forward(params, batch, cfg: DimeNetConfig,
-                    shard: Sharder | None = None):
-    """batch: pos [N,3], z [N,1], edge_src/dst [E], t_in/t_out [T] triplet
-    edge indices, masks, graph_id [N] for batched molecules."""
-    shard = shard or Sharder(None)
-    pos = batch["pos"]
-    src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
-    emask = batch.get("edge_mask")
-    tmask = batch.get("triplet_mask")
-    t_in, t_out = batch["t_in"].long(), batch["t_out"].long()
-    n = pos.shape[0]
-    n_e = src.shape[0]
-
-    vec = pos[dst] - pos[src]                                # [E, 3]
-    dist = torch.linalg.vector_norm(vec, dim=-1)
-    rbf = _bessel_rbf(dist, cfg.n_radial, cfg.cutoff)        # [E, R]
-
-    h = batch["z"].float() @ params["embed_node"]
-    m = mlp_apply(params["embed_edge"],
-                  torch.cat([h[src], h[dst], rbf], dim=-1))  # [E, d]
-
-    # triplet angles: between edge (k->j) = t_in and (j->i) = t_out
-    v1 = -vec[t_in]
-    v2 = vec[t_out]
+def _angle_basis(v1, v2, d_in, cfg: DimeNetConfig):
+    """The spherical basis of each triplet's angle between edges (k->j)
+    (``-v1``) and (j->i) (``v2``), with the first's length ``d_in``."""
     cosang = torch.sum(v1 * v2, -1) / torch.clamp_min(
         torch.linalg.vector_norm(v1, dim=-1) * torch.linalg.vector_norm(v2, dim=-1),
         1e-6)
     angle = torch.arccos(torch.clamp(cosang, -1 + 1e-6, 1 - 1e-6))
-    sbf = _angular_sbf(angle, dist[t_in], cfg.n_spherical, cfg.n_radial,
-                       cfg.cutoff)
+    return _angular_sbf(angle, d_in, cfg.n_spherical, cfg.n_radial,
+                        cfg.cutoff)
 
-    node_acc = torch.zeros((n, cfg.d_hidden), dtype=torch.float32,
-                           device=pos.device)
+
+def _dimenet(g, params, batch, cfg: DimeNetConfig, n: int, n_e: int):
+    """Each node's (or graph's) prediction on graph ops ``g``
+    (``sharded.Whole`` or ``sharded.OnMesh``)."""
+    long = lambda t: t.long()  # noqa: E731
+    src, dst = g.map(long, batch["edge_src"]), g.map(long, batch["edge_dst"])
+    t_in, t_out = g.map(long, batch["t_in"]), g.map(long, batch["t_out"])
+    emask, tmask = batch.get("edge_mask"), batch.get("triplet_mask")
+
+    p_dst, p_src = g.gather(batch["pos"], dst, src)
+    vec = g.map(torch.sub, p_dst, p_src)                     # [E, 3]
+    dist = g.map(lambda v: torch.linalg.vector_norm(v, dim=-1), vec)
+    rbf = g.map(lambda d: _bessel_rbf(d, cfg.n_radial, cfg.cutoff), dist)
+
+    h = g.map(lambda z, p: z.float() @ p["embed_node"], batch["z"], params)
+    h_src, h_dst = g.gather(h, src, dst)
+    m = g.map(lambda a, b, r, p: mlp_apply(p["embed_edge"],
+                                           torch.cat([a, b, r], dim=-1)),
+              h_src, h_dst, rbf, params)                     # [E, d]
+
+    # triplet angles: between edge (k->j) = t_in and (j->i) = t_out
+    v_in, v_out = g.gather(vec, t_in, t_out)
+    sbf = g.map(lambda a, b, d: _angle_basis(-a, b, d, cfg), v_in, v_out,
+                g.gather(dist, t_in))
+
+    node_acc = g.map(lambda pos: torch.zeros(
+        (pos.shape[0], cfg.d_hidden), dtype=torch.float32, device=pos.device),
+        batch["pos"])
+
+    def triplet_msg(s, mi, tm, bp):
+        # directional message: bilinear(sbf, m_kj)
+        msg = _bilinear(s @ bp["w_sbf"], mi, bp["w_bilinear"])
+        return msg if tm is None else torch.where(tm[:, None], msg, 0.0)
 
     def block(m, node_acc, bp):
-        m = shard.act(m, "flat", None)
-        # directional message: bilinear(sbf, m_kj) scattered onto ji
-        a = sbf @ bp["w_sbf"]                                # [T, nbil]
-        msg = _bilinear(a, m[t_in], bp["w_bilinear"])
-        if tmask is not None:
-            msg = torch.where(tmask[:, None], msg, 0.0)
-        inter = segment_sum(msg, t_out, n_e)
-        m_new = m + mlp_apply(bp["edge_mlp"], m * (rbf @ bp["w_rbf"]) + inter)
+        msg = g.map(triplet_msg, sbf, g.gather(m, t_in), tmask, bp)
+        inter = g.segment_sum(msg, t_out, n_e)               # onto ji
+        m_new = g.map(lambda m, r, i, bp: m + mlp_apply(
+            bp["edge_mlp"], m * (r @ bp["w_rbf"]) + i), m, rbf, inter, bp)
         # per-block output: edge -> node
-        contrib = segment_sum(mlp_apply(bp["out_mlp"], m_new), dst, n, emask)
-        return m_new, node_acc + contrib
+        out = g.map(lambda mn, bp: mlp_apply(bp["out_mlp"], mn), m_new, bp)
+        contrib = g.segment_sum(out, dst, n, emask)
+        return m_new, g.map(torch.add, node_acc, contrib)
 
-    for bp in layer_slices(params["blocks"]):
-        m, node_acc = checkpoint(block, m, node_acc, bp, use_reentrant=False)
-    per_node = mlp_apply(params["out"], node_acc)            # [N, d_out]
+    for bp in g.layers(params, "blocks"):
+        m, node_acc = g.checkpoint(block, m, node_acc, bp)
+    per_node = g.map(lambda a, p: mlp_apply(p["out"], a), node_acc, params)
     if "graph_id" in batch:
-        n_graphs = batch["target"].shape[0]
-        return segment_sum(per_node, batch["graph_id"], n_graphs,
-                           batch.get("node_mask"))
+        n_graphs = batch["target"][0].shape[0] if g.mesh is not None \
+            else batch["target"].shape[0]
+        return g.segment_sum(per_node, batch["graph_id"], n_graphs,
+                             batch.get("node_mask"), to="all")
     return per_node
 
 
+def _laid_out(shard, params, batch):
+    """:func:`sharded.graph_ops` with a per-graph target whole at every
+    position (the reference's ``(None, None)``)."""
+    return graph_ops(shard, params, batch,
+                     replicated=("target",) if "graph_id" in batch else ())
+
+
+def dimenet_forward(params, batch, cfg: DimeNetConfig,
+                    shard: Sharder | None = None):
+    """batch: pos [N,3], z [N,1], edge_src/dst [E], t_in/t_out [T] triplet
+    edge indices, masks, graph_id [N] for batched molecules.  On a mesh a
+    ``ShardedTensor``: the nodes' predictions in their ``"flat"`` blocks,
+    or the graphs' whole at every position (``sharded``)."""
+    g, p, b = _laid_out(shard, params, batch)
+    out = _dimenet(g, p, b, cfg, batch["pos"].shape[0],
+                   batch["edge_src"].shape[0])
+    return g.result(out, replicated="graph_id" in batch)
+
+
 def dimenet_loss(params, batch, cfg: DimeNetConfig, shard: Sharder | None = None):
-    pred = dimenet_forward(params, batch, cfg, shard)
-    return torch.mean((pred - batch["target"]).float() ** 2)
+    """The mean squared error in float32; on a mesh each position's terms
+    (its block of the graphs where the prediction is per graph) are added
+    at its first position (``sharded``)."""
+    g, p, b = _laid_out(shard, params, batch)
+    pred = _dimenet(g, p, b, cfg, batch["pos"].shape[0],
+                    batch["edge_src"].shape[0])
+    target = b["target"]
+    if "graph_id" in batch:
+        pred, target = g.block(pred), g.block(target)
+    return g.mse(pred, target)

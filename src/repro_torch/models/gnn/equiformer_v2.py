@@ -11,10 +11,12 @@ documented simplification).  Attention weights come from the invariant
 (l=0) channel through an MLP and a segment softmax; messages rotate back
 and scatter-sum onto their destinations.
 
-Both dtypes of the reference are ported: ``bfloat16`` keeps the
-coefficient stacks in bf16 and computes each contraction the reference
-computes with ``preferred_element_type=float32`` as a float32 einsum on
-widened operands.
+The forward runs on one device or over a mesh in the reference's
+flat-sharded layout (``sharded``).  Both dtypes of the reference are
+ported: ``bfloat16`` keeps the coefficient stacks in bf16 and computes
+each contraction the reference computes with
+``preferred_element_type=float32`` as a float32 einsum on widened
+operands.
 """
 from __future__ import annotations
 
@@ -27,7 +29,6 @@ from torch.utils.checkpoint import checkpoint
 from ...distributed.sharding import Sharder
 from ...graphs.segment import segment_softmax, segment_sum
 from ..common import (
-    cross_entropy,
     dense_init,
     layer_slices,
     mlp_apply,
@@ -37,6 +38,7 @@ from ..common import (
     stack_layers,
 )
 from .halo_loss import halo_ce_loss, shard_inputs
+from .sharded import graph_ops
 
 __all__ = ["EqV2Config", "init_eqv2", "eqv2_forward", "eqv2_loss",
            "eqv2_loss_halo", "m_order_masks"]
@@ -139,49 +141,69 @@ def _lift(xin: torch.Tensor, embed: torch.Tensor, nc: int, dt) -> torch.Tensor:
     return torch.cat([x0[:, None, :], rest], dim=1)
 
 
-def eqv2_forward(params, batch, cfg: EqV2Config, shard: Sharder | None = None):
-    """batch: x [N, d_in] invariant inputs, edge_src/dst [E], wigner
-    [E, n_coeff, n_coeff] edge-frame rotations, masks."""
-    shard = shard or Sharder(None)
-    src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
+def _eqv2(g, params, batch, cfg: EqV2Config, n: int):
+    """The nodes' invariant readout on graph ops ``g`` (``sharded.Whole``
+    or ``sharded.OnMesh``)."""
+    src = g.map(lambda t: t.long(), batch["edge_src"])
+    dst = g.map(lambda t: t.long(), batch["edge_dst"])
     emask = batch.get("edge_mask")
-    n = batch["x"].shape[0]
     nc, c = cfg.n_coeff, cfg.d_hidden
-    so2 = _SO2Index(cfg, src.device)
+    so2 = g.map(lambda t: _SO2Index(cfg, t.device), src)
     dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-    wig = batch["wigner"].to(dt)
-    x = _lift(batch["x"], params["embed"], nc, dt)
+    wig = g.map(lambda w: w.to(dt), batch["wigner"])
+    x = g.map(lambda xin, p: _lift(xin, p["embed"], nc, dt), batch["x"],
+              params)
 
-    def layer(x, lp):
-        x = shard.act(x, "flat", None, None)
-        xs = x[src]
+    def edge(xs, xd, wig, lp, so2):
         # -- rotate into edge frames (float32 accumulation)
         xe = torch.einsum("epq,eqc->epc", wig.float(), xs.float()).to(dt)
         # -- SO(2) conv: couple (l, m) with (l, -m), per-|m| channel mixing
         ye = so2.conv(xe, lp).to(dt)
-        # -- invariant attention over incoming edges
-        inv = torch.cat([xs[:, 0, :], x[dst][:, 0, :]], dim=-1)
-        logits = mlp_apply(lp["attn_mlp"], inv.float())             # [E, H]
-        alpha = segment_softmax(logits, dst, n, emask)               # [E, H]
-        alpha = alpha.mean(-1, keepdim=True)[:, None, :]             # [E,1,1]
-        # -- rotate back + scatter
-        msg = (torch.einsum("eqp,epc->eqc", wig, ye) * alpha.to(dt)).to(dt)
-        if emask is not None:
-            msg = torch.where(emask[:, None, None], msg,
-                              torch.zeros((), dtype=dt, device=msg.device))
-        agg = segment_sum(msg.reshape(msg.shape[0], -1), dst, n).reshape(n, nc, c)
-        return _norm_and_mlp(x + agg, lp)
+        # -- invariant attention logits over incoming edges
+        inv = torch.cat([xs[:, 0, :], xd[:, 0, :]], dim=-1)
+        return ye, mlp_apply(lp["attn_mlp"], inv.float())           # [E, H]
 
-    for lp in layer_slices(params["layers"]):
-        x = checkpoint(layer, x, lp, use_reentrant=False)
-    return mlp_apply(params["out"], x[:, 0, :].float())   # invariant readout
+    def message(ye, alpha, wig, mask):
+        alpha = alpha.mean(-1, keepdim=True)[:, None, :]             # [E,1,1]
+        # -- rotate back
+        msg = (torch.einsum("eqp,epc->eqc", wig, ye) * alpha.to(dt)).to(dt)
+        if mask is not None:
+            msg = torch.where(mask[:, None, None], msg,
+                              torch.zeros((), dtype=dt, device=msg.device))
+        return msg.reshape(msg.shape[0], -1)
+
+    def layer(x, lp):
+        xs, xd = g.gather(x, src, dst)
+        ye, logits = g.map(edge, xs, xd, wig, lp, so2)
+        alpha = g.segment_softmax(logits, dst, n, emask)             # [E, H]
+        # -- scatter
+        agg = g.segment_sum(g.map(message, ye, alpha, wig, emask), dst, n)
+        return g.map(lambda x, a, lp: _norm_and_mlp(
+            x + a.reshape(a.shape[0], nc, c), lp), x, agg, lp)
+
+    for lp in g.layers(params, "layers"):
+        x = g.checkpoint(layer, x, lp)
+    return g.map(lambda x, p: mlp_apply(p["out"], x[:, 0, :].float()), x,
+                 params)                                     # invariant readout
+
+
+def eqv2_forward(params, batch, cfg: EqV2Config, shard: Sharder | None = None):
+    """batch: x [N, d_in] invariant inputs, edge_src/dst [E], wigner
+    [E, n_coeff, n_coeff] edge-frame rotations, masks.  On a mesh a
+    ``ShardedTensor`` in the nodes' ``"flat"`` blocks (``sharded``)."""
+    g, p, b = graph_ops(shard, params, batch)
+    return g.result(_eqv2(g, p, b, cfg, batch["x"].shape[0]))
 
 
 def eqv2_loss(params, batch, cfg: EqV2Config, shard: Sharder | None = None):
-    pred = eqv2_forward(params, batch, cfg, shard)
+    """The label-masked cross entropy where the batch has labels, else the
+    mean squared error to its target; on a mesh each position's terms are
+    added at its first position (``sharded``)."""
+    g, p, b = graph_ops(shard, params, batch)
+    pred = _eqv2(g, p, b, cfg, batch["x"].shape[0])
     if "labels" in batch:
-        return cross_entropy(pred, batch["labels"], mask=batch.get("label_mask"))
-    return torch.mean((pred - batch["target"]).float() ** 2)
+        return g.cross_entropy(pred, b["labels"], b.get("label_mask"))
+    return g.mse(pred, b["target"])
 
 
 def eqv2_loss_halo(params, batch, cfg: EqV2Config, mesh, axes: tuple):

@@ -6,25 +6,24 @@ node MLP with sum aggregation, residual) -> decoder MLP, over one
 homogeneous node set (the reference's grid == mesh collapse).  The
 reference scans a checkpointed layer over the stacked ``proc`` leaves; the
 port loops over ``L``, slicing each stacked leaf, with
-``torch.utils.checkpoint`` per layer.
+``torch.utils.checkpoint`` per layer, on one device or over a mesh in the
+reference's flat-sharded layout (``sharded``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ...distributed.sharding import Sharder
-from ...graphs.segment import segment_sum
 from ..common import (
-    layer_slices,
     mlp_apply,
     mlp_init,
     param_device,
     seeded_split,
     stack_layers,
 )
+from .sharded import graph_ops
 
 __all__ = ["GraphCastConfig", "init_graphcast", "graphcast_forward",
            "graphcast_loss"]
@@ -62,34 +61,42 @@ def init_graphcast(cfg: GraphCastConfig, *, seed: int = 0, device=None) -> dict:
     }
 
 
-def graphcast_forward(params, batch, cfg: GraphCastConfig,
-                      shard: Sharder | None = None):
-    shard = shard or Sharder(None)
-    src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
+def _graphcast(g, params, batch, cfg: GraphCastConfig, n: int):
+    """The nodes' predictions on graph ops ``g`` (``sharded.Whole`` or
+    ``sharded.OnMesh``)."""
+    src = g.map(lambda t: t.long(), batch["edge_src"])
+    dst = g.map(lambda t: t.long(), batch["edge_dst"])
     mask = batch.get("edge_mask")
-    n = batch["x"].shape[0]
-    h = mlp_apply(params["enc_node"], batch["x"])
-    e = mlp_apply(params["enc_edge"], batch["edge_feat"])
+    h = g.map(lambda x, p: mlp_apply(p["enc_node"], x), batch["x"], params)
+    e = g.map(lambda x, p: mlp_apply(p["enc_edge"], x), batch["edge_feat"],
+              params)
 
     def layer(h, e, lp):
-        h = shard.act(h, "flat", None)
-        e = shard.act(e, "flat", None)
-        msg_in = torch.cat([e, h[src], h[dst]], dim=-1)
-        e_new = e + mlp_apply(lp["edge_mlp"], msg_in)
-        agg = segment_sum(e_new, dst, n, mask)
-        h_new = h + mlp_apply(lp["node_mlp"], torch.cat([h, agg], dim=-1))
+        hs, hd = g.gather(h, src, dst)
+        e_new = g.map(lambda e, hs, hd, lp: e + mlp_apply(
+            lp["edge_mlp"], torch.cat([e, hs, hd], dim=-1)), e, hs, hd, lp)
+        agg = g.segment_sum(e_new, dst, n, mask)
+        h_new = g.map(lambda h, a, lp: h + mlp_apply(
+            lp["node_mlp"], torch.cat([h, a], dim=-1)), h, agg, lp)
         return h_new, e_new
 
-    for lp in layer_slices(params["proc"]):
-        h, e = checkpoint(layer, h, e, lp, use_reentrant=False)
-    return mlp_apply(params["dec"], h)
+    for lp in g.layers(params, "proc"):
+        h, e = g.checkpoint(layer, h, e, lp)
+    return g.map(lambda h, p: mlp_apply(p["dec"], h), h, params)
+
+
+def graphcast_forward(params, batch, cfg: GraphCastConfig,
+                      shard: Sharder | None = None):
+    """The nodes' predictions; on a mesh a ``ShardedTensor`` in the nodes'
+    ``"flat"`` blocks (``sharded``)."""
+    g, p, b = graph_ops(shard, params, batch)
+    return g.result(_graphcast(g, p, b, cfg, batch["x"].shape[0]))
 
 
 def graphcast_loss(params, batch, cfg: GraphCastConfig,
                    shard: Sharder | None = None):
-    pred = graphcast_forward(params, batch, cfg, shard)
-    err = (pred - batch["target"]).float() ** 2
-    if "label_mask" in batch:
-        m = batch["label_mask"][:, None].float()
-        return (err * m).sum() / torch.clamp_min(m.sum() * err.shape[-1], 1.0)
-    return err.mean()
+    """The (label-masked) mean squared error in float32; on a mesh each
+    position's terms are added at its first position (``sharded``)."""
+    g, p, b = graph_ops(shard, params, batch)
+    pred = _graphcast(g, p, b, cfg, batch["x"].shape[0])
+    return g.mse(pred, b["target"], b.get("label_mask"))

@@ -2,7 +2,8 @@
 port of ``repro.models.gnn.graphsage``).
 
 Message passing is gather -> segment_mean -> linear, over full graphs and
-sampler-produced padded subgraphs; :func:`sage_loss_halo` is the
+sampler-produced padded subgraphs, on one device or over a mesh in the
+reference's flat-sharded layout (``sharded``); :func:`sage_loss_halo` is the
 partitioned layout whose features cross devices only through the halo
 all-to-all (``graphs/halo.py``).
 """
@@ -15,13 +16,9 @@ import torch.nn.functional as F
 
 from ...distributed.sharding import Sharder
 from ...graphs.segment import segment_mean
-from ..common import (
-    cross_entropy,
-    dense_init,
-    param_device,
-    seeded_split,
-)
+from ..common import dense_init, param_device, seeded_split
 from .halo_loss import halo_ce_loss, shard_inputs
+from .sharded import graph_ops
 
 __all__ = ["SAGEConfig", "init_sage", "sage_forward", "sage_loss",
            "sage_loss_halo"]
@@ -62,25 +59,35 @@ def _readout(x: torch.Tensor, w_out: torch.Tensor) -> torch.Tensor:
     return x @ w_out
 
 
-def sage_forward(params, batch, cfg: SAGEConfig, shard: Sharder | None = None):
-    shard = shard or Sharder(None)
+def _sage(g, params, batch, cfg: SAGEConfig, n: int):
+    """The logits of ``batch``'s nodes on graph ops ``g``
+    (``sharded.Whole`` or ``sharded.OnMesh``)."""
     x = batch["x"]
-    src, dst = batch["edge_src"].long(), batch["edge_dst"]
-    mask = batch.get("edge_mask")
-    n = x.shape[0]
-    for ws, wn, b in zip(params["w_self"], params["w_nbr"], params["b"]):
-        x = shard.act(x, "flat", None)
+    src = g.map(lambda t: t.long(), batch["edge_src"])
+    dst, mask = batch["edge_dst"], batch.get("edge_mask")
+    for i in range(cfg.n_layers):
         # project-then-gather: mean_nbr(x) @ Wn == mean_nbr(x @ Wn), so the
         # gather moves d_hidden-wide rows instead of d_in-wide ones
-        xn = x @ wn
-        agg = segment_mean(xn[src], dst, n, mask)
-        x = F.relu(x @ ws + agg + b)
-    return _readout(x, params["w_out"])
+        xn = g.map(lambda x, p, i=i: x @ p["w_nbr"][i], x, params)
+        agg = g.segment_mean(g.gather(xn, src), dst, n, mask)
+        x = g.map(lambda x, a, p, i=i: F.relu(x @ p["w_self"][i] + a
+                                              + p["b"][i]), x, agg, params)
+    return g.map(lambda x, p: _readout(x, p["w_out"]), x, params)
+
+
+def sage_forward(params, batch, cfg: SAGEConfig, shard: Sharder | None = None):
+    """The nodes' logits; on a mesh a ``ShardedTensor`` in the nodes'
+    ``"flat"`` blocks (``sharded``)."""
+    g, p, b = graph_ops(shard, params, batch)
+    return g.result(_sage(g, p, b, cfg, batch["x"].shape[0]))
 
 
 def sage_loss(params, batch, cfg: SAGEConfig, shard: Sharder | None = None):
-    logits = sage_forward(params, batch, cfg, shard)
-    return cross_entropy(logits, batch["labels"], mask=batch.get("label_mask"))
+    """The label-masked cross entropy; on a mesh each position's terms are
+    added at its first position (``sharded``)."""
+    g, p, b = graph_ops(shard, params, batch)
+    logits = _sage(g, p, b, cfg, batch["x"].shape[0])
+    return g.cross_entropy(logits, b["labels"], b.get("label_mask"))
 
 
 def sage_loss_halo(params, batch, cfg: SAGEConfig, mesh, axes: tuple):

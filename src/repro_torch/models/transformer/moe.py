@@ -117,8 +117,14 @@ def _capacity(t: int, moe) -> int:
 def _gates(w_router: torch.Tensor, x: torch.Tensor, moe):
     """``(probs, gate_vals, gate_idx)`` of tokens ``x [T, D]``: the float32
     router softmax, its top ``k`` by a stable descending sort and the
-    gates normalised by ``max(sum, 1e-9)``."""
-    probs = torch.softmax(x.float() @ w_router, dim=-1)
+    gates normalised by ``max(sum, 1e-9)``.
+
+    The logits are a float64 product rounded to float32: a float32 GEMM
+    may give two equal router columns values that differ in the last bit
+    (the columns land in different vector lanes or tails), which breaks
+    the tie the reference keeps and resolves to the lower expert."""
+    logits = (x.double() @ w_router.double()).float()
+    probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
                                      stable=True)
     gate_vals, gate_idx = gate_vals[:, :moe.top_k], gate_idx[:, :moe.top_k]

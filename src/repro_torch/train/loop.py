@@ -13,7 +13,9 @@ shardings=)`` lay them out) the step is the one GSPMD makes of the
 reference's: microbatch ``i`` is rows ``[i * mb, (i + 1) * mb)`` of the
 global batch, laid out over the data axes by ``loss_fn`` (a batch of
 ``ShardedTensor`` leaves is re-split to it, each row from a position that
-holds it); each position's shards take the gradient (``loss_fn`` returns
+holds it; one microbatch is the batch as it lies, which ``loss_fn`` lays
+out as its cell's specs say: the GNNs' over ``"flat"``); each position's
+shards take the gradient (``loss_fn`` returns
 one scalar, the mesh's loss), accumulated in float32 per shard; the
 gradient of a block that several positions hold (a dim replicated over an
 axis) is the float32 sum of their partial gradients, an all-reduce over
@@ -167,8 +169,9 @@ def _mesh_step(loss_fn: Callable, state: TrainState, batch, nm: int,
         loss = torch.zeros((), dtype=torch.float32, device=devs[0])
     note_stage("microbatches")
     for i in range(runs):
-        micro = tree_map(lambda x: _rows(x, i * mb, (i + 1) * mb, shard),
-                         batch)
+        # one microbatch is the batch as it lies: the loss lays it out
+        micro = batch if nm == 1 else tree_map(
+            lambda x: _rows(x, i * mb, (i + 1) * mb, shard), batch)
         value = loss_fn(params, micro)
         got = torch.autograd.grad(value, flat, allow_unused=True)
         got = [torch.zeros_like(t) if g is None else g

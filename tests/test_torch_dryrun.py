@@ -560,10 +560,11 @@ def test_dryrun_agrees_with_the_reference_record(records, reference_record):
 # -- the launcher --------------------------------------------------------------------------
 
 def test_launcher_records_other_families_as_errors(tmp_path):
-    """A GNN and xDeepFM on a mesh wait on Queue 1 item 3: recorded as
-    errors naming it, and the launcher exits 1 (the LMs' train cells are
-    ``ok``: ``tests/test_torch_dryrun_train.py``)."""
-    for arch, shape in (("graphsage-reddit", "minibatch_lg"),
+    """xDeepFM on a mesh waits on Queue 1 item 3: recorded as errors
+    naming it, and the launcher exits 1 (the LMs' and the GNNs' train
+    cells are ``ok``: ``tests/test_torch_dryrun_train.py``,
+    ``tests/test_torch_dryrun_gnn.py``)."""
+    for arch, shape in (("xdeepfm", "train_batch"),
                         ("xdeepfm", "serve_p99")):
         rec = dryrun.run_cell(arch, shape, "tiny", str(tmp_path))
         assert rec["status"] == "error", rec
