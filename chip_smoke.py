@@ -27,8 +27,8 @@ checks the halo-exchange losses, dry-runs the ``sgrapp`` cells on the
 production and tiny meshes and runs them on tiny meshes of the cards
 present, takes the data-parallel gradient mean with compression and a
 checkpoint restored onto another mesh layout, and runs the LMs' prefill,
-decode and training and the GNNs' training over a mesh of the card
-repeated to 8 positions.  Every check
+decode and training, the GNNs' training and xDeepFM's training, serving
+and retrieval over a mesh of the card repeated to 8 positions.  Every check
 raises on failure, so the exit code is non-zero unless all phases pass.
 
 Phases (each path's launch counts are set to 0 just before it runs and read
@@ -321,12 +321,26 @@ just after):
    parameters); the first step's moves by kind equal to
    ``sharded.predicted_moves``; step ms both ways, the card's peak; one
    profile (graphcast's third sharded step on (2, 4)).
+29. xDeepFM over a mesh (no TPU kernel: the count of K1-K4, set to 0
+   before phase 28, stays 0): the full config (39 fields of 1,000,000
+   rows, CIN 200-200-200, MLP 400-400) over both tiny meshes of the cards
+   present repeated to 8 positions (``models.recsys.sharded``: the tables
+   row-split over "model", each lookup all-reduced over it, the rows over
+   "batch"): one ``train_batch`` step of 65,536 rows against the
+   unsharded step from the same state (the loss and the gradient norm
+   within rtol 1e-4, every gradient leaf within phase 28's bounds, every
+   parameter after the step within phase 20's), one ``serve_bulk`` pass of
+   262,144 rows and ``retrieval_cand`` cut to 2 slabs of 65,536
+   candidates, each within rtol = atol = 1e-4 of the unsharded port's.
+   Each runs twice both ways: the first sharded run's moves by kind equal
+   to ``sharded.predicted_moves``, the second's results held; the ms of
+   each and the card's peak during the second.
 
 On a machine with several cards phase 15 also shards over the distinct
 cards (up to 4); the script needs one card.
 
 Phases 11-15, 19 and 23 run after phase 8, before K4 and serving; phases
-16-18 and 20-22 and 24-28 run after phase 10.  Each phase's wall
+16-18 and 20-22 and 24-29 run after phase 10.  Each phase's wall
 time is logged (``[time]``).  Every profile also logs the host's CUDA
 runtime calls with the most host time (launches, copies, synchronizations).
 Its last lines are a ``{"kernels": [...]}`` JSON line, the card's name and
@@ -6188,6 +6202,252 @@ def phase_mesh_gnn(device, seed: int, *, smoke: bool) -> dict:
     return out
 
 
+# phase 29: xDeepFM over a mesh.  The full config's cells over both tiny
+# meshes of the card repeated to 8 positions; retrieval_cand's 1,001,472
+# candidates cut to this many slabs of its 65,536 (the sharded pass
+# repeats each group's CIN at every "model" column, so a full pass would
+# take about 16 times a slab's time)
+MESH_XDFM_KINDS = ("tiny", "tiny_multipod")
+MESH_XDFM_SLABS = 2
+
+
+def timed(fn, device) -> tuple[object, float]:
+    """``fn()`` and its wall ms, the card synchronised on both sides."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def twice(fn, device) -> tuple[object, list[float]]:
+    """``fn()`` twice (:func:`timed`): the second's result, both ms."""
+    out, first = timed(fn, device)
+    del out
+    out, second = timed(fn, device)
+    return out, [first, second]
+
+
+def fmt_ms(ms: list) -> str:
+    return "[" + ", ".join(f"{x:.4f}" for x in ms) + "]"
+
+
+def phase_mesh_xdeepfm(device, seed: int, *, smoke: bool) -> dict:
+    """Phase 29: xDeepFM's train, serve and retrieval steps over
+    ``make_tiny_mesh`` of the card repeated to 8 positions, at the full
+    config, against the unsharded port on the same card from the same
+    state (see the module docstring).  A CPU rehearsal (``smoke``) runs
+    the smoke config at 512 training rows, 1,024 serving rows and 2 slabs
+    of 256 candidates joined to 3 user fields."""
+    import torch
+
+    from repro_torch.configs import get_arch, list_cells
+    from repro_torch.configs.shapes import RECSYS_SHAPES, pad_to
+    from repro_torch.distributed import Sharder
+    from repro_torch.distributed.observe import observing
+    from repro_torch.distributed.sharding import ShardedTensor, put_tree
+    from repro_torch.launch.mesh import make_tiny_mesh
+    from repro_torch.models.recsys import init_xdeepfm
+    from repro_torch.models.recsys.sharded import predicted_moves
+    from repro_torch.models.recsys.xdeepfm import xdeepfm_loss, \
+        xdeepfm_score_candidates
+    from repro_torch.train import AdamWState, TrainState, adamw_init
+    from repro_torch.train.checkpoint import tree_flatten
+    from repro_torch.train.optimizer import param_leaves
+
+    cuda = device.type == "cuda"
+    arch = get_arch("xdeepfm")
+    cfg = arch.smoke_config() if smoke else arch.full_config()
+    cells = list_cells("xdeepfm", smoke=smoke)
+    rows = {"train_batch": 512, "serve_bulk": 1024} if smoke else {
+        name: RECSYS_SHAPES[name][0] for name in ("train_batch", "serve_bulk")}
+    chunk = 256 if smoke else 65_536
+    n_user = 3 if smoke else 19
+    n_cand = MESH_XDFM_SLABS * chunk
+    lr = 3e-4
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = init_xdeepfm(cfg, seed=seed, device=device)
+    state = TrainState(params, adamw_init(params), seed)
+    b = rows["train_batch"]
+    batch = {"ids": click_ids(cfg, b, g, device),
+             "clicks": (torch.rand(b, generator=g, device=device) < 0.25).float()}
+    bulk = {"ids": click_ids(cfg, rows["serve_bulk"], g, device)}
+    cand = {"user_ids": click_ids(cfg, 1, g, device)[0, :n_user],
+            "cand_ids": click_ids(cfg, n_cand, g, device)[:, n_user:]}
+    names = list(param_leaves(params))
+
+    # the unsharded step, twice, each from a copy of the state: the
+    # second's gradients, parameters after the step and both ms
+    grads: dict = {}
+    plain = cells["train_batch"].make_step(Sharder(None))
+    plain_ms = []
+    for _ in range(2):
+        start = TrainState(tree_copy(params, device), AdamWState(
+            *(tree_copy(x, device) for x in state.opt)), seed)
+        with captured_grads(grads):
+            (plain_state, m_u), ms = timed(lambda: plain(start, batch), device)
+        plain_ms.append(ms)
+        del start
+    g_plain = grads.pop("plain")
+    p_plain = param_leaves(plain_state.params)
+    with torch.no_grad():
+        want_bulk, bulk_ms = twice(lambda: cells["serve_bulk"].make_step(
+            Sharder(None))(params, bulk), device)
+        want_cand, cand_ms = twice(lambda: xdeepfm_score_candidates(
+            params, cand, cfg, chunk=chunk), device)
+    loss_fn = lambda p, bt: xdeepfm_loss(p, bt, cfg)  # noqa: E731
+    floor = None
+    out = {}
+    for kind in MESH_XDFM_KINDS:
+        t_start = time.perf_counter()
+        mesh = make_tiny_mesh(multi_pod=kind == "tiny_multipod",
+                              devices=repeated_cards(device, 8))
+        shard = Sharder.for_mesh(mesh)
+        what = f"xdeepfm over {kind} {mesh.shape}"
+        train = cells["train_batch"]
+        placed = put_tree(batch, train.in_shardings(shard)[1])
+        step = train.make_step(shard)
+        moves, mesh_ms = MoveLog(), []
+        for t in range(2):
+            # each from a copy of the state; the first under the observer,
+            # the second held to the unsharded step
+            grads.pop("mesh", None)
+            sharded = None
+            sharded = mesh_gnn_state(train, state, shard)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+            with captured_grads(grads), (contextlib.nullcontext() if t
+                                         else observing(moves)):
+                (sharded, m_s), ms = timed(lambda: step(sharded, placed),
+                                           device)
+            mesh_ms.append(ms)
+        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+        leaves = tree_flatten(sharded.params)[0]
+        # each leaf's whole gradient from its positions' (the replicas' sums)
+        g_mesh = [ShardedTensor(st.sharding, st.shape, tuple(g)).gather(device)
+                  for st, g in zip(leaves, grads.pop("mesh"))]
+        pred = predicted_moves(cfg, ("train", b), mesh)
+        check(moves.kinds == pred,
+              f"{what} train: moves {moves.kinds}, predicted {pred}")
+        l_s, l_u = float(m_s["loss"]), float(m_u["loss"])
+        n_s, n_u = float(m_s["grad_norm"]), float(m_u["grad_norm"])
+        check(np.isfinite(l_s) and abs(l_s - l_u) <= 1e-4 * abs(l_u),
+              f"{what} train: loss {l_s} sharded, {l_u} unsharded")
+        check(abs(n_s - n_u) <= 1e-4 * abs(n_u),
+              f"{what} train: gradient norm {n_s} sharded, {n_u} unsharded")
+        worst_g = worst_p = 0.0
+        worst_name = None
+        floored, off, total = {}, 0, 0
+        for name, g_s, st in zip(names, g_mesh, leaves):
+            g_u = g_plain[name]
+            gap = float((g_s - g_u.float()).abs().max())
+            scale = float(g_u.abs().max())
+            if gap > 1e-4 * scale + 1e-6:
+                if floor is None:
+                    floor = rounding_floor(loss_fn, params, batch, g_plain,
+                                           torch.Generator(device=device)
+                                           .manual_seed(seed + 1))
+                check(gap <= 1e-4 * scale + 1e-6 + GRAD_FLOOR_FACTOR
+                      * floor[name], f"{what} train: gradient {name} off by "
+                      f"{gap} (max {scale}, rounding floor {floor[name]})")
+                floored[name] = gap / max(floor[name], 1e-30)
+            elif gap / max(scale, 1e-30) >= worst_g:
+                worst_g, worst_name = gap / max(scale, 1e-30), name
+            p_s, p_u = st.gather(device), p_plain[name].detach()
+            gap_p = (p_s - p_u).abs()
+            check(float(gap_p.max()) <= 2 * lr, f"{what} train: parameter "
+                  f"{name} off by {float(gap_p.max())}")
+            miss = gap_p > 1e-6 + 1e-5 * p_u.abs()
+            if bool(miss.any()):
+                ga = g_u.abs()
+                rel = float(ga[miss].max()) / max(float(ga.max()), 1e-30)
+                worst_p = max(worst_p, rel)
+                check(rel <= ADAM_FLOOR, f"{what} train: parameter {name} "
+                      f"beyond rtol 1e-5 where its gradient entry is over "
+                      f"{ADAM_FLOOR} max|g| ({rel:.3g})")
+            off += int(miss.sum())
+            total += p_u.numel()
+        del g_mesh, sharded, placed, leaves
+        log(f"[mesh-xdeepfm] {what} train_batch ({b:,} rows, one step from "
+            f"the unsharded run's state): loss {l_s:.8f} sharded, {l_u:.8f} "
+            f"unsharded (rel gap {abs(l_s - l_u) / abs(l_u):.3e}, bound 1e-4); "
+            f"gradient norm {n_s:.8f} / {n_u:.8f} (rel gap "
+            f"{abs(n_s - n_u) / abs(n_u):.3e}); worst gradient leaf "
+            f"max|dg|/max|g| {worst_g:.3e} ({worst_name}; bound 1e-4 + "
+            f"1e-6 / max|g|"
+            + (f"; past it, within {GRAD_FLOOR_FACTOR} x the rounding floor: "
+               f"{ {k: f'{v:.3f}' for k, v in sorted(floored.items())} }"
+               if floored else "")
+            + f"); {off:,} of {total:,} parameters after the step beyond "
+            f"rtol 1e-5, atol 1e-6"
+            + (f", each where its gradient entry is at most {worst_p:.3g} "
+               "max|g|" if off else "")
+            + f"; step ms {fmt_ms(mesh_ms)} sharded (the first under the "
+            f"move observer), {fmt_ms(plain_ms)} unsharded; moves "
+            f"{moves.kinds} (predicted {pred}); card peak during the second "
+            f"sharded step {peak / 2**30:.4f} GiB")
+        rec = {"train_ms": mesh_ms[1], "train_plain_ms": plain_ms[1],
+               "train_moves": moves.kinds, "train_peak": peak,
+               "loss_gap": abs(l_s - l_u) / abs(l_u), "grad_gap": worst_g}
+
+        # serving and retrieval, from the unsharded run's parameters
+        serve = cells["serve_bulk"]
+        on_mesh = put_tree(params, serve.in_shardings(shard)[0])
+        runs = (("serve_bulk", rows["serve_bulk"], bulk, want_bulk, bulk_ms,
+                 serve.make_step(shard)),
+                ("retrieval_cand", n_cand, cand, want_cand, cand_ms,
+                 torch.no_grad()(lambda p, bt: xdeepfm_score_candidates(
+                     p, bt, cfg, shard, chunk=chunk)) if smoke else
+                 cells["retrieval_cand"].make_step(shard)))
+        for name, n, inp, want, ms_u, step in runs:
+            placed = put_tree(inp, cells[name].in_shardings(shard)[1])
+            moves = MoveLog()
+            with observing(moves):
+                got, first = timed(lambda: step(on_mesh, placed), device)
+            del got
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(device)
+            got, ms = timed(lambda: step(on_mesh, placed), device)
+            peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+            got = got.gather(device)
+            kind_ = cells[name].kind
+            pred = predicted_moves(cfg, (kind_, n), mesh)
+            check(moves.kinds == pred,
+                  f"{what} {name}: moves {moves.kinds}, predicted {pred}")
+            err = float((got - want).abs().max())
+            check(got.shape == want.shape and bool(torch.isfinite(got).all())
+                  and bool(torch.allclose(got, want, rtol=1e-4, atol=1e-4)),
+                  f"{what} {name}: sharded and unsharded differ by {err}")
+            log(f"[mesh-xdeepfm] {what} {name} ({n:,} rows"
+                + (f", {MESH_XDFM_SLABS} slabs of {chunk:,}" if
+                   name == "retrieval_cand" else "")
+                + f"): max abs err {err:.3e} against the unsharded port "
+                f"(bound rtol = atol = 1e-4); ms {fmt_ms([first, ms])} "
+                f"sharded (the first under the move observer), "
+                f"{fmt_ms(ms_u)} unsharded; moves {moves.kinds} (predicted "
+                f"{pred}); card peak during the second {peak / 2**30:.4f} GiB")
+            rec[f"{name}_ms"], rec[f"{name}_plain_ms"] = ms, ms_u[1]
+            rec[f"{name}_peak"] = peak
+            del got, placed
+        del on_mesh
+        log(f"[mesh-xdeepfm] {what}: the run took "
+            f"{time.perf_counter() - t_start:.4f} s")
+        out[kind] = rec
+    if not smoke:
+        log(f"[mesh-xdeepfm] reduced: retrieval_cand over a mesh "
+            f"{pad_to(RECSYS_SHAPES['retrieval_cand'][0]):,} candidates -> "
+            f"{n_cand:,} "
+            f"({MESH_XDFM_SLABS} of its 65,536-row slabs; the sharded pass "
+            "scores each slab as the full pass does)")
+    del params, state, plain_state, batch, bulk, cand
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
 class PhaseClock:
     """Logs the wall time of each phase since the previous lap."""
 
@@ -6205,7 +6465,7 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
         lm_batch: int, lm_prompt: int, lm_gen: int, lm_smoke: bool = False,
         alpha0: float = 1.02, tenant_unique: int = 50_000,
         serve_batch: int = SERVE_BATCH) -> list[dict]:
-    """Phases 0-28 on ``device``; returns the kernels records."""
+    """Phases 0-29 on ``device``; returns the kernels records."""
     from repro_torch.configs import get_arch
     from repro_torch.core import WindowExecutor, windowize
     from repro_torch.kernels.build import load
@@ -6359,13 +6619,15 @@ def run(device, *, n_sgrs: int, n_unique: int, nt_w: int, seed: int,
     clock.lap("26 decode over a mesh")
     mesh_trained = phase_mesh_train(device, seed, smoke=lm_smoke)
     clock.lap("27 training over a mesh")
-    # phase 28 runs none of K1-K4: their counts, set to 0 here, stay 0
+    # phases 28-29 run none of K1-K4: their counts, set to 0 here, stay 0
     kk.reset_launch_count()
     k4.reset_launch_count()
     phase_mesh_gnn(device, seed, smoke=lm_smoke)
     clock.lap("28 GNN training over a mesh")
+    phase_mesh_xdeepfm(device, seed, smoke=lm_smoke)
+    clock.lap("29 xDeepFM over a mesh")
     n_tpu = sum(kk.launch_count(k) for k in kk.KERNELS) + k4.launch_count()
-    check(n_tpu == 0, f"phase 28 launched K1-K4 {n_tpu} times")
+    check(n_tpu == 0, f"phases 28-29 launched K1-K4 {n_tpu} times")
     k4_launches = {f"{a} (serve)": v["launches"] for a, v in k4_serve.items()}
     k4_launches[f"{LM_ARCH} (train, 3 steps)"] = trained["launches"]
     k4_launches["prefill over a mesh (phase 25)"] = meshed["launches"]

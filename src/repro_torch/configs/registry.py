@@ -151,12 +151,6 @@ def list_cells(arch_id: str, *, smoke: bool = False) -> dict:
     return a.cells(cfg)
 
 
-def _no_mesh(shard: Sharder, what: str) -> None:
-    if shard.mesh is not None:
-        raise NotImplementedError(
-            f"{what} over a mesh is not ported yet (ROADMAP Queue 1 item 3)")
-
-
 # ===========================================================================
 # LM family
 # ===========================================================================
@@ -440,12 +434,13 @@ def xdeepfm_cells(cfg: XDeepFMConfig) -> dict:
     """``train_batch`` (a train step), ``serve_p99`` / ``serve_bulk``
     (``xdeepfm_forward``) and ``retrieval_cand``
     (``xdeepfm_score_candidates``); serving and retrieval run without
-    autograd.  Without a mesh only."""
+    autograd.  On a mesh each runs in the reference's layout
+    (``models.recsys.sharded``: the tables row-split over "model", the
+    rows over "batch")."""
     cells = {}
     for shape_name, (B, kind) in RECSYS_SHAPES.items():
         if kind == "train":
             def make_step(shard, cfg=cfg):
-                _no_mesh(shard, "an xDeepFM step")
                 loss = lambda p, b: xdeepfm_loss(p, b, cfg, shard)  # noqa: E731
                 return make_train_step(loss, n_microbatches=1)
 
@@ -458,7 +453,6 @@ def xdeepfm_cells(cfg: XDeepFMConfig) -> dict:
                         {"ids": ("batch", None), "clicks": ("batch",)})
         elif kind == "serve":
             def make_step(shard, cfg=cfg):
-                _no_mesh(shard, "an xDeepFM step")
                 return torch.no_grad()(
                     lambda p, b: xdeepfm_forward(p, b, cfg, shard))
 
@@ -474,7 +468,6 @@ def xdeepfm_cells(cfg: XDeepFMConfig) -> dict:
             Bp = pad_to(B)
 
             def make_step(shard, cfg=cfg):
-                _no_mesh(shard, "an xDeepFM step")
                 return torch.no_grad()(
                     lambda p, b: xdeepfm_score_candidates(p, b, cfg, shard))
 

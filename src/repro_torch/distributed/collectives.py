@@ -30,6 +30,8 @@ and :func:`resplit` are the collectives of the sharded LM trunk
 tensor per position: each member's piece is concatenated in group order,
 summed (or maxed) at the group's first position in group order, or split
 anew, and every move between positions is reported under XLA's name.
+:func:`row_split_lookup` is the vocabulary-parallel lookup built on
+:func:`psum`, the LM's embedding's and xDeepFM's tables'.
 Each move is ``sharding.send``: under autograd the gradients go back by
 the dual collective (an all-gather's by a reduce-scatter and the other
 way round, an all-reduce's and an all-to-all's by their own kind),
@@ -55,7 +57,7 @@ from .sharding import send, shard_bounds
 __all__ = ["all_gather", "all_to_all", "axis_groups", "compress_grads",
            "decompress_grads", "each_position", "pmax", "psum",
            "psum_mean_compressed", "reduce_scatter", "resplit",
-           "ring_pair_count"]
+           "ring_pair_count", "row_split_lookup"]
 
 
 def compress_grads(tree, method: str | None) -> tuple:
@@ -184,6 +186,35 @@ def pmax(pieces: Sequence[torch.Tensor], mesh: Mesh, axis) -> list:
     :func:`psum` moves its sum (each move an ``all-reduce``); a max is
     exact, so the group's order does not change it."""
     return _all_reduce(pieces, mesh, axis, torch.maximum)
+
+
+def row_split_lookup(blocks: Sequence[torch.Tensor],
+                     rows: Sequence[torch.Tensor], mesh: Mesh, axis) -> list:
+    """The lookup GSPMD makes of a row gather from a table whose rows split
+    evenly over ``axis`` (``blocks[p]`` position ``p``'s block, member
+    ``i`` of its group holding the ``i``-th): each position looks up its
+    global row ids ``rows[p]`` (any shape) in its own block, zero where an
+    id lies outside it, and an all-reduce over ``axis`` (:func:`psum`)
+    adds the members' lookups, exactly one of them non-zero, so that each
+    gets ``table[rows[p]]``.  Under autograd each block takes the
+    gradient of its own rows only (the ``where`` zeroes the others')."""
+    col = [0] * mesh.size
+    for group in axis_groups(mesh, axis):
+        for i, p in enumerate(group):
+            col[int(p)] = i
+
+    def lookup(p, t, r):
+        local = r - col[p] * t.shape[0]
+        inside = (local >= 0) & (local < t.shape[0])
+        # an id outside the block reads some row, which the where zeroes;
+        # taken modulo the block rather than clamped to its ends, so that
+        # the backward's scatter (which adds those zeros too) does not
+        # pile most of a position's ids onto one row, where the card's
+        # sort-based scatter sums a row's duplicates one after another
+        got = t[local % t.shape[0]]
+        return torch.where(inside[..., None], got, got.new_zeros(()))
+    return psum(each_position(mesh, lookup, range(mesh.size), blocks, rows),
+                mesh, axis)
 
 
 def reduce_scatter(pieces: Sequence[torch.Tensor], mesh: Mesh, axis,

@@ -23,14 +23,17 @@ Per cell it prints and records, in ``<out>/<mesh>/<arch>__<shape>.json``:
                with the mesh's totals beside them
   trace_s      the trace's wall time, in place of ``lower_s`` / ``compile_s``
 
-A cell whose step raises is recorded as ``"error"`` with its message: the
-xDeepFM steps on a mesh (ROADMAP Queue 1 item 3).  The LMs' prefill,
-decode and train cells trace over the mesh (``models.transformer.sharded``,
-``.sharded_train``), K4 counted through ``note_kernel``, and so do the
-GNNs' train cells (``models.gnn.sharded``: the batch's whole ``meta``
-arrays laid out over ``"flat"`` by the loss, one microbatch, each layer's
-gathers and segment partials at every position; their moves are
-``sharded.predicted_moves``).  A train step's state (the donated input) reaches it
+A cell whose step raises is recorded as ``"error"`` with its message.  The
+LMs' prefill, decode and train cells trace over the mesh
+(``models.transformer.sharded``, ``.sharded_train``), K4 counted through
+``note_kernel``; so do the GNNs' train cells (``models.gnn.sharded``: the
+batch's whole ``meta`` arrays laid out over ``"flat"`` by the loss, one
+microbatch, each layer's gathers and segment partials at every position;
+their moves are ``sharded.predicted_moves``) and xDeepFM's train, serve
+and retrieval cells (``models.recsys.sharded``: the tables' lookups
+all-reduced over "model", the CIN and the MLP at every position on its
+group's rows, one microbatch; their moves are that module's
+``predicted_moves``).  A train step's state (the donated input) reaches it
 placed by ``in_shardings`` as ``ShardedTensor`` leaves, and its backward's
 work counts where its forward ran.  Tracing all of ``train_4k``'s
 microbatches (forward, recompute and backward of each, every layer at
@@ -64,6 +67,7 @@ Usage:
       --shape decode_32k --mesh pod
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch graphcast \\
       --mesh tiny_multipod
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch xdeepfm --mesh pod
 """
 from __future__ import annotations
 

@@ -15,9 +15,9 @@ from ..device import resolve_device
 from ..train.checkpoint import tree_flatten, tree_map, tree_unflatten
 
 __all__ = ["Split", "dense_init", "rms_norm", "layer_norm", "mlp_init",
-           "mlp_apply", "cross_entropy", "token_nll", "bce_with_logits", "param_device",
-           "seeded_split", "stack_layers", "layer_slices",
-           "params_from_reference", "params_to_reference"]
+           "mlp_apply", "cross_entropy", "token_nll", "bce_terms",
+           "bce_with_logits", "param_device", "seeded_split", "stack_layers",
+           "layer_slices", "params_from_reference", "params_to_reference"]
 
 
 class Split:
@@ -114,14 +114,19 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return lse - torch.gather(lg, -1, labels.long()[..., None])[..., 0]
 
 
-def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
-                    ) -> torch.Tensor:
-    """Mean binary cross entropy on logits in float32, in the stable form
-    ``max(x, 0) - x t + log1p(exp(-|x|))``."""
+def bce_terms(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Binary cross entropy on logits in float32, elementwise, in the
+    stable form ``max(x, 0) - x t + log1p(exp(-|x|))``."""
     lg = logits.float()
     t = targets.float()
-    return torch.mean(torch.clamp_min(lg, 0) - lg * t
-                      + torch.log1p(torch.exp(-torch.abs(lg))))
+    return (torch.clamp_min(lg, 0) - lg * t
+            + torch.log1p(torch.exp(-torch.abs(lg))))
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
+                    ) -> torch.Tensor:
+    """The mean of :func:`bce_terms`."""
+    return torch.mean(bce_terms(logits, targets))
 
 
 # -- the GNN and recsys models' parameter trees --------------------------------

@@ -5,11 +5,14 @@
 bags of indices reduced per bag — built as the reference builds it: a row
 gather and a segment reduction by bag id, with the reference's padding
 (``total_len``) and weights.  ``fused_field_lookup`` is the recsys fast
-path: one fused table for all categorical fields.
+path: one fused table for all categorical fields, on one device or
+row-split over a mesh.
 """
 from __future__ import annotations
 
 import torch
+
+from ...distributed.collectives import each_position, row_split_lookup
 
 __all__ = ["embedding_bag", "fused_field_lookup"]
 
@@ -61,10 +64,22 @@ def embedding_bag(
 
 
 def fused_field_lookup(
-    table: torch.Tensor,          # [sum_vocab, dim]
-    field_offsets: torch.Tensor,  # [n_fields]        start row of each field
-    ids: torch.Tensor,            # [batch, n_fields] per-field categorical id
-) -> torch.Tensor:
-    """Single-hot per-field lookup into one fused table -> [B, n_fields, dim]."""
-    rows = ids.long() + field_offsets[None, :]
-    return table[rows]
+    table,                        # [sum_vocab, dim]
+    field_offsets,                # [n_fields]        start row of each field
+    ids,                          # [batch, n_fields] per-field categorical id
+    shard=None,
+):
+    """Single-hot per-field lookup into one fused table -> [B, n_fields, dim].
+
+    Over a mesh (``shard`` with one) ``table``, ``field_offsets`` and
+    ``ids`` are lists of one tensor per position: its block of the table's
+    rows (split evenly over "model", as ``xdeepfm_param_specs`` lays them
+    out), the offsets and its ids; each position gets its ids' rows
+    through the vocabulary-parallel lookup (``collectives.
+    row_split_lookup``: a lookup in each block and an all-reduce over
+    "model"), a list again."""
+    if shard is None or shard.mesh is None:
+        return table[ids.long() + field_offsets[None, :]]
+    rows = each_position(shard.mesh, lambda i, o: i.long() + o[None, :],
+                         ids, field_offsets)
+    return row_split_lookup(table, rows, shard.mesh, shard.model_axis)

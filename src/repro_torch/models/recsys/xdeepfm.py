@@ -10,6 +10,11 @@ D]`` in float32 (20.4 GB for a 65,536-row batch at the full config), so
 product within ``CIN_SLAB_BYTES``, with ``torch.utils.checkpoint`` per
 slab when gradients are needed.  Each row's output depends only on that
 row, so the slabs compute the same function.
+
+The forward's math is written once (:func:`_logits`), against the ops of
+one device or of a mesh (:mod:`.sharded`): with a ``Sharder`` on a mesh
+the forward, the loss and the candidate scores run in the reference's
+layout, the tables row-split over "model" and the rows over "batch".
 """
 from __future__ import annotations
 
@@ -21,7 +26,6 @@ from torch.utils.checkpoint import checkpoint
 
 from ...distributed.sharding import Sharder
 from ..common import (
-    bce_with_logits,
     dense_init,
     mlp_apply,
     mlp_init,
@@ -29,6 +33,7 @@ from ..common import (
     seeded_split,
 )
 from .embedding import fused_field_lookup
+from .sharded import mesh_ops
 
 __all__ = ["XDeepFMConfig", "init_xdeepfm", "xdeepfm_forward", "xdeepfm_loss",
            "xdeepfm_param_specs", "xdeepfm_score_candidates", "CIN_SLAB_BYTES"]
@@ -98,25 +103,28 @@ def _field_offsets(cfg: XDeepFMConfig, device) -> torch.Tensor:
 def _cin_rows(x0: torch.Tensor, *cin_w: torch.Tensor) -> torch.Tensor:
     """The CIN on a slab of rows: x0 [b, m, D] -> [b, sum(H_k)].  Each
     layer's outer product is formed as [b*D, H_prev*m] and contracted with
-    its weights as one GEMM; the stacks are kept as [b, D, H]."""
+    its weights as one GEMM; the stacks are kept as [b, D, H].  The widths
+    are spelled out, so that a slab of 0 rows (a mesh's empty block) gives
+    [0, sum(H_k)]."""
     b, m, d = x0.shape
     x0t = x0.transpose(1, 2)                 # [b, D, m]
     xs = []
     xk = x0t
     for w in cin_w:
+        h, h_prev = w.shape[0], w.shape[1]
         # z[b,h,d] = sum_{i,j} w[h,i,j] x_k[b,i,d] x_0[b,j,d]
-        outer = (xk[..., :, None] * x0t[..., None, :]).reshape(b * d, -1)
-        xk = F.relu(outer @ w.reshape(w.shape[0], -1).T).reshape(b, d, -1)
+        outer = (xk[..., :, None] * x0t[..., None, :]).reshape(b * d, h_prev * m)
+        xk = F.relu(outer @ w.reshape(h, h_prev * m).T).reshape(b, d, h)
         xs.append(xk.sum(dim=1))             # sum pooling over D
     return torch.cat(xs, dim=-1)
 
 
-def _cin(params, x0, cfg: XDeepFMConfig, shard: Sharder):
+def _cin(params, x0, cfg: XDeepFMConfig):
     """x0 [B, m, D] -> concat of per-layer sum-pooled features [B, sum(H_k)],
-    in slabs of rows whose outer product fits :data:`CIN_SLAB_BYTES`.  The reference constrains each layer's stack
-    to the batch axis; the port constrains the input once (a no-op without
-    a mesh)."""
-    x0 = shard.act(x0, "batch", None, None)
+    in slabs of rows whose outer product fits :data:`CIN_SLAB_BYTES`.  The
+    reference constrains each layer's stack to the batch axis; here every
+    row's stack lies where its row does (on a mesh, at its group's
+    positions), so there is nothing to constrain."""
     b, m, d = x0.shape
     h_max = max([m, *cfg.cin_layers[:-1]])
     per_row = h_max * m * d * x0.element_size()
@@ -132,25 +140,44 @@ def _cin(params, x0, cfg: XDeepFMConfig, shard: Sharder):
     return torch.cat(parts)
 
 
+def _head(p: dict, emb: torch.Tensor, lin: torch.Tensor,
+          cfg: XDeepFMConfig) -> torch.Tensor:
+    """The logits [b] of rows whose lookups are ``emb`` [b, m, D] and
+    ``lin`` [b, m, 1], from the dense nets of the tree ``p``."""
+    b, m, d = emb.shape
+    cin_logit = (_cin(p, emb, cfg) @ p["cin_out"])[:, 0]
+    mlp_logit = mlp_apply(p["mlp"], emb.reshape(b, m * d))[:, 0]
+    return lin[..., 0].sum(-1) + cin_logit + mlp_logit + p["bias"][0]
+
+
+def _logits(ops, params, ids, cfg: XDeepFMConfig):
+    """The forward's math, once: ``ids`` [B, n_sparse] -> logits [B], over
+    ``ops`` (:mod:`.sharded`: ``Whole`` on one device, ``OnMesh`` with one
+    value per position)."""
+    offs = ops.map(lambda i: _field_offsets(cfg, i.device), ids)
+    emb = fused_field_lookup(ops.map(lambda p: p["table"], params), offs,
+                             ids, ops.shard)                     # [B, m, D]
+    lin = fused_field_lookup(ops.map(lambda p: p["linear"], params), offs,
+                             ids, ops.shard)                     # [B, m, 1]
+    return ops.map(lambda p, e, x: _head(p, e, x, cfg), params, emb, lin)
+
+
 def xdeepfm_forward(params, batch, cfg: XDeepFMConfig,
                     shard: Sharder | None = None):
-    """batch: ids [B, n_sparse] int32 (per-field categorical).  -> logits [B]."""
-    shard = shard or Sharder(None)
-    ids = batch["ids"]
-    b = ids.shape[0]
-    offs = _field_offsets(cfg, ids.device)
-    emb = fused_field_lookup(params["table"], offs, ids)       # [B, m, D]
-    emb = shard.act(emb, "batch", None, None)
-    lin = fused_field_lookup(params["linear"], offs, ids)[..., 0].sum(-1)  # [B]
-    cin_feat = _cin(params, emb, cfg, shard)                   # [B, sum(H)]
-    cin_logit = (cin_feat @ params["cin_out"])[:, 0]
-    mlp_logit = mlp_apply(params["mlp"], emb.reshape(b, -1))[:, 0]
-    return lin + cin_logit + mlp_logit + params["bias"][0]
+    """batch: ids [B, n_sparse] int32 (per-field categorical).  -> logits [B];
+    over a mesh a ``ShardedTensor`` over "batch"."""
+    ops = mesh_ops(shard)
+    params = ops.params(params, xdeepfm_param_specs(cfg))
+    return ops.result(_logits(ops, params, ops.rows(batch["ids"]), cfg))
 
 
 def xdeepfm_loss(params, batch, cfg: XDeepFMConfig, shard: Sharder | None = None):
-    logits = xdeepfm_forward(params, batch, cfg, shard)
-    return bce_with_logits(logits, batch["clicks"])
+    """The mean BCE of the logits against ``batch["clicks"]``; over a mesh a
+    scalar at its first position."""
+    ops = mesh_ops(shard)
+    params = ops.params(params, xdeepfm_param_specs(cfg))
+    logits = _logits(ops, params, ops.rows(batch["ids"]), cfg)
+    return ops.bce(logits, ops.rows(batch["clicks"]))
 
 
 def xdeepfm_score_candidates(params, batch, cfg: XDeepFMConfig,
@@ -163,17 +190,19 @@ def xdeepfm_score_candidates(params, batch, cfg: XDeepFMConfig,
     slabs of ``chunk`` rows, as the reference's ``lax.map`` does (its last
     slab is padded with id 0 and the padding's scores dropped; each row's
     score depends only on that row, so the port scores the last slab
-    short).  -> scores [n_cand].
+    short).  -> scores [n_cand]; over a mesh a ``ShardedTensor`` over
+    "batch", each data group scoring its block (:mod:`.sharded`).
     """
-    shard = shard or Sharder(None)
-    cand = batch["cand_ids"]
-    user = batch["user_ids"]
-    n_cand = cand.shape[0]
+    ops = mesh_ops(shard)
+    params = ops.params(params, xdeepfm_param_specs(cfg))
+    cand = ops.rows(batch["cand_ids"])
+    user = ops.rows(batch["user_ids"], split=False)
+    n_cand = batch["cand_ids"].shape[0]
     c = min(chunk, n_cand)
     out = []
-    for s in range(0, n_cand, c):
-        slab = cand[s:s + c]
-        ids = torch.cat([user[None, :].expand(slab.shape[0], -1), slab], dim=1)
-        ids = shard.act(ids, "batch", None)
-        out.append(xdeepfm_forward(params, {"ids": ids}, cfg, shard))
-    return torch.cat(out)
+    for s in range(-(-n_cand // c)):
+        ids = ops.map(lambda u, x: torch.cat(
+            [u[None, :].expand(x.shape[0], -1), x], dim=1),
+            user, ops.slab(cand, s, c))
+        out.append(_logits(ops, params, ids, cfg))
+    return ops.result(ops.map(lambda *xs: torch.cat(xs), *out))

@@ -65,6 +65,7 @@ from ...distributed.collectives import (
     pmax,
     psum,
     resplit,
+    row_split_lookup,
 )
 from ...distributed.observe import at_position
 from ...distributed.sharding import ShardedTensor, shard_bounds
@@ -226,14 +227,7 @@ def _embed(lay: _Layout, table: list, spec: tuple, tokens: list) -> list:
     all-gather)."""
     if spec[0] != "model":
         return lay.gather(lay.each(lambda p, t, tok: t[tok], table, tokens))
-
-    def lookup(p, t, tok):
-        # the rows split evenly, as a parameter's must
-        local = tok - lay.col[p] * t.shape[0]
-        inside = (local >= 0) & (local < t.shape[0])
-        rows = t[local.clamp(0, max(t.shape[0] - 1, 0))]
-        return torch.where(inside[..., None], rows, rows.new_zeros(()))
-    return psum(lay.each(lookup, table, tokens), lay.mesh, lay.model)
+    return row_split_lookup(table, tokens, lay.mesh, lay.model)
 
 
 def _gqa(lay: _Layout, w: dict, h: list, cfg, rope: dict):

@@ -559,23 +559,40 @@ def test_dryrun_agrees_with_the_reference_record(records, reference_record):
 
 # -- the launcher --------------------------------------------------------------------------
 
-def test_launcher_records_other_families_as_errors(tmp_path):
-    """xDeepFM on a mesh waits on Queue 1 item 3: recorded as errors
-    naming it, and the launcher exits 1 (the LMs' and the GNNs' train
-    cells are ``ok``: ``tests/test_torch_dryrun_train.py``,
+def test_launcher_records_other_families_as_errors(tmp_path, monkeypatch):
+    """A cell whose step raises is recorded as an error with its message,
+    and the launcher then exits 1 (here ``serve_p99`` patched to raise).
+    No family's cell raises any more: xDeepFM's ``train_batch`` and
+    ``serve_p99`` are ``ok`` (all four cells:
+    ``tests/test_torch_dryrun_xdeepfm.py``), as the LMs' and the GNNs'
+    train cells are (``tests/test_torch_dryrun_train.py``,
     ``tests/test_torch_dryrun_gnn.py``)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+
     for arch, shape in (("xdeepfm", "train_batch"),
                         ("xdeepfm", "serve_p99")):
         rec = dryrun.run_cell(arch, shape, "tiny", str(tmp_path))
-        assert rec["status"] == "error", rec
-        assert "Queue 1 item 3" in rec["error"]
-        with open(tmp_path / "tiny" / f"{arch}__{shape}.json") as f:
-            assert json.load(f)["status"] == "error"
+        assert rec["status"] == "ok", rec.get("error")
     assert dryrun.run_cell("phi4-mini-3.8b", "long_500k", "tiny",
                            str(tmp_path))["status"] == "skipped"
+
+    def refuse(shard):
+        raise NotImplementedError("this step is not ported (a stand-in)")
+    cells = ARCHS["xdeepfm"].cells
+    monkeypatch.setattr(ARCHS["xdeepfm"], "cells", lambda cfg: {
+        **cells(cfg), "serve_p99": dataclasses.replace(
+            cells(cfg)["serve_p99"], make_step=refuse)})
+    rec = dryrun.run_cell("xdeepfm", "serve_p99", "tiny_multipod",
+                          str(tmp_path))
+    assert rec["status"] == "error"
+    assert "not ported (a stand-in)" in rec["error"]
+    with open(tmp_path / "tiny_multipod" / "xdeepfm__serve_p99.json") as f:
+        assert json.load(f)["status"] == "error"
     with pytest.raises(SystemExit) as e:
-        dryrun.main(["--arch", "xdeepfm", "--mesh", "tiny_multipod",
-                     "--out", str(tmp_path)])
+        dryrun.main(["--arch", "xdeepfm", "--shape", "serve_p99", "--mesh",
+                     "tiny_multipod", "--out", str(tmp_path)])
     assert e.value.code == 1
 
 

@@ -15,8 +15,8 @@ second: ``loss``, ``grad_norm``, ``step`` and every gathered leaf of the
 parameters and both moments within the GNN tests' float32 tolerance,
 rtol = atol = 1e-4, and every replica bit-equal to its first holder's.
 The step's moves, by kind, equal ``predicted_moves``.  The segment ops
-over a mesh are held to the unsharded ones, and xDeepFM's steps still
-refuse a mesh.
+over a mesh are held to the unsharded ones, and xDeepFM's steps are built
+over a mesh.
 """
 import dataclasses
 import functools
@@ -39,7 +39,7 @@ from repro_torch.distributed import Sharder, ShardedTensor  # noqa: E402
 from repro_torch.distributed import observe  # noqa: E402
 from repro_torch.distributed.sharding import put_tree, shard_bounds  # noqa: E402
 from repro_torch.graphs import segment as seg  # noqa: E402
-from repro_torch.launch.mesh import make_mesh, make_tiny_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_tiny_mesh  # noqa: E402
 from repro_torch.models import gnn  # noqa: E402
 from repro_torch.models.gnn.sharded import predicted_moves  # noqa: E402
 from repro_torch.train import TrainState  # noqa: E402
@@ -280,9 +280,14 @@ def test_gnn_forward_on_a_mesh_is_laid_out_by_flat(arch):
 
 
 def test_xdeepfm_steps_still_refuse_a_mesh():
-    """xDeepFM's train, serve and retrieval steps wait on the next slice:
-    each raises naming ROADMAP Queue 1 item 3."""
-    mesh = make_mesh((1, 1), ("data", "model"), ["cpu"])
-    for cell in list_cells("xdeepfm", smoke=True).values():
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            cell.make_step(Sharder.for_mesh(mesh))
+    """No xDeepFM step refuses a mesh any more: the four cells' steps are
+    built over each tiny mesh (their runs against the reference:
+    ``tests/test_torch_xdeepfm_mesh.py``)."""
+    cells = list_cells("xdeepfm", smoke=True)
+    assert set(cells) == {"train_batch", "serve_p99", "serve_bulk",
+                          "retrieval_cand"}
+    for multi in MESHES:
+        for cell in cells.values():
+            step = cell.make_step(Sharder.for_mesh(tiny(multi)))
+            assert callable(step)
+            assert getattr(step, "n_microbatches", 1) == 1

@@ -188,7 +188,7 @@ def test_the_slabbed_cin_equals_one_slab(grad, monkeypatch):
         x = x0.clone().requires_grad_(grad)
         ws = [w.clone().requires_grad_(grad) for w in params["cin_w"]]
         with torch.set_grad_enabled(grad):
-            out = xdeepfm._cin({"cin_w": ws}, x, cfg, Sharder(None))
+            out = xdeepfm._cin({"cin_w": ws}, x, cfg)
         outs.append(out.detach())
         if grad:
             grads.append(torch.autograd.grad(out.square().sum(), [x, *ws]))

@@ -164,18 +164,17 @@ def test_lm_steps_refuse_a_mesh():
 
 @pytest.mark.parametrize("arch", GNN_ARCHS + ["xdeepfm"])
 def test_gnn_and_recsys_steps_refuse_a_mesh(arch):
-    """Without a mesh each cell's step is built; on one, a GNN's train step
-    is built too (its runs: ``tests/test_torch_gnn_mesh.py``) and every
-    xDeepFM step raises naming the item that ports sharding."""
+    """Every cell's step is built without a mesh and on one, none refusing
+    it any more: a GNN's train step and xDeepFM's train step of one
+    microbatch, xDeepFM's serve and retrieval steps (their runs:
+    ``tests/test_torch_gnn_mesh.py``, ``tests/test_torch_xdeepfm_mesh.py``)."""
     mesh = make_mesh((1, 1), ("data", "model"), ["cpu"])
     for cell in list_cells(arch, smoke=True).values():
         assert callable(cell.make_step(Sharder(None)))
-        if arch in GNN_ARCHS:
-            step = cell.make_step(Sharder.for_mesh(mesh))
-            assert callable(step) and step.n_microbatches == 1
-            continue
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            cell.make_step(Sharder.for_mesh(mesh))
+        step = cell.make_step(Sharder.for_mesh(mesh))
+        assert callable(step)
+        if cell.kind == "train":
+            assert step.n_microbatches == 1
 
 
 # -- the sgrapp cells ----------------------------------------------------------
