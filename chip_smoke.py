@@ -286,7 +286,10 @@ just after):
    both runs fed the unsharded run's greedy
    tokens, held to the unsharded port as phase 25 holds prefill (every
    step's logits and the cache after the last); each step's ms, one
-   step's moves by kind and busiest position, one profiled sharded step.
+   step's moves by kind and busiest position, one profiled sharded step;
+   the first run's last step once more under ``Sharder.for_mesh(mesh,
+   seq_parallel=True)``, equal to it bit for bit (the reference's decode
+   never resolves "seq").
 27. training over a mesh (K4 in the forward and the remat recompute of
    each block at each position that holds heads and rows): the registry's
    ``train_4k`` step (``train.loop``'s mesh step,
@@ -5241,6 +5244,8 @@ def phase_mesh_prefill(device, seed: int, *, smoke: bool) -> dict:
         cfg = get_arch(arch).smoke_config() if smoke else \
             get_arch(arch).full_config()
         truth = arch == LM_ARCH and (kind, b, s) == MESH_TRUTH
+        # the first run on (2, 4) also steps under sequence parallelism
+        flagged = prof
         if smoke:
             b, s, prof = 2, 96, False
         elif depth is not None:
@@ -5307,7 +5312,8 @@ DECODE_LOGIT_BYTES = 16e9
 def mesh_decode_once(device, seed: int, arch: str, cfg, model, kind: str,
                      batch: int, max_len: int, *, fed: list | None = None,
                      steps: int = DECODE_STEPS, profile_it: bool = False,
-                     trace_it: bool = True) -> dict:
+                     trace_it: bool = True,
+                     seq_parallel_step: bool = False) -> dict:
     """``steps`` decode steps of ``cfg`` over ``kind``'s mesh of the card
     repeated to 8 positions, on the cache that the sharded prefill of
     ``max_len - steps`` ``make_prompts`` tokens fills (the
@@ -5324,7 +5330,11 @@ def mesh_decode_once(device, seed: int, arch: str, cfg, model, kind: str,
     step's sharded and unsharded ms, the moves of
     one step by kind, K4's launches by route in the sharded prefill, and
     the busiest position's peak bytes of one step under the dry-run's
-    cost model (``trace_it``); ``profile_it`` profiles one sharded step."""
+    cost model (``trace_it``); ``profile_it`` profiles one sharded step.
+    ``seq_parallel_step`` runs the last step again under
+    ``Sharder.for_mesh(mesh, seq_parallel=True)`` and holds its logits to
+    that step's bit for bit: the reference's decode never resolves "seq",
+    so the flag changes nothing there."""
     import torch
 
     from repro_torch.distributed import Sharder
@@ -5461,6 +5471,20 @@ def mesh_decode_once(device, seed: int, arch: str, cfg, model, kind: str,
     again = {**got_cache, "len": max_len - 1}
     t = fed_out[-1]
     laps["cache check"] = time.perf_counter() - t0
+    flagged = "no step under sequence parallelism"
+    if seq_parallel_step:
+        t0 = time.perf_counter()
+        f, _ = decode_step(model, again, t, cfg,
+                           Sharder.for_mesh(mesh, seq_parallel=True))
+        f = f.gather(device)
+        same = torch.equal(f, got_steps[-1])
+        check(same, f"{what}: the step under sequence parallelism differs "
+              f"from the step without it (max abs "
+              f"{float((f.float() - got_steps[-1].float()).abs().max())})")
+        del f
+        laps["seq_parallel step"] = time.perf_counter() - t0
+        flagged = (f"the last step under seq_parallel=True equal to it bit "
+                   f"for bit: {same}")
     if profile_it:
         t0 = time.perf_counter()
         profile(f"{what}, one sharded decode step", lambda: decode_step(
@@ -5496,7 +5520,8 @@ def mesh_decode_once(device, seed: int, arch: str, cfg, model, kind: str,
         f"{ {k: f'{e:.3e}' for k, e in cache_errs.items()} }, the written "
         f"slots { {k: f'{e:.3e}' for k, e in slot_errs.items()} } (bound "
         f"{MESH_NORMWISE if bf16 else MESH_FLOAT32}); one step's moves by "
-        f"kind {dict(sorted(moves.kinds.items()))}; {busy}; card peak "
+        f"kind {dict(sorted(moves.kinds.items()))}; {busy}; {flagged}; "
+        f"card peak "
         f"{card_peak / 2**30:.4f} GiB; the run took "
         f"{time.perf_counter() - start:.4f} s (of which "
         f"{ {k: f'{v:.4f}' for k, v in laps.items()} } s)")
@@ -5519,7 +5544,8 @@ def phase_mesh_decode(device, seed: int, *, smoke: bool) -> dict:
     times the unsharded one's (``DECODE_TRUTH_STEPS`` steps each); (b)
     ``MESH_CELLS`` (minicpm3-4b, MLA, and
     phi3.5-moe-42b, MoE, at full width cut to 2 layers, ``reduced``) over
-    (2, 4) with 4 x 4,096; each through :func:`mesh_decode_once`.  A CPU
+    (2, 4) with 4 x 4,096; each through :func:`mesh_decode_once`, the first
+    with one more step under sequence parallelism, bit-equal.  A CPU
     rehearsal (``smoke``) runs the smoke configs with 2 x 104.  Returns
     K4's launches and routes in the sharded prefills."""
     import dataclasses
@@ -5540,6 +5566,8 @@ def phase_mesh_decode(device, seed: int, *, smoke: bool) -> dict:
         cfg = get_arch(arch).smoke_config() if smoke else \
             get_arch(arch).full_config()
         truth = arch == LM_ARCH and (kind, b, s) == MESH_TRUTH
+        # the first run on (2, 4) also steps under sequence parallelism
+        flagged = prof
         if smoke:
             b, s, prof = 2, 104, False
         elif depth is not None:
@@ -5560,7 +5588,8 @@ def phase_mesh_decode(device, seed: int, *, smoke: bool) -> dict:
         steps = DECODE_TRUTH_STEPS if truth else DECODE_STEPS
         results = [mesh_decode_once(device, seed, arch, cfg, model, kind, b,
                                     s, steps=steps, profile_it=prof,
-                                    trace_it=not truth)]
+                                    trace_it=not truth,
+                                    seq_parallel_step=flagged)]
         if truth:
             cfg32 = dataclasses.replace(cfg, dtype="float32")
             model, made = model.float(), None

@@ -4,11 +4,12 @@
 one process and places each shard on its device itself."""
 from .sharding import (
     NO_SHARD,
+    DuplicateSpecError,
     NamedSharding,
     ShardedTensor,
     Sharder,
     batch_partition_axes,
 )
 
-__all__ = ["NO_SHARD", "NamedSharding", "ShardedTensor", "Sharder",
+__all__ = ["NO_SHARD", "DuplicateSpecError", "NamedSharding", "ShardedTensor", "Sharder",
            "batch_partition_axes"]

@@ -19,7 +19,9 @@ and each tensor it makes, where it belongs.  A move between positions
 tags its node with both ends (``distributed.sharding.send``): its
 backward runs at the receiving position and hands its gradient on at the
 sending one.  :func:`note_stage` marks the boundaries of a step's stages
-(the train step's microbatches) for an observer that keeps them.
+(the train step's microbatches, a layer of the LMs' trunk) for an observer
+that keeps them, and :func:`note_repeat` asks it to count the work since
+the last mark again, as if it ran more times (the layers a trace skips).
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import torch
 from torch.overrides import TorchFunctionMode
 
 __all__ = ["at_position", "current_position", "note_kernel", "note_move",
-           "note_stage", "observing", "tag_node"]
+           "note_repeat", "note_stage", "observing", "tag_node"]
 
 _POSITION: contextvars.ContextVar[int | None] = contextvars.ContextVar(
     "mesh_position", default=None)
@@ -150,6 +152,16 @@ def note_stage(name: str) -> None:
         mark = getattr(o, "stage", None)
         if mark is not None:
             mark(name)
+
+
+def note_repeat(since: str, times: int) -> None:
+    """The work done since the mark of stage ``since`` runs ``times`` more
+    times in a row from here, untraced (an observer with a
+    ``repeat(since, times)`` method counts it)."""
+    for o in _observers:
+        again = getattr(o, "repeat", None)
+        if again is not None:
+            again(since, int(times))
 
 
 def note_kernel(name: str, flops: float, nbytes: int) -> None:

@@ -39,8 +39,8 @@ from .observe import at_position, note_move, tag_node
 
 NO_SHARD = None
 
-__all__ = ["NamedSharding", "ShardedTensor", "Sharder", "NO_SHARD",
-           "batch_partition_axes", "put_tree", "reshard", "send",
+__all__ = ["DuplicateSpecError", "NamedSharding", "ShardedTensor", "Sharder",
+           "NO_SHARD", "batch_partition_axes", "put_tree", "reshard", "send",
            "shard_bounds", "to_device"]
 
 # axis names that are data-parallel, as the reference resolves them
@@ -64,6 +64,16 @@ def shard_bounds(n: int, k: int) -> list[tuple[int, int]]:
     return [(min(i * c, n), min((i + 1) * c, n)) for i in range(k)]
 
 
+class DuplicateSpecError(Exception):
+    """A spec that maps one mesh axis to more than one dim (the counterpart
+    of jax's ``DuplicateSpecError``, which ``jax.sharding.NamedSharding``
+    raises at construction)."""
+
+    def __init__(self, message: str, mesh=None, spec=None):
+        super().__init__(message)
+        self.message, self.mesh, self.spec = message, mesh, spec
+
+
 @dataclass(frozen=True)
 class NamedSharding:
     """A mesh and a resolved spec, the counterpart of
@@ -72,25 +82,36 @@ class NamedSharding:
     is replicated; dims past the spec are replicated.  A split dim must
     divide by its axes' size unless ``uneven``, the split GSPMD gives an
     activation: ``ceil(n / k)`` a shard, the last shards short or
-    empty."""
+    empty.  As jax's, it refuses at construction a spec that names an axis
+    the mesh lacks (``ValueError``) or maps one axis to more than one dim
+    (:class:`DuplicateSpecError`)."""
     mesh: Mesh
     spec: tuple
     uneven: bool = False
+
+    def __post_init__(self):
+        counts: dict = {}
+        for a in self.spec:
+            for name in () if a is None else (a,) if isinstance(a, str) \
+                    else tuple(a):
+                if name not in self.mesh.axis_names:
+                    raise ValueError(f"mesh has no axis {name!r}: "
+                                     f"{self.mesh.axis_names}")
+                counts[name] = counts.get(name, 0) + 1
+        twice = [name for name, c in counts.items() if c > 1]
+        if twice:
+            raise DuplicateSpecError(
+                "A single NamedSharding spec specification can map every "
+                f"mesh axis to at most one positional dimension, but "
+                f"{self.spec} has duplicate entries for {twice}",
+                self.mesh, self.spec)
 
     def _dim_axes(self, ndim: int) -> list[tuple]:
         if len(self.spec) > ndim:
             raise ValueError(f"spec {self.spec} has more dims than a "
                              f"{ndim}-d array")
-        out = []
-        for a in tuple(self.spec) + (None,) * (ndim - len(self.spec)):
-            axes = () if a is None else ((a,) if isinstance(a, str)
-                                         else tuple(a))
-            for name in axes:
-                if name not in self.mesh.axis_names:
-                    raise ValueError(f"mesh has no axis {name!r}: "
-                                     f"{self.mesh.axis_names}")
-            out.append(axes)
-        return out
+        return [() if a is None else (a,) if isinstance(a, str) else tuple(a)
+                for a in tuple(self.spec) + (None,) * (ndim - len(self.spec))]
 
     def divides(self, shape) -> bool:
         """Whether every split dim of ``shape`` divides by its axes' size."""

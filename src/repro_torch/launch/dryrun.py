@@ -43,7 +43,15 @@ runs the first microbatch and the optimizer
 bytes, moves and kernels by the number of microbatches (the step's stage
 marks; ``hlo_cost.CostModel.scale``): every microbatch has the same shapes
 and does the same work.  The record says so under ``microbatches``; the
-memory is the traced run's (one microbatch's peak is every one's).
+memory is the traced run's (one microbatch's peak is every one's).  So,
+too, for the LMs' layers: the reference's trunk is one ``scan`` over
+stacked layers of one shape, compiled once, and the trace runs the first
+:data:`TRACED_LAYERS` of them (``train.loop.traced_layers``) and counts one
+middle layer's forward, recompute and backward, flops, bytes, moves,
+kernels, ops and live bytes, for each layer it does not run
+(``sharded_train.SCALED_LAYER``, ``hlo_cost.CostModel.repeat``): the
+record equals the trace of every layer field for field but ``trace_s``,
+and says so under ``layers``.
 A cell's donated inputs (decode's cache) reach the step placed by
 ``in_shardings``, as ``ShardedTensor`` leaves, as the step would receive
 them from the prefill that filled them.  The cache's ``len`` has no value
@@ -82,7 +90,7 @@ import torch
 from ..configs import ARCHS, get_arch
 from ..configs.registry import ShapeDtype
 from ..distributed.sharding import Sharder, put_tree
-from ..train.loop import traced_microbatches
+from ..train.loop import traced_layers, traced_microbatches
 from .hlo_cost import traced
 from .mesh import make_production_mesh, make_tiny_mesh
 
@@ -91,6 +99,9 @@ __all__ = ["MESHES", "all_cells", "main", "make_meta_mesh", "run_cell"]
 MESHES = ("pod", "multipod", "tiny", "tiny_multipod")
 # the microbatches of a train step that a trace runs (scaled to all)
 TRACED_MICROBATCHES = 1
+# the layers of an LM's trunk that a train trace runs (one scaled to the
+# rest); None runs every layer
+TRACED_LAYERS = 3
 
 
 def make_meta_mesh(kind: str):
@@ -170,7 +181,8 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str, out_dir: str,
                        for i, x in enumerate(inputs))
         n_micro = getattr(step, "n_microbatches", 1)
         runs = min(n_micro, TRACED_MICROBATCHES)
-        with traced(mesh.size) as model, traced_microbatches(runs):
+        with traced(mesh.size) as model, traced_microbatches(runs), \
+                traced_layers(TRACED_LAYERS) as scaled:
             out = step(*inputs)
         t_trace = time.perf_counter() - t0
         if cell.kind == "train":
@@ -181,6 +193,15 @@ def run_cell(arch_id: str, shape_name: str, mesh_kind: str, out_dir: str,
                 "why": "each microbatch has the same shapes and work: the "
                        "traced ones' flops, bytes, moves and kernels are "
                        "scaled to all; the memory is the traced run's"}
+        if scaled:
+            rec["layers"] = {
+                **scaled, "scaled_by": scaled["n_layers"] - scaled["traced"]
+                + 1,
+                "why": "the trunk's layers have the same shapes and work, as "
+                       "the reference's one scan over stacked layers: a "
+                       "middle layer's forward, recompute and backward, "
+                       "its live bytes included, are counted for each layer "
+                       "not traced"}
         summary = model.summary()
         if cell.kind == "decode":
             rec["cache_len"] = {

@@ -24,14 +24,22 @@ it sums:
   collectives  the bytes each position receives, by kind (XLA's names)
   live bytes   each storage an op makes (not a view, not in place) is live
                at the position that made it from its creation until it is
-               released; the peak of each position, past its arguments
+               released; the peak of each position, past its arguments,
+               kept as storages come and go (no log of them: per live
+               storage its size and the peak between its creation and the
+               next live one's, so that a step's outputs can be left out
+               of the peak afterwards)
 
 A backward's ops count at the position whose forward made their autograd
 nodes (``distributed.observe`` tags them while an observer watches).  A
 step that marks its stages (``observe.note_stage``) leaves a snapshot of
 the counts at each mark, so that the work between two marks can be scaled
 (:meth:`CostModel.scale`: the train step's one traced microbatch to all of
-them).
+them), and the work since the last mark can be counted again as if it ran
+more times in a row (``observe.note_repeat``, :meth:`CostModel.repeat`:
+one traced layer of the LMs' trunk for the layers not traced), its live
+bytes included: each repetition starts where the one before ended, rises
+as the traced one rose and leaves what it left.
 
 Work outside any position is the mesh's first position's (position 0),
 where the port gathers results.  Per device means the busiest position;
@@ -123,11 +131,20 @@ class CostModel(TorchDispatchMode):
         self.received = [defaultdict(int) for _ in range(self.n)]
         self.kernels: dict[str, dict] = {}
         self.n_ops = 0
-        self._owner: dict[int, tuple[int, int]] = {}
         self._refs: dict[int, weakref.ref] = {}
         self._mutable: dict = {}
-        # (position, +-bytes, storage key) in the order they happened
-        self.events: list[tuple[int, int, int]] = []
+        # live bytes: per position the live storages in the order they were
+        # made, a doubly linked list of [prev, next, bytes, top, key, p]
+        # where ``top`` is the position's peak from that storage's creation
+        # until the next live one's (a freed storage's span joins its
+        # predecessor's); the head, bytes 0, spans the time before them
+        self.live = [0] * self.n
+        self._heads = [[None, None, 0, 0, None, p] for p in range(self.n)]
+        self._tails = list(self._heads)
+        self._owner: dict[int, list] = {}
+        # each position's peak since the last stage mark
+        self._top = [0] * self.n
+        self._last_stage: str | None = None
         self.stages: dict[str, dict] = {}
 
     # -- where work happens ----------------------------------------------------
@@ -153,12 +170,38 @@ class CostModel(TorchDispatchMode):
     def stage(self, name: str) -> None:
         """Keep the counts as they stand at the start of stage ``name``."""
         self.stages[name] = self._counts()
+        self._top = list(self.live)
+        self._last_stage = name
+
+    def repeat(self, since: str, times: int) -> None:
+        """Count the work done since the mark of stage ``since`` (the last
+        mark) ``times`` more times, as if it ran again that many times in a
+        row from here: flops, bytes, moves, kernels and ops, and the live
+        bytes (each repetition rises above its start as the traced one rose
+        above the mark and ends as much above its start as the traced one
+        ended above the mark)."""
+        if since != self._last_stage:
+            raise ValueError(f"stage {since!r} is not the last mark")
+        self.stages["_repeat"] = self._counts()
+        self.scale(since, "_repeat", 1 + times)
+        del self.stages["_repeat"]
+        if times <= 0:
+            return
+        start = self.stages[since]["live"]
+        for p in range(self.n):
+            rise = self._top[p] - start[p]
+            step = self.live[p] - start[p]
+            top = self.live[p] + rise + max(0, (times - 1) * step)
+            tail = self._tails[p]
+            tail[3] = max(tail[3], top)
+            self._top[p] = max(self._top[p], top)
+            self.live[p] += times * step
 
     def _counts(self) -> dict:
         return {"flops": list(self.flops), "bytes": list(self.bytes),
                 "received": [dict(r) for r in self.received],
                 "kernels": {k: dict(v) for k, v in self.kernels.items()},
-                "n_ops": self.n_ops}
+                "n_ops": self.n_ops, "live": list(self.live)}
 
     def scale(self, start: str, stop: str, factor: float) -> None:
         """Count the work done between the marks of stages ``start`` and
@@ -186,26 +229,43 @@ class CostModel(TorchDispatchMode):
         if key in self._owner:
             return
         n = st.nbytes()
-        self._owner[key] = (p, n)
-        self.events.append((p, n, key))
+        live = self.live[p] = self.live[p] + n
+        if live > self._top[p]:
+            self._top[p] = live
+        tail = self._tails[p]
+        node = [tail, None, n, live, key, p]
+        tail[1] = self._tails[p] = self._owner[key] = node
         self._refs[key] = weakref.ref(st, lambda _, key=key: self._released(key))
 
     def _released(self, key: int) -> None:
         self._refs.pop(key, None)
-        got = self._owner.pop(key, None)
-        if got is not None:
-            self.events.append((got[0], -got[1], key))
+        node = self._owner.pop(key, None)
+        if node is None:
+            return
+        prev, nxt, n, top, _, p = node
+        self.live[p] -= n
+        if top > prev[3]:
+            prev[3] = top
+        prev[1] = nxt
+        if nxt is None:
+            self._tails[p] = prev
+        else:
+            nxt[0] = prev
 
     def peaks(self, exclude: set = frozenset()) -> list[int]:
         """Each position's peak of live bytes, not counting the storages
-        keyed in ``exclude`` (a step's outputs)."""
-        live, peak = [0] * self.n, [0] * self.n
-        for p, d, key in self.events:
-            if key in exclude:
-                continue
-            live[p] += d
-            peak[p] = max(peak[p], live[p])
-        return peak
+        keyed in ``exclude`` (a step's outputs, live to the end): the
+        largest span peak less the excluded bytes made by then."""
+        out = []
+        for head in self._heads:
+            peak, gone, node = head[3], 0, head[1]
+            while node is not None:
+                if node[4] in exclude:
+                    gone += node[2]
+                peak = max(peak, node[3] - gone)
+                node = node[1]
+            out.append(peak)
+        return out
 
     # -- the dispatch ---------------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -275,10 +335,10 @@ class CostModel(TorchDispatchMode):
         out_keys = set()
         for t in _tensors(outputs, []):
             key = _storage_key(t)
-            owner = self._owner.get(key)
-            if owner is not None and key not in out_keys:
+            node = self._owner.get(key)
+            if node is not None and key not in out_keys:
                 out_keys.add(key)
-                out_bytes[owner[0]] += owner[1]
+                out_bytes[node[5]] += node[2]
         temp = self.peaks(out_keys)
         totals = [argument_bytes[q] + out_bytes[q] + temp[q]
                   for q in range(self.n)]

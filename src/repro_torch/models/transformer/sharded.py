@@ -46,8 +46,17 @@ of the widened operands; differentiable, for training's trunk in
 :mod:`.sharded_train`).  The MoE balance term, which prefill and decode
 discard, is computed only there (``_ffn(..., with_aux=True)``).  Each position's work runs inside ``observe.at_position`` and
 every move is reported, so the dry-run's cost model sees each position's
-flops, bytes and collectives.  Sequence parallelism (``Sharder(
-seq_parallel=True)``) is not ported.
+flops, bytes and collectives.
+
+Sequence parallelism (``Sharder.for_mesh(mesh, seq_parallel=True)``)
+resolves ``"seq"`` to "model" where the mesh has that axis, so the
+reference's logits layout ``act(logits, "batch", "seq", "model")`` names
+"model" twice and jax refuses it (``DuplicateSpecError``): its prefill and
+loss fail on such a mesh and its decode, which never resolves ``"seq"``,
+runs unchanged.  The port does the same: prefill (and the loss) resolve
+that layout before any work and raise :class:`DuplicateSpecError` there,
+run as without the flag on a mesh without "model" (``"seq"`` resolves to
+None), and decode ignores the flag.
 """
 from __future__ import annotations
 
@@ -332,9 +341,9 @@ def prefill_on_mesh(params, tokens: torch.Tensor, cfg, max_len: int, shard
     from .model import _cache_names, _dt, cache_shapes, cache_specs, \
         lm_param_specs
 
-    if shard.seq_parallel:
-        raise NotImplementedError(
-            "prefill with sequence parallelism over a mesh is not ported")
+    # the logits' layout, resolved first as the reference's trace resolves
+    # it: DuplicateSpecError under sequence parallelism on a "model" axis
+    shard.named("batch", "seq", "model")
     lay = _Layout(shard)
     b_all, s = tokens.shape
     if s > max_len:
@@ -609,9 +618,6 @@ def decode_on_mesh(params, cache: dict, tokens, cfg, shard
     with ``len`` advanced by one."""
     from .model import _cache_names, cache_specs, lm_param_specs
 
-    if shard.seq_parallel:
-        raise NotImplementedError(
-            "decode with sequence parallelism over a mesh is not ported")
     lay = _Layout(shard)
     names = _cache_names(cfg)
     specs_c = cache_specs(cfg)

@@ -26,7 +26,23 @@ and added at the mesh's first position with the token count (or the mask's
 sum): the mean over the global tokens.  An MoE's balance term
 (:func:`.moe.moe_apply_mesh` ``with_aux``) is summed over the layers there
 and added as ``0.01 * aux``.  The one scalar differentiated lies at the
-first position.  Sequence parallelism is not ported.
+first position.  Under sequence parallelism the loss resolves the logits'
+layout first, as prefill does (:mod:`.sharded`): ``DuplicateSpecError`` on
+a mesh with "model", the step without the flag on one without.
+
+Under ``train.loop.traced_layers(k)`` (the dry-run's trace) the trunk runs
+its first ``k`` layers only and has the observer count layer
+:data:`SCALED_LAYER` as each of the ``n_layers - k`` layers not run: every
+layer has the same shapes and work, and layer 1 is a middle one, whose
+forward adds its MoE term to the layers' sum (layer 0's starts it) and
+whose backward adds its gradients to the buffers the last layer's
+started.  Its forward is marked from before its weights are taken to
+before the next layer's (``observe.note_stage``, ``note_repeat``); its
+backward, with the checkpoint's recompute, by hooks on the last tensor
+its forward made and on the last its predecessor made (the MoE sum, or
+the last position's output): the autograd engine runs the nodes of one
+graph task from the newest down, so the nodes between those two hooks
+are the layer's forward's.
 """
 from __future__ import annotations
 
@@ -36,8 +52,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ...distributed.collectives import pmax, psum
+from ...distributed.observe import note_repeat, note_stage
 from ...distributed.sharding import NamedSharding, ShardedTensor, Sharder, \
     send, shard_bounds
+from ...train.loop import scaled_layers
 from ..common import rms_norm
 from .attention import _NEG
 from .rope import rope_freqs
@@ -51,10 +69,12 @@ from .sharded import (
     _mla,
 )
 
-__all__ = ["loss_on_mesh", "predicted_gathers"]
+__all__ = ["SCALED_LAYER", "loss_on_mesh", "predicted_gathers"]
 
 # what the loss writes over the vocabulary padding's logits
 _NEG_LOGIT = -1e30
+# the layer a trace under ``traced_layers`` counts for the layers not run
+SCALED_LAYER = 1
 
 
 def _as_sharded(shard, specs: dict, params) -> dict:
@@ -144,9 +164,7 @@ def loss_on_mesh(params, batch: dict, cfg, shard) -> torch.Tensor:
     position's shards."""
     from .model import lm_param_specs
 
-    if shard.seq_parallel:
-        raise NotImplementedError(
-            "training with sequence parallelism over a mesh is not ported")
+    shard.named("batch", "seq", "model")    # as prefill_on_mesh
     lay = _Layout(shard)
     specs = lm_param_specs(cfg)
     tree = _as_sharded(shard, specs, params)
@@ -170,7 +188,16 @@ def loss_on_mesh(params, batch: dict, cfg, shard) -> torch.Tensor:
     x = _embed(lay, embed["embed"], specs["embed"], list(tokens.shards))
     del embed
     aux = None
-    for i in range(cfg.n_layers):
+    k = scaled_layers(cfg.n_layers)
+    if k is not None and k < SCALED_LAYER + 2:
+        raise ValueError(f"a trace of {k} layers has no middle layer to "
+                         f"scale: trace at least {SCALED_LAYER + 2}")
+    extra = 0 if k is None else cfg.n_layers - k
+    for i in range(cfg.n_layers - extra):
+        if extra and i == SCALED_LAYER:
+            note_stage("layer")
+        elif extra and i == SCALED_LAYER + 1:
+            note_repeat("layer", extra)
         layer = _layer_of(tree["layers"], i)
         args = (lay, cfg, rope, first, b_all * s, per_layer, layer, x)
         if cfg.remat:
@@ -180,6 +207,15 @@ def loss_on_mesh(params, batch: dict, cfg, shard) -> torch.Tensor:
             x, a = _block(*args)
         if a is not None:
             aux = a if aux is None else aux + a
+        # the last tensor this layer's forward made: the backward's mark
+        last = aux if a is not None and i else x[-1]
+        # each layer's term freed in its own layer, layer 0's (the sum's
+        # start) in layer 1's: layer 1 leaves what every later one leaves
+        del a
+        if extra and i == SCALED_LAYER:
+            last.register_hook(lambda _: note_stage("back"))
+        elif extra and i == SCALED_LAYER - 1:
+            last.register_hook(lambda _: note_repeat("back", extra))
 
     final = _gathered(lay, {"ln_f": specs["ln_f"], "head": specs["head"]},
                       {"ln_f": tree["ln_f"], "head": tree["head"]})
@@ -228,7 +264,8 @@ def predicted_gathers(cfg, mesh, batch: int, seq: int, n_micro: int) -> dict:
     * the activations gathered over "model" in each layer, the other
       columns' blocks of its group's rows: GQA's ``k`` and ``v``, MLA's
       ``q`` and ``kv`` latents (twice as all-gathers, once as the
-      backward's reduce-scatters);
+      backward's reduce-scatters, GQA's only at positions whose column
+      holds query heads, where MLA's ``wk_rope`` alone goes back);
     * an MoE's routing: the first choices of the other groups' tokens
       that share a dispatch with its group's, int64 (twice, as
       all-gathers; they take no gradient).
@@ -274,6 +311,15 @@ def predicted_gathers(cfg, mesh, batch: int, seq: int, n_micro: int) -> dict:
     if cfg.moe is not None:
         experts = tree_sum(layers.pop("moe"), shapes["layers"]["moe"], True)
     layer = sum(tree_sum(layers, shapes["layers"], True))
+    # a position whose column holds no query heads attends with none: MLA's
+    # k_rope there takes no gradient, nor does the gathered wk_rope
+    heads = shard_bounds(cfg.n_heads, lay.n_cols)
+    headless = [p for p in lay.positions
+                if heads[lay.col[p]][0] == heads[lay.col[p]][1]]
+    layer_rs = layer
+    if cfg.is_mla:
+        rope = fsdp(layers["wk_rope"], shapes["layers"]["wk_rope"], True)
+        layer_rs -= sum(rope[p] for p in headless)
     # an MoE's experts at a group without tokens serve only the other
     # groups' slots, which it uses only where the slots split over the
     # groups: elsewhere their weights take no gradient, and nothing goes
@@ -288,11 +334,18 @@ def predicted_gathers(cfg, mesh, batch: int, seq: int, n_micro: int) -> dict:
         widths = (cfg.mla.q_lora_rank, cfg.mla.kv_lora_rank)
     else:
         widths = (cfg.n_kv_heads * cfg.head_dim,) * 2
-    act = 0
+    # GQA's k and v are used only for a position's query heads: where its
+    # column holds none (more columns than heads a layer, as on the
+    # production meshes), they take no gradient and nothing goes back;
+    # MLA's latents feed every column's block of the up-projections
+    act_ag = act_rs = 0
     for p in lay.positions:
         for w in widths:
             a, b = shard_bounds(w, lay.n_cols)[lay.col[p]]
-            act += (w - (b - a)) * rows[lay.group[p]] * seq * isz
+            got = (w - (b - a)) * rows[lay.group[p]] * seq * isz
+            act_ag += got
+            if cfg.is_mla or p not in headless:
+                act_rs += got
     if not cfg.fsdp:
         for p in lay.positions:
             a, b = shard_bounds(cfg.d_model, lay.n_cols)[lay.col[p]]
@@ -311,8 +364,8 @@ def predicted_gathers(cfg, mesh, batch: int, seq: int, n_micro: int) -> dict:
                     route += max(0, min(hi, u1) - max(lo, u0)) \
                         * cfg.moe.top_k * 8
     passes = 2 if cfg.remat else 1
-    per_micro_ag = top + cfg.n_layers * passes * (layer + sum(experts) + act
-                                                  + route)
-    per_micro_rs = top + cfg.n_layers * (layer + back + act)
+    per_micro_ag = top + cfg.n_layers * passes * (layer + sum(experts)
+                                                  + act_ag + route)
+    per_micro_rs = top + cfg.n_layers * (layer_rs + back + act_rs)
     return {"all-gather": n_micro * per_micro_ag,
             "reduce-scatter": n_micro * per_micro_rs}

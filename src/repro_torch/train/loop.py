@@ -23,7 +23,11 @@ them; and AdamW runs on each position's shards
 (``optimizer.adamw_update_mesh``).  The step reports its stages to an
 observer (``observe.note_stage``: ``"microbatches"``, ``"optimizer"``), and
 under :func:`traced_microbatches` runs only the first microbatches, so
-that the dry-run can trace one and scale it.
+that the dry-run can trace one and scale it.  Under :func:`traced_layers`
+a loss that runs a stack of identical layers (the LMs' trunk over a mesh,
+``models.transformer.sharded_train``) runs only the first of them and
+has the observer count one of those as all the rest
+(:func:`scaled_layers`).
 """
 from __future__ import annotations
 
@@ -37,10 +41,13 @@ from .checkpoint import tree_flatten, tree_map, tree_unflatten
 from .optimizer import adamw_update, adamw_update_mesh, param_leaves
 from .train_state import TrainState
 
-__all__ = ["make_train_step", "traced_microbatches"]
+__all__ = ["make_train_step", "scaled_layers", "traced_layers",
+           "traced_microbatches"]
 
 _TRACED: contextvars.ContextVar[int | None] = contextvars.ContextVar(
     "traced_microbatches", default=None)
+_LAYERS: contextvars.ContextVar[tuple | None] = contextvars.ContextVar(
+    "traced_layers", default=None)
 
 
 @contextlib.contextmanager
@@ -53,6 +60,33 @@ def traced_microbatches(k: int):
         yield
     finally:
         _TRACED.reset(token)
+
+
+@contextlib.contextmanager
+def traced_layers(k: int | None):
+    """Inside, a loss over a mesh whose trunk has more than ``k`` identical
+    layers runs only its first ``k`` and has the observer count one of
+    them as the rest (a dry-run's trace; its values lack those layers);
+    ``k=None`` runs them all.  Yields a dict that such a loss fills
+    (:func:`scaled_layers`): empty where no loss scaled its layers."""
+    info: dict = {}
+    token = _LAYERS.set(None if k is None else (int(k), info))
+    try:
+        yield info
+    finally:
+        _LAYERS.reset(token)
+
+
+def scaled_layers(n_layers: int) -> int | None:
+    """How many of a trunk's ``n_layers`` layers to run under
+    :func:`traced_layers` (None: all of them, as outside it), noting the
+    answer in the dict it yielded."""
+    got = _LAYERS.get()
+    if got is None or n_layers <= got[0]:
+        return None
+    k, info = got
+    info.update(n_layers=n_layers, traced=k)
+    return k
 
 
 def _value_and_grad(loss_fn: Callable, params, batch, leaves: dict

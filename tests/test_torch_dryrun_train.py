@@ -5,7 +5,10 @@
 The trace runs the first of the step's 8 microbatches and the optimizer and
 scales the microbatch's work by 8 (``train.loop.traced_microbatches``,
 ``hlo_cost.CostModel.scale``); ``test_one_microbatch_scaled_equals_the_full
-_trace`` holds that scaling to a trace of every microbatch.  Each record is
+_trace`` holds that scaling to a trace of every microbatch.  It runs the
+first ``dryrun.TRACED_LAYERS`` layers of the trunk and counts a middle one
+for the rest (``train.loop.traced_layers``, ``CostModel.repeat``), which
+``tests/test_torch_dryrun_light.py`` holds to a trace of every layer.  Each record is
 held to analytic values: ``model_flops = 6 N T``; the traced matmuls
 between ``6 N T`` and the remat's ``8 N T`` plus the attention's
 backward (an MoE's experts counted at their capacity); K4's launches and flops (the forward and the recompute at each
@@ -55,6 +58,10 @@ def check_train_record(rec: dict, arch: str, mesh: str) -> None:
     assert rec["model_flops"] == cell.model_flops == 6.0 * n * b * s
     nm = rec["microbatches"]["n_microbatches"]
     assert nm == 8 and rec["microbatches"]["traced"] == 1
+    layers = rec["layers"]
+    assert layers["n_layers"] == cfg.n_layers
+    assert layers["traced"] == dryrun.TRACED_LAYERS < cfg.n_layers
+    assert layers["scaled_by"] == cfg.n_layers - layers["traced"] + 1
     hd, hd_v = ((cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim,
                  cfg.mla.v_head_dim) if cfg.is_mla
                 else (cfg.head_dim, cfg.head_dim))

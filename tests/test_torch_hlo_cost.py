@@ -79,6 +79,46 @@ def test_peak_of_a_known_sequence_of_allocations():
     assert model.peaks() == [1440, 200]   # a peak stays a peak
 
 
+def test_peak_leaves_out_only_the_live_outputs():
+    """A step's outputs are left out of the peak by their storages' keys;
+    a storage freed earlier may have had one of those keys (an address
+    reused), and it still counts while it lived."""
+    with traced(1) as model:
+        a = torch.zeros(100, device=META)               # 400 live
+        key = a.untyped_storage()._cdata
+        del a                                           # freed: 0 live
+        b = torch.zeros(10, device=META)                # 40 live
+    assert model.peaks() == [400]
+    assert model.peaks({key}) == [400]
+    assert model.peaks({b.untyped_storage()._cdata}) == [400]
+
+
+def test_repeat_counts_the_work_since_a_mark_again():
+    """``note_repeat``: the work since the last mark, flops, bytes, ops and
+    live bytes, as if it ran twice more in a row; each repetition keeps
+    what the traced one kept, so the peak rises with each."""
+    from repro_torch.distributed.observe import note_repeat, note_stage
+
+    w = torch.empty((4, 4), device=META)
+    with traced(1) as model:
+        note_stage("layer")
+        kept = [w @ w]                                  # 64 B kept
+        tmp = torch.zeros(32, device=META)              # 128 B, freed
+        del tmp
+        note_repeat("layer", 2)
+    assert len(kept) == 1
+    assert model.flops == [3 * 2 * 4 * 4 * 4]
+    assert model.n_ops == 3 * 2
+    assert model.live == [3 * 64]
+    # the last repetition starts at 2 * 64 and rises by 64 + 128
+    assert model.peaks() == [2 * 64 + 64 + 128]
+    with pytest.raises(ValueError, match="not the last mark"):
+        with traced(1) as again:
+            note_stage("a")
+            note_stage("b")
+            note_repeat("a", 1)
+
+
 @pytest.mark.parametrize("n", [2, 3, 4, 5])
 def test_ring_collectives_are_the_half_rings_hops(n):
     """Each permute step moves every block one hop; the half ring runs

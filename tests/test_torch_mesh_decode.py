@@ -173,7 +173,10 @@ def test_decode_takes_a_whole_cache_and_the_reference_tree(reference,
     """A cache of whole tensors (the unsharded prefill's) is placed by
     ``Sharder.act``, each position taking its block, nothing moved; the
     reference's stacked tree serves as the parameters; a tensor ``len`` is
-    read."""
+    read.; under
+    sequence parallelism the step runs and equals the step without the
+    flag bit for bit (and the reference's within ``TOL``), as the
+    reference's decode runs unchanged."""
     cfg = reference["cfg"]
     _, dec = cells(monkeypatch, cfg)
     mesh = tiny(False)
@@ -198,9 +201,23 @@ def test_decode_takes_a_whole_cache_and_the_reference_tree(reference,
     assert cache["len"] == PROMPT + 1
     for name, leaf in placed.items():
         assert_laid_out(cache[name], leaf.sharding, mesh)
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        dec.make_step(Sharder.for_mesh(mesh, seq_parallel=True))(
-            model, cache, torch.from_numpy(reference["fed"][1]))
+    # sequence parallelism: the reference's decode never resolves "seq" and
+    # runs unchanged; the port's equals its step without the flag bit for
+    # bit, on both tiny meshes, from one cache each
+    for multi in MESHES:
+        mesh = tiny(multi)
+        got = []
+        for flag in (True, False):
+            _, fresh = prefill(model, toks, cfg, MAX_LEN)
+            got.append(dec.make_step(Sharder.for_mesh(
+                mesh, seq_parallel=flag))(model, fresh, torch.from_numpy(
+                    reference["fed"][0])))
+        (flagged, f_cache), (plain, p_cache) = got
+        np.testing.assert_allclose(flagged.gather().numpy(),
+                                   reference["logits"][0], **TOL)
+        assert torch.equal(flagged.gather(), plain.gather())
+        for name in reference["cache"]:
+            assert torch.equal(f_cache[name].gather(), p_cache[name].gather())
 
 
 # -- the cache's blocks ---------------------------------------------------------------------

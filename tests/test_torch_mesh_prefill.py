@@ -29,7 +29,12 @@ from repro.models.transformer import (  # noqa: E402
     prefill as j_prefill,
 )
 from repro_torch.configs import get_arch, registry  # noqa: E402
-from repro_torch.distributed import NamedSharding, Sharder, ShardedTensor  # noqa: E402
+from repro_torch.distributed import (  # noqa: E402
+    DuplicateSpecError,
+    NamedSharding,
+    Sharder,
+    ShardedTensor,
+)
 from repro_torch.distributed import collectives as col  # noqa: E402
 from repro_torch.distributed import observe  # noqa: E402
 from repro_torch.distributed.sharding import shard_bounds  # noqa: E402
@@ -145,8 +150,10 @@ def test_prefill_cell_on_a_mesh_equals_the_reference(reference, multi,
 def test_prefill_takes_the_reference_tree_and_refuses_seq_parallel(
         reference, monkeypatch):
     """The dry-run's input, the reference's tree with layers stacked on
-    ``[L]``, gives what the module gives; sequence parallelism is not
-    ported."""
+    ``[L]``, gives what the module gives; under sequence parallelism on a
+    mesh with "model" the step raises ``DuplicateSpecError`` where the
+    reference's does: its logits' layout ``("batch", "seq", "model")``
+    names "model" twice, which jax's ``NamedSharding`` refuses."""
     cfg = reference["cfg"]
     cell = prefill_cell(monkeypatch, cfg)
     def tensors(t):
@@ -157,9 +164,65 @@ def test_prefill_takes_the_reference_tree_and_refuses_seq_parallel(
     last, _ = cell.make_step(Sharder.for_mesh(mesh))(
         tree, torch.from_numpy(reference["toks"]))
     np.testing.assert_allclose(last.gather().numpy(), reference["last"], **TOL)
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+    j_mesh = jax.sharding.Mesh(
+        np.array(jax.devices()[:1] * 8, dtype=object).reshape(2, 4),
+        ("data", "model"))
+    with pytest.raises(Exception) as j_err:
+        JSharder.for_mesh(j_mesh, seq_parallel=True).named(
+            "batch", "seq", "model")
+    assert type(j_err.value).__name__ == "DuplicateSpecError"
+    with pytest.raises(DuplicateSpecError):
         cell.make_step(Sharder.for_mesh(mesh, seq_parallel=True))(
             tree, torch.from_numpy(reference["toks"]))
+
+
+def test_seq_parallel_prefill_without_a_model_axis_equals_the_reference(
+        reference, monkeypatch):
+    """On an 8-position ``("data",)`` mesh ``"seq"`` resolves to None, so
+    the flag changes nothing: the prefill runs (the reference's does too)
+    and equals the reference's unsharded prefill, 4 rows over 8 data
+    positions (the last four empty)."""
+    cfg = reference["cfg"]
+    cell = prefill_cell(monkeypatch, cfg)
+    mesh = make_mesh((8,), ("data",), ["cpu"] * 8)
+    shard = Sharder.for_mesh(mesh, seq_parallel=True)
+    assert shard.spec("batch", "seq", "model") == ("data", None, None)
+    model = params_from_reference(reference["tree"], cfg, "cpu")
+    last, cache = cell.make_step(shard)(model,
+                                        torch.from_numpy(reference["toks"]))
+    np.testing.assert_allclose(last.gather().numpy(), reference["last"], **TOL)
+    assert cache["len"] == reference["len"]
+    for name, want in reference["cache"].items():
+        np.testing.assert_allclose(cache[name].gather().numpy(), want, **TOL)
+
+
+SPECS = [("data", "model"), (("model", "data"),), (), (None, "model"),
+         ("data", "model", "model"), (("data", "model"), "model"),
+         (("data", "data"),), ("data", None, "data"), (None, "nope")]
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=[repr(s) for s in SPECS])
+def test_named_sharding_refuses_what_jax_refuses(spec):
+    """The port's ``NamedSharding`` accepts and refuses at construction the
+    specs jax's does: an axis named twice (``DuplicateSpecError``, a plain
+    ``Exception`` in both) or an axis the mesh lacks (``ValueError``)."""
+    j_mesh = jax.sharding.Mesh(
+        np.array(jax.devices()[:1] * 8, dtype=object).reshape(2, 4),
+        ("data", "model"))
+    mesh = tiny(False)
+    try:
+        jax.sharding.NamedSharding(j_mesh, jax.sharding.PartitionSpec(*spec))
+        want = None
+    except Exception as e:      # noqa: BLE001 - the kind is compared
+        want = type(e).__name__
+    try:
+        NamedSharding(mesh, spec)
+        got = None
+    except Exception as e:      # noqa: BLE001
+        got = type(e).__name__
+    assert got == want
+    assert issubclass(DuplicateSpecError, Exception)
+    assert not issubclass(DuplicateSpecError, ValueError)
 
 
 # -- the parameters' shardings ------------------------------------------------------

@@ -37,7 +37,11 @@ from repro.train.optimizer import adamw_init as j_adamw_init  # noqa: E402
 from repro.train.train_state import TrainState as JTrainState  # noqa: E402
 from repro_torch.configs import get_arch, registry  # noqa: E402
 from repro_torch.data import shard_batch  # noqa: E402
-from repro_torch.distributed import Sharder, ShardedTensor  # noqa: E402
+from repro_torch.distributed import (  # noqa: E402
+    DuplicateSpecError,
+    Sharder,
+    ShardedTensor,
+)
 from repro_torch.distributed import collectives as col  # noqa: E402
 from repro_torch.distributed import observe  # noqa: E402
 from repro_torch.distributed.sharding import put_tree, shard_bounds  # noqa: E402
@@ -231,7 +235,9 @@ def test_train_step_restored_onto_another_mesh(arch, monkeypatch, tmp_path):
     """The reference's state after one step, saved unsharded and restored
     onto (4, 2) by ``restore_checkpoint(..., shardings=)`` (shards on one
     device share storage with their replicas), steps to the reference's
-    second state; sequence parallelism still refuses."""
+    second state; under sequence parallelism the step raises
+    ``DuplicateSpecError``, as the reference's does on a mesh with
+    "model"."""
     reference = reference_for(arch)
     cfg = reference["cfg"]
     cell = train_cell(monkeypatch, cfg)
@@ -247,7 +253,10 @@ def test_train_step_restored_onto_another_mesh(arch, monkeypatch, tmp_path):
     batch = {k: torch.from_numpy(v) for k, v in reference["batch"].items()}
     out, metrics = cell.make_step(shard)(restored, batch)
     assert_second_step(reference, out, metrics)
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+    # the reference's loss resolves its logits' layout ("batch", "seq",
+    # "model") to ('data', 'model', 'model') under the flag, which jax
+    # refuses: the port's raises the same error before any work
+    with pytest.raises(DuplicateSpecError):
         cell.make_step(Sharder.for_mesh(mesh, seq_parallel=True))(out, batch)
 
 

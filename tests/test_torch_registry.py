@@ -16,7 +16,12 @@ from repro.configs import list_cells as j_list_cells  # noqa: E402
 from repro.distributed.sharding import Sharder as JSharder  # noqa: E402
 from repro_torch.configs import ARCHS, Cell, get_arch, list_cells  # noqa: E402
 from repro_torch.configs.registry import ShapeDtype, sd  # noqa: E402
-from repro_torch.distributed import NO_SHARD, ShardedTensor, Sharder  # noqa: E402
+from repro_torch.distributed import (  # noqa: E402
+    NO_SHARD,
+    DuplicateSpecError,
+    ShardedTensor,
+    Sharder,
+)
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.train.checkpoint import tree_flatten  # noqa: E402
 
@@ -148,7 +153,9 @@ def test_sharder_without_a_mesh():
 def test_lm_steps_refuse_a_mesh():
     """On a mesh the prefill, decode and train steps are all built (their
     runs: the mesh prefill, decode and train tests); the loss over a mesh
-    refuses sequence parallelism, which is not ported."""
+    with "model" under sequence parallelism raises ``DuplicateSpecError``
+    before any work, as the reference's ``Sharder.named("batch", "seq",
+    "model")`` does on such a mesh (its loss fails there)."""
     mesh = make_mesh((1, 1), ("data", "model"), ["cpu"])
     cells = list_cells("phi4-mini-3.8b", smoke=True)
     assert callable(cells["prefill_32k"].make_step(Sharder.for_mesh(mesh)))
@@ -157,7 +164,14 @@ def test_lm_steps_refuse_a_mesh():
     assert callable(step) and step.n_microbatches == 8
     from repro_torch.models.transformer import lm_loss
 
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+    j_mesh = jax.sharding.Mesh(
+        np.array(jax.devices()[:1], dtype=object).reshape(1, 1),
+        ("data", "model"))
+    with pytest.raises(Exception) as j_err:
+        JSharder.for_mesh(j_mesh, seq_parallel=True).named(
+            "batch", "seq", "model")
+    assert type(j_err.value).__name__ == "DuplicateSpecError"
+    with pytest.raises(DuplicateSpecError):
         lm_loss({}, {}, get_arch("phi4-mini-3.8b").smoke_config(),
                 Sharder.for_mesh(mesh, seq_parallel=True))
 
